@@ -1,0 +1,163 @@
+"""Grid featurization on the device, batched over tiles ([B, H, W]).
+
+Port of ``bathymetric_gnn_tpu/ops/features.py``. All local statistics are
+boundary-aware: only valid cells contribute (masked sums / counts), as in
+the reference's featurization (data/graph_construction.py:245-456).
+
+Numerics: float32 throughout. ``masked_local_stats`` subtracts each tile's
+mean depth before forming E[x^2] - E[x]^2; without that shift the
+difference cancels badly at survey depths (~30 m and more).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# Canonical feature order; uncertainty is appended as channel 8 when present.
+NODE_FEATURE_NAMES = (
+    "depth",
+    "local_mean",
+    "local_std",
+    "gradient_x",
+    "gradient_y",
+    "gradient_magnitude",
+    "curvature",
+)
+
+
+class GridFeatures(NamedTuple):
+    """Dense per-cell features of a batch of tiles."""
+
+    features: torch.Tensor  # [B, H, W, F] float32, zero where invalid
+    local_std: torch.Tensor  # [B, H, W] (correction normalizer)
+    local_mean: torch.Tensor  # [B, H, W]
+    valid_count: torch.Tensor  # [B, H, W] (# valid cells in window)
+
+
+def _box_filter_sum(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Sum over a size x size window, zero outside the tile, as separable
+    slice-adds in the JAX order (``ndimage.uniform_filter(mode='constant')
+    * size**2``). ``x`` is [B, H, W]."""
+    pad = size // 2
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (0, 0, pad, size - 1 - pad))
+    xr = xp[:, 0:h]
+    for i in range(1, size):
+        xr = xr + xp[:, i:i + h]
+    xp = F.pad(xr, (pad, size - 1 - pad))
+    xc = xp[:, :, 0:w]
+    for i in range(1, size):
+        xc = xc + xp[:, :, i:i + w]
+    return xc
+
+
+def _laplace_replicate(x: torch.Tensor) -> torch.Tensor:
+    """5-point Laplacian with edge replication. The JAX code pads with
+    ``mode="symmetric"``, which at width 1 repeats the edge cell: the same
+    as PyTorch's ``replicate``."""
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    # same term order as the JAX stencil loop (row-major over the kernel)
+    out = torch.zeros_like(x)
+    out = out + xp[:, 0:h, 1:w + 1]
+    out = out + xp[:, 1:h + 1, 0:w]
+    out = out + -4.0 * xp[:, 1:h + 1, 1:w + 1]
+    out = out + xp[:, 1:h + 1, 2:w + 2]
+    out = out + xp[:, 2:h + 2, 1:w + 1]
+    return out
+
+
+def masked_local_stats(
+    depth: torch.Tensor,
+    valid_mask: torch.Tensor,
+    size: int = 5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Boundary-aware local mean/std/count over a size x size window
+    (masked sums over valid-neighbour counts; variance clamped at 0)."""
+    vf = valid_mask.to(torch.float32)
+    n_valid = vf.sum(dim=(1, 2), keepdim=True).clamp_min(1.0)
+    zero = torch.zeros((), dtype=depth.dtype, device=depth.device)
+    center = torch.where(valid_mask, depth, zero).sum(
+        dim=(1, 2), keepdim=True) / n_valid
+    d0 = torch.where(valid_mask, depth - center, zero)
+
+    sum_vals = _box_filter_sum(d0, size)
+    count = _box_filter_sum(vf, size)
+    safe_count = count.clamp_min(1.0)
+    mean0 = sum_vals / safe_count
+
+    sum_sq = _box_filter_sum(torch.where(valid_mask, d0 * d0, zero), size)
+    variance = (sum_sq / safe_count - mean0 * mean0).clamp_min(0.0)
+    local_std = torch.sqrt(variance)
+    # cells with no valid neighbour report mean 0, like the reference
+    local_mean = torch.where(count > 0, mean0 + center, zero)
+    return local_mean, local_std, count
+
+
+def _grad_axis(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``np.gradient`` along one axis: central inside, one-sided at the
+    borders; 0 along an axis of length 1."""
+    n = a.shape[dim]
+    if n < 2:
+        return torch.zeros_like(a)
+    g = (torch.roll(a, -1, dim) - torch.roll(a, 1, dim)) / 2.0
+    first = a.narrow(dim, 1, 1) - a.narrow(dim, 0, 1)
+    last = a.narrow(dim, n - 1, 1) - a.narrow(dim, n - 2, 1)
+    g.narrow(dim, 0, 1).copy_(first)
+    g.narrow(dim, n - 1, 1).copy_(last)
+    return g
+
+
+def gradients(depth_filled: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(grad_y, grad_x) of [B, H, W], as ``np.gradient`` per tile."""
+    return _grad_axis(depth_filled, 1), _grad_axis(depth_filled, 2)
+
+
+def curvature(depth_filled: torch.Tensor,
+              valid_mask: torch.Tensor) -> torch.Tensor:
+    """Laplacian curvature, zeroed where <3 valid cells in the 3x3 window
+    (``ndimage.laplace`` plus the reference's valid-neighbour gate)."""
+    lap = _laplace_replicate(depth_filled)
+    count = _box_filter_sum(valid_mask.to(torch.float32), 3)
+    return torch.where(count < 3, torch.zeros_like(lap), lap)
+
+
+def compute_grid_features(
+    depth: torch.Tensor,
+    valid_mask: torch.Tensor,
+    uncertainty: Optional[torch.Tensor] = None,
+    stats_window: int = 5,
+) -> GridFeatures:
+    """The reference's 7 node features (+ uncertainty as channel 8), dense
+    over [B, H, W] tiles; invalid cells carry zeros."""
+    depth = depth.to(torch.float32)
+    valid_mask = valid_mask.to(torch.bool)
+    zero = torch.zeros((), dtype=torch.float32, device=depth.device)
+    depth_c = torch.where(valid_mask, depth, zero)  # NaN-safe
+
+    local_mean, local_std, count = masked_local_stats(
+        depth_c, valid_mask, stats_window)
+    # fill invalid cells with the local mean before differential ops so
+    # boundaries see the local trend, not nodata spikes
+    depth_filled = torch.where(valid_mask, depth_c, local_mean)
+
+    gy, gx = gradients(depth_filled)
+    gmag = torch.sqrt(gx * gx + gy * gy)
+    curv = curvature(depth_filled, valid_mask)
+
+    feats = [depth_c, local_mean, local_std, gx, gy, gmag, curv]
+    if uncertainty is not None:
+        unc = uncertainty.to(torch.float32)
+        feats.append(torch.where(valid_mask & torch.isfinite(unc), unc, zero))
+    f = torch.stack(feats, dim=-1)
+    f = torch.where(valid_mask[..., None], f, zero)
+    f = torch.nan_to_num(f, nan=0.0)
+    return GridFeatures(
+        features=f,
+        local_std=torch.where(valid_mask, local_std, zero),
+        local_mean=local_mean,
+        valid_count=count,
+    )
