@@ -1,14 +1,18 @@
-// Fused grid-GAT inference layer for Hopper (sm_90a), CUDA C++.
+// Fused grid-GAT layer, forward (kernel A), for Hopper (sm_90a), CUDA C++.
 //
 // Replaces bathymetric_gnn_tpu/ops/pallas/grid_gat_fused.py::_kernel (the
-// Pallas TPU kernel behind fused_grid_gat_infer) in its inference form: no
-// dropout, optional BatchNorm-affine + ReLU epilogue. For each cell of a
+// Pallas TPU kernel behind fused_grid_gat_infer and the forward of
+// fused_grid_gat) in both forms: inference, with an optional
+// BatchNorm-affine + ReLU epilogue, and training, with post-softmax
+// attention dropout from a streamed mask or drawn in the kernel (Philox,
+// grid_gat_common.cuh; the backward, grid_gat_bwd.cu, regenerates the same
+// draw). For each cell of a
 // [B, H, W, F] batch of tiles and each of `heads` heads it computes
 //   xh = x @ W                       (W [F, HC], HC = heads * C)
 //   a  = x @ (W @ [a_src | a_dst])   (the attention dots, [2 * heads])
 //   logit_k = LeakyReLU(a_src[nbr_k] + a_dst[cell] + el[k])   k < K
 //   logit_s = LeakyReLU(a_src[cell]  + a_dst[cell] + el_self)
-//   w = softmax over {logit_k} U {logit_s}
+//   w = softmax over {logit_k} U {logit_s}    [* dropout multipliers]
 //   out = (w_s * xh[cell] + sum_k w_k * xh[nbr_k] + bias) [* bn_scale
 //         + bn_shift] [ReLU] * (valid > 0)
 // with both products done in this kernel's own body. Neighbours outside
@@ -38,12 +42,19 @@
 // 64-channel chunk. Tensor cores (wgmma, in bf16 at least), TMA loads and
 // shared-memory pipelining are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "grid_gat_common.cuh"
+
 namespace {
+
+using gridgat::c_off;
+using gridgat::Drop;
+using gridgat::from_f;
+using gridgat::leaky;
+using gridgat::MAXK;
+using gridgat::to_f;
 
 constexpr int TH = 8;                   // output rows per block
 constexpr int TW = 16;                  // output cols per block
@@ -58,36 +69,12 @@ constexpr int KC = 32;                  // input features per staging step
 constexpr int NTHREADS = 256;           // 32 row groups x 8 col groups
 constexpr int XS_STRIDE = MROWS + 2;    // x tile, transposed [KC][XS_STRIDE]
 constexpr int XH_STRIDE = NC + 4;       // xh tile [MROWS][XH_STRIDE]
-constexpr int MAXK = 8;                 // neighbour slots; self at MAXK
 constexpr int U_FLOATS =
     (KC * XS_STRIDE > MROWS * XH_STRIDE) ? KC * XS_STRIDE : MROWS * XH_STRIDE;
 
 static_assert(NHALO <= MROWS, "halo rows must fit the padded product");
 static_assert(NTHREADS % NC == 0, "aggregation maps threads to channels");
 static_assert(U_FLOATS % 4 == 0, "keep later shared arrays 16B aligned");
-
-// offsets (dr, dc) in the order of ops/edges.py: OFFSETS_8, OFFSETS_4
-__constant__ int c_off[2][MAXK][2] = {
-    {{-1, -1}, {-1, 0}, {-1, 1}, {0, -1}, {0, 1}, {1, -1}, {1, 0}, {1, 1}},
-    {{-1, 0}, {1, 0}, {0, -1}, {0, 1}, {0, 0}, {0, 0}, {0, 0}, {0, 0}},
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float leaky(float v, float slope) {
-  return v >= 0.f ? v : slope * v;
-}
 
 template <int HEADS>
 constexpr int smem_floats() {
@@ -105,7 +92,7 @@ grid_gat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
                     const float* __restrict__ bn_scale,
                     const float* __restrict__ bn_shift, T* __restrict__ out,
                     int H, int W, int F, int HC, int K, int conn_idx,
-                    float slope, int fuse_bn, int fuse_relu) {
+                    float slope, int fuse_bn, int fuse_relu, Drop drop) {
   extern __shared__ __align__(16) float smem[];
   float* xsT = smem;     // staged x, transposed: [KC][XS_STRIDE]
   float* xh_s = smem;    // xh of the halo cells: [MROWS][XH_STRIDE]
@@ -258,9 +245,14 @@ grid_gat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
           den += lg[k];
         }
         den = fmaxf(den, 1e-16f);
+        // post-softmax attention dropout (training form only)
 #pragma unroll
-        for (int k = 0; k < MAXK; ++k) wrow[k * NCELL] = lg[k] / den;
-        wrow[MAXK * NCELL] = e_self / den;
+        for (int k = 0; k < MAXK; ++k)
+          wrow[k * NCELL] =
+              k < K ? lg[k] / den * drop.mult(b, k, h, gy, gx, K, HEADS, H, W)
+                    : 0.f;
+        wrow[MAXK * NCELL] =
+            e_self / den * drop.mult(b, K, h, gy, gx, K, HEADS, H, W);
       }
       __syncthreads();
     }
@@ -307,7 +299,7 @@ int launch(const void* x, const void* w, const void* wa, const void* el,
            const void* el_self, const void* valid, const void* bias,
            const void* bn_scale, const void* bn_shift, void* out, int B,
            int H, int W, int F, int HC, int K, float slope, int fuse_bn,
-           int fuse_relu, cudaStream_t stream) {
+           int fuse_relu, Drop drop, cudaStream_t stream) {
   const int smem = smem_floats<HEADS>() * (int)sizeof(float);
   auto kern = grid_gat_fwd_kernel<T, HEADS>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -320,7 +312,7 @@ int launch(const void* x, const void* w, const void* wa, const void* el,
       static_cast<const T*>(el_self), static_cast<const float*>(valid),
       static_cast<const float*>(bias), static_cast<const float*>(bn_scale),
       static_cast<const float*>(bn_shift), static_cast<T*>(out), H, W, F,
-      HC, K, K == 8 ? 0 : 1, slope, fuse_bn, fuse_relu);
+      HC, K, K == 8 ? 0 : 1, slope, fuse_bn, fuse_relu, drop);
   return (int)cudaGetLastError();
 }
 
@@ -330,27 +322,60 @@ int dispatch_heads(int heads, const void* x, const void* w, const void* wa,
                    const void* bias, const void* bn_scale,
                    const void* bn_shift, void* out, int B, int H, int W,
                    int F, int HC, int K, float slope, int fuse_bn,
-                   int fuse_relu, cudaStream_t s) {
+                   int fuse_relu, Drop drop, cudaStream_t s) {
   switch (heads) {
     case 1:
       return launch<T, 1>(x, w, wa, el, el_self, valid, bias, bn_scale,
                           bn_shift, out, B, H, W, F, HC, K, slope, fuse_bn,
-                          fuse_relu, s);
+                          fuse_relu, drop, s);
     case 2:
       return launch<T, 2>(x, w, wa, el, el_self, valid, bias, bn_scale,
                           bn_shift, out, B, H, W, F, HC, K, slope, fuse_bn,
-                          fuse_relu, s);
+                          fuse_relu, drop, s);
     case 4:
       return launch<T, 4>(x, w, wa, el, el_self, valid, bias, bn_scale,
                           bn_shift, out, B, H, W, F, HC, K, slope, fuse_bn,
-                          fuse_relu, s);
+                          fuse_relu, drop, s);
     case 8:
       return launch<T, 8>(x, w, wa, el, el_self, valid, bias, bn_scale,
                           bn_shift, out, B, H, W, F, HC, K, slope, fuse_bn,
-                          fuse_relu, s);
+                          fuse_relu, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Writes the draw of Drop mode 2 as a mask [B, K+1, heads, H, W]: the
+// multipliers kernel A (and kernel B) apply. A debug entry for checking
+// the in-kernel draw against the streamed-mask path; the model never calls
+// it.
+__global__ void drop_mask_kernel(float* __restrict__ out, Drop drop, int B,
+                                 int K, int heads, int H, int W) {
+  const size_t n = (size_t)B * (K + 1) * heads * H * W;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    size_t r = i;
+    const int gx = (int)(r % W);
+    r /= W;
+    const int gy = (int)(r % H);
+    r /= H;
+    const int h = (int)(r % heads);
+    r /= heads;
+    const int slot = (int)(r % (K + 1));
+    const int b = (int)(r / (K + 1));
+    out[i] = drop.mult(b, slot, h, gy, gx, K, heads, H, W);
+  }
+}
+
+Drop make_drop(int drop_mode, const void* dmask, const void* seed,
+               unsigned int thresh, float keep_inv) {
+  Drop d;
+  d.mode = drop_mode;
+  d.mask = static_cast<const float*>(dmask);
+  d.seed = static_cast<const unsigned long long*>(seed);
+  d.thresh = thresh;
+  d.keep_inv = keep_inv;
+  return d;
 }
 
 }  // namespace
@@ -359,8 +384,11 @@ int dispatch_heads(int heads, const void* x, const void* w, const void* wa,
 // el, el_self, out); valid, bias, bn_scale and bn_shift are float32.
 // Layouts: x [B, H, W, F], w [F, HC], wa [F, 2*heads],
 // el [B, K, heads, H, W], el_self [B, heads, H, W], valid [B, H, W],
-// out [B, H, W, HC]; all contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// out [B, H, W, HC]; all contiguous. Attention dropout (training form):
+// drop_mode 0 none; 1 streamed f32 dmask [B, K+1, heads, H, W]; 2 drawn
+// in the kernel from the uint64 seed at device pointer `seed`, dropping
+// where the Philox word < thresh and scaling kept weights by keep_inv.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int grid_gat_fwd(int dtype, const void* x, const void* w,
                             const void* wa, const void* el,
                             const void* el_self, const void* valid,
@@ -368,21 +396,42 @@ extern "C" int grid_gat_fwd(int dtype, const void* x, const void* w,
                             const void* bn_shift, void* out, int B, int H,
                             int W, int F, int HC, int heads, int conn,
                             float slope, int fuse_bn, int fuse_relu,
-                            void* stream) {
+                            int drop_mode, const void* dmask,
+                            const void* seed, unsigned int thresh,
+                            float keep_inv, void* stream) {
   if (conn != 4 && conn != 8) return (int)cudaErrorInvalidValue;
   if (B < 1 || H < 1 || W < 1 || F < 1 || HC < 1 || HC % heads != 0)
     return (int)cudaErrorInvalidValue;
+  if (drop_mode < 0 || drop_mode > 2 || (drop_mode == 1 && !dmask) ||
+      (drop_mode == 2 && !seed))
+    return (int)cudaErrorInvalidValue;
+  const Drop drop = make_drop(drop_mode, dmask, seed, thresh, keep_inv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_heads<float>(heads, x, w, wa, el, el_self, valid, bias,
                                  bn_scale, bn_shift, out, B, H, W, F, HC,
-                                 conn, slope, fuse_bn, fuse_relu, s);
+                                 conn, slope, fuse_bn, fuse_relu, drop, s);
   if (dtype == 1)
     return dispatch_heads<__nv_bfloat16>(heads, x, w, wa, el, el_self, valid,
                                          bias, bn_scale, bn_shift, out, B, H,
                                          W, F, HC, conn, slope, fuse_bn,
-                                         fuse_relu, s);
+                                         fuse_relu, drop, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The in-kernel draw (drop_mode 2 above) written out as an f32 mask
+// [B, K+1, heads, H, W], K = conn.
+extern "C" int grid_gat_drop_mask(void* out, const void* seed,
+                                  unsigned int thresh, float keep_inv, int B,
+                                  int conn, int heads, int H, int W,
+                                  void* stream) {
+  if ((conn != 4 && conn != 8) || !seed || B < 1 || heads < 1 || H < 1 ||
+      W < 1)
+    return (int)cudaErrorInvalidValue;
+  const Drop drop = make_drop(2, nullptr, seed, thresh, keep_inv);
+  drop_mask_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), drop, B, conn, heads, H, W);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* grid_gat_cuda_error_string(int err) {

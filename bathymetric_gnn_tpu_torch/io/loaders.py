@@ -1,7 +1,8 @@
 """Raster ingest/egress facade.
 
 Copy of ``bathymetric_gnn_tpu/io/loaders.py`` for the PyTorch port:
-GeoTIFF (io/geotiff.py) and ESRI ASCII in, GeoTIFF and ASCII out. BAG
+GeoTIFF (io/geotiff.py) and ESRI ASCII in, GeoTIFF and ASCII out, and
+``read_raster_bands`` for the ground-truth datasets. BAG
 input and output raise ``NotImplementedError`` until the BAG codec is
 ported (it needs h5py). ``vr_bag_mode`` is still validated so that the
 CLI's flag keeps its meaning.
@@ -12,7 +13,7 @@ from __future__ import annotations
 import logging
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -206,3 +207,20 @@ class BathymetricWriter:
             f.write(f"xllcorner {gt[0]}\nyllcorner {gt[3] + h * gt[5]}\n")
             f.write(f"cellsize {abs(gt[1])}\nnodata_value {nodata}\n")
             np.savetxt(f, depth, fmt="%.4f")
+
+
+def read_raster_bands(path, bands: Optional[List[int]] = None
+                      ) -> Tuple[List[np.ndarray], Dict]:
+    """Read selected 1-indexed bands of a raster (GT dataset hook)."""
+    path = Path(path)
+    if path.suffix.lower() in (".tif", ".tiff"):
+        all_bands, info = read_geotiff(path)
+        gt = info.geotransform
+        meta = {
+            "resolution": (abs(gt[1]), abs(gt[5])) if gt else (1.0, 1.0),
+            "nodata": info.nodata, "geotransform": gt, "crs": info.crs_wkt,
+        }
+        if bands is None:
+            return [all_bands[i] for i in range(all_bands.shape[0])], meta
+        return [all_bands[i - 1] for i in bands], meta
+    raise ValueError(f"unsupported raster: {path}")

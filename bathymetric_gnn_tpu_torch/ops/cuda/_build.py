@@ -3,8 +3,9 @@
 Each source in ``csrc/`` is compiled on first use, by one ``nvcc`` per
 source (all started together by ``build_all``), into a shared library with
 a plain C interface under ``build/torch_kernels/`` at the root of the
-checkout. The file name carries a hash of the source, so an edited source
-is rebuilt and a stale library is never loaded. Nothing is built from
+checkout. The file name carries a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
+library is never loaded. Nothing is built from
 outside the checkout; nvcc is taken from ``$CUDA_HOME``, ``PATH`` or
 ``/usr/local/cuda``.
 """
@@ -27,12 +28,23 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+# the dropout arguments of both layer entries: mode, dmask, seed pointer,
+# threshold, 1 / keep
+_DROP = [_I, _VP, _VP, _U, _F]
 # name -> (source file, {C function: (restype, argtypes)})
 KERNELS: Dict[str, tuple] = {
     "grid_gat_fwd": ("grid_gat_fwd.cu", {
-        "grid_gat_fwd": (_I, [_I] + [_VP] * 10 + [_I] * 7
-                         + [ctypes.c_float, _I, _I, _VP]),
+        "grid_gat_fwd": (_I, [_I] + [_VP] * 10 + [_I] * 7 + [_F, _I, _I]
+                         + _DROP + [_VP]),
+        "grid_gat_drop_mask": (_I, [_VP, _VP, _U, _F] + [_I] * 5 + [_VP]),
         "grid_gat_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "grid_gat_bwd": ("grid_gat_bwd.cu", {
+        "grid_gat_bwd": (_I, [_I] + [_VP] * 15 + [_I] * 8 + [_F] + _DROP
+                         + [_I, _I, _VP]),
+        "grid_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
 }
 
@@ -50,8 +62,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

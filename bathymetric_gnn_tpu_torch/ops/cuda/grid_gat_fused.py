@@ -1,21 +1,25 @@
-"""Fused grid-GAT inference layer: CUDA kernel and its plain version.
+"""Fused grid-GAT layer: CUDA kernels A (forward) and B (backward) and
+their plain versions.
 
-Counterpart of ``bathymetric_gnn_tpu/ops/pallas/grid_gat_fused.py``'s
-inference entry ``fused_grid_gat_infer`` and its Pallas ``_kernel``. One
-8- (or 4-) connected GAT layer on dense [B, H, W, F] tiles:
-x @ W and the attention dots, per-offset logits + premasked edge logits,
-LeakyReLU, softmax over the neighbours and the self loop, the weighted
-sum, + bias, an optional BatchNorm-affine (+ ReLU) epilogue, and the
-validity mask.
+Counterpart of ``bathymetric_gnn_tpu/ops/pallas/grid_gat_fused.py``: its
+training entry ``fused_grid_gat`` (custom VJP over the Pallas ``_kernel``
+and ``_bwd_kernel``) and its inference entry ``fused_grid_gat_infer``.
+One 8- (or 4-) connected GAT layer on dense [B, H, W, F] tiles: x @ W and
+the attention dots, per-offset logits + premasked edge logits, LeakyReLU,
+softmax over the neighbours and the self loop, optional post-softmax
+attention dropout, the weighted sum, + bias, an optional BatchNorm-affine
+(+ ReLU) epilogue (inference), and the validity mask.
 
 Which implementation runs follows only the device of ``x``: a CUDA tensor
-launches the hand-written kernel (``csrc/grid_gat_fwd.cu``), a CPU tensor
-runs ``grid_gat_infer_reference``. There is no fallback between them: a
-CUDA input the kernel does not take raises.
+launches the hand-written kernels (``csrc/grid_gat_fwd.cu``,
+``csrc/grid_gat_bwd.cu``), a CPU tensor runs ``grid_gat_reference`` (and
+autograd through it). There is no fallback between them: a CUDA input the
+kernels do not take raises.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -24,12 +28,17 @@ from ..edges import offsets_for_connectivity
 
 NEG = -1e30
 
-# Number of times the CUDA kernel has been launched in this process. Only
-# the launch site below adds to it; callers reset it to 0 to count the
-# launches of one run.
+# Launches of the CUDA kernels in this process: kernel A in its inference
+# form, kernel A in its training form, and kernel B (one backward call
+# launches its two kernels). Only the launch sites below add to them;
+# callers reset them to 0 to count the launches of one run.
 launches = 0
+train_launches = 0
+bwd_launches = 0
 
 _KERNEL_HEADS = (1, 2, 4, 8)
+_BWD_HEADS = (1, 2, 4)
+_MAX_EDGE_DIM = 4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -77,10 +86,7 @@ def edge_precompute(w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
         me = m_edge.to(torch.float32)
         el = torch.einsum("bkhwf,fa->bkahw", ea, me)
         el = torch.where(nbm[:, :, None], el, torch.full_like(el, NEG))
-        cnt = nbm.to(torch.float32).sum(1).clamp_min(1.0)[..., None]
-        mean_attr = torch.where(nbm[..., None], ea,
-                                torch.zeros_like(ea)).sum(1) / cnt
-        el_self = torch.einsum("bhwf,fa->bahw", mean_attr, me)
+        el_self = torch.einsum("bhwf,fa->bahw", _mean_incoming(ea, nbm), me)
     else:
         b, k, h, w = nbm.shape
         el = torch.where(nbm, 0.0, NEG)[:, :, None].expand(
@@ -91,24 +97,47 @@ def edge_precompute(w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
             el_self.to(compute_dtype).contiguous())
 
 
+def _mean_incoming(ea, nbm):
+    """The self loop's edge attribute: the mean over the valid incoming
+    edges ([B, K, H, W, ed], [B, K, H, W] -> [B, H, W, ed])."""
+    cnt = nbm.to(torch.float32).sum(1).clamp_min(1.0)[..., None]
+    return torch.where(nbm[..., None], ea, torch.zeros_like(ea)).sum(1) / cnt
+
+
+def edge_attr_terms(eattr, nbr_mask, use_edge: bool,
+                    compute_dtype=torch.float32):
+    """The edge attributes kernel B contracts with d(logits) for dM_edge:
+    (eattr [B, K, H, W, ed], the self loop's mean incoming attribute
+    [B, H, W, ed]), in ``compute_dtype``; zeros when ``use_edge`` is
+    off (the layer then has no edge term)."""
+    ea = eattr.to(torch.float32)
+    if not use_edge:
+        ea = torch.zeros_like(ea)
+    return (ea.to(compute_dtype).contiguous(),
+            _mean_incoming(ea, nbr_mask > 0).to(compute_dtype).contiguous())
+
+
 def _shift2(a: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
     """a_shifted[b, r, c] = a[b, r + dr, c + dc] (wraps; masked later)."""
     return torch.roll(a, shifts=(-dr, -dc), dims=(1, 2))
 
 
-def grid_gat_infer_reference(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
-                             nbr_mask, valid, bias, connectivity: int = 8,
-                             negative_slope: float = 0.2,
-                             use_edge: bool = True, *, bn_scale=None,
-                             bn_bias=None, fuse_relu: bool = False,
-                             compute_dtype=torch.float32):
-    """Plain PyTorch version of the kernel (batched [B, H, W, F]).
+def grid_gat_reference(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
+                       nbr_mask, valid, bias, connectivity: int = 8,
+                       negative_slope: float = 0.2, use_edge: bool = True, *,
+                       dmask=None, bn_scale=None, bn_bias=None,
+                       fuse_relu: bool = False,
+                       compute_dtype=torch.float32):
+    """Plain PyTorch version of kernel A (batched [B, H, W, F]), and, through
+    autograd, of kernel B.
 
-    ``_reference_forward`` plus the epilogue and mask as ``_fused_forward``
-    applies them. In bf16 it rounds where the kernel rounds: x, W,
-    W@[a_src|a_dst], the edge logit terms and the output; everything else
-    is f32. The attention dots are x @ (W @ a), the kernel's formulation,
-    equal to (x @ W) @ a up to f32 rounding.
+    ``_reference_forward`` (with its ``dmask`` [B, K+1, heads, H, W], self
+    loop at slot K, multiplied into the post-softmax weights) plus the
+    epilogue and mask as ``_fused_forward`` applies them. In bf16 it rounds
+    where the kernel rounds: x, W, W@[a_src|a_dst], the edge logit terms
+    and the output; everything else is f32. The attention dots are
+    x @ (W @ a), the kernel's formulation, equal to (x @ W) @ a up to f32
+    rounding.
     """
     offsets = offsets_for_connectivity(connectivity)
     heads = a_src_mat.shape[1]
@@ -148,12 +177,19 @@ def grid_gat_infer_reference(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
         denom = denom + e
     denom = denom.clamp_min(1e-16)
 
-    def eh(wts):  # [B, H, W, heads] -> [B, H, W, HC]
-        return torch.repeat_interleave(wts, c, dim=-1)
+    w_self = e_self / denom
+    wts = [e / denom for e in exps]
+    if dmask is not None:
+        dm = dmask.to(f32).permute(0, 1, 3, 4, 2)           # [B, K+1, H, W, h]
+        w_self = w_self * dm[:, len(offsets)]
+        wts = [wk * dm[:, k] for k, wk in enumerate(wts)]
 
-    acc = xh * eh(e_self / denom)
+    def eh(wt):  # [B, H, W, heads] -> [B, H, W, HC]
+        return torch.repeat_interleave(wt, c, dim=-1)
+
+    acc = xh * eh(w_self)
     for k, (dr, dc) in enumerate(offsets):
-        acc = acc + _shift2(xh, dr, dc) * eh(exps[k] / denom)
+        acc = acc + _shift2(xh, dr, dc) * eh(wts[k])
     acc = acc + bias.to(f32).reshape(1, 1, 1, hc)
     if bn_scale is not None:
         acc = acc * bn_scale.to(f32) + bn_bias.to(f32)
@@ -161,6 +197,13 @@ def grid_gat_infer_reference(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
         acc = torch.relu(acc)
     acc = acc * (valid > 0)[..., None]
     return acc.to(compute_dtype)
+
+
+def _batched(x, eattr, nbr_mask, valid, dmask=None):
+    if x.dim() == 3:
+        return (True, x[None], eattr[None], nbr_mask[None], valid[None],
+                None if dmask is None else dmask[None])
+    return False, x, eattr, nbr_mask, valid, dmask
 
 
 def fused_grid_gat_infer(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
@@ -178,13 +221,21 @@ def fused_grid_gat_infer(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
     ``dmask`` (always None there), ``block_rows`` and ``interpret`` have
     no meaning here and are not taken. ``compute_dtype=torch.bfloat16``
     streams x, W, W@a and the edge logits in bf16 and writes bf16; softmax
-    and accumulation stay f32. A CUDA ``x`` launches the kernel, a CPU
-    ``x`` runs the plain version. No autograd.
+    and accumulation stay f32. A CUDA ``x`` launches kernel A, a CPU ``x``
+    runs the plain version.
+
+    It has no backward: with grad mode on and an input that requires grad
+    it raises (``fused_grid_gat`` is the differentiable layer).
     """
-    unbatched = x.dim() == 3
-    if unbatched:
-        x, eattr, nbr_mask, valid = (x[None], eattr[None], nbr_mask[None],
-                                     valid[None])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w_lin, a_src_mat, a_dst_mat, m_edge, bias,
+                      bn_scale, bn_bias)):
+        raise RuntimeError(
+            "fused_grid_gat_infer has no backward: call it under "
+            "torch.no_grad(), or use fused_grid_gat to train")
+    unbatched, x, eattr, nbr_mask, valid, _ = _batched(x, eattr, nbr_mask,
+                                                       valid)
     args = (x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask, valid,
             bias, connectivity, negative_slope, use_edge)
     kw = dict(bn_scale=bn_scale, bn_bias=bn_bias, fuse_relu=fuse_relu,
@@ -192,23 +243,133 @@ def fused_grid_gat_infer(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
     if x.device.type == "cuda":
         out = call_kernel(**kernel_args(*args, **kw))
     elif x.device.type == "cpu":
-        out = grid_gat_infer_reference(*args, **kw)
+        out = grid_gat_reference(*args, **kw)
     else:
         raise ValueError(f"unsupported device {x.device}")
     return out[0] if unbatched else out
 
 
+def fused_grid_gat(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
+                   valid, bias, connectivity: int = 8,
+                   negative_slope: float = 0.2, use_edge: bool = True, *,
+                   dmask=None, drop_seed=None, keep_prob: float = 1.0,
+                   compute_dtype=torch.float32):
+    """Training GAT layer (differentiable in x, w_lin, a_src_mat,
+    a_dst_mat, m_edge and bias); returns [.., H, W, HC] in
+    ``compute_dtype``, pre-BatchNorm.
+
+    The JAX ``fused_grid_gat``'s arguments, layouts and semantics, with a
+    batch dimension. Attention dropout comes from one of
+    - ``dmask`` [.., K+1, heads, H, W]: multipliers of the post-softmax
+      weights (self loop at slot K), streamed into both kernels;
+    - ``drop_seed``: an int64 tensor of one element on the card; kernel A
+      draws keep(p = ``keep_prob``)/keep_prob multipliers with Philox
+      from it and kernel B regenerates them (CUDA only: on the CPU pass a
+      ``dmask``).
+
+    CUDA: kernel A forward and kernel B backward (``_FusedGridGAT``),
+    keeping only the layer inputs and the edge precompute between them.
+    CPU: the plain version, differentiated by autograd. bf16 treats its
+    roundings as identity in the backward, as the JAX kernel does.
+    """
+    if dmask is not None and drop_seed is not None:
+        raise ValueError("dmask and drop_seed are mutually exclusive")
+    unbatched, x, eattr, nbr_mask, valid, dmask = _batched(
+        x, eattr, nbr_mask, valid, dmask)
+    if x.device.type == "cuda":
+        out = _FusedGridGAT.apply(
+            x, w_lin, a_src_mat, a_dst_mat, m_edge, bias, eattr, nbr_mask,
+            valid, dmask, drop_seed,
+            (connectivity, negative_slope, use_edge, keep_prob,
+             compute_dtype))
+    elif x.device.type == "cpu":
+        if drop_seed is not None:
+            raise ValueError("the in-kernel dropout draw runs only on the "
+                             "card; pass a dmask on the CPU")
+        out = grid_gat_reference(x, w_lin, a_src_mat, a_dst_mat, m_edge,
+                                 eattr, nbr_mask, valid, bias, connectivity,
+                                 negative_slope, use_edge, dmask=dmask,
+                                 compute_dtype=compute_dtype)
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    return out[0] if unbatched else out
+
+
+class _FusedGridGAT(torch.autograd.Function):
+    """Kernel A (training form) forward, kernel B backward, as the JAX
+    custom VJP's ``_fwd``/``_bwd``: the forward keeps the layer inputs,
+    the edge precompute and the dropout mask or seed; the backward sums
+    kernel B's per-block partials and forms dW_lin = dW + d(W@a) a_cat^T
+    and d a_cat = W^T d(W@a) (JAX ``_fused_backward``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_lin, a_src_mat, a_dst_mat, m_edge, bias, eattr,
+                nbr_mask, valid, dmask, drop_seed, opts):
+        connectivity, slope, use_edge, keep_prob, dt = opts
+        kw = kernel_args(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr,
+                         nbr_mask, valid, bias, connectivity, slope,
+                         use_edge, bn_scale=None, bn_bias=None,
+                         fuse_relu=False, compute_dtype=dt, dmask=dmask,
+                         drop_seed=drop_seed, keep_prob=keep_prob,
+                         train=True)
+        out = call_kernel(**kw)
+        ea, mattr = edge_attr_terms(eattr, nbr_mask, use_edge, dt)
+        ctx.save_for_backward(kw["x"], kw["w"], kw["wa"], kw["el"],
+                              kw["el_self"], kw["valid"], ea, mattr,
+                              kw["dmask"], kw["seed"], w_lin, a_src_mat,
+                              a_dst_mat)
+        ctx.kw = {k: kw[k] for k in ("heads", "connectivity",
+                                     "negative_slope", "drop_mode",
+                                     "thresh", "keep_inv")}
+        ctx.dtypes = (x.dtype, w_lin.dtype, m_edge.dtype, bias.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (xk, wk, wa, el, el_self, valid, ea, mattr, dmask, seed, w_lin,
+         a_src_mat, a_dst_mat) = ctx.saved_tensors
+        x_dt, w_dt, me_dt, b_dt = ctx.dtypes
+        dx, dw_part, dme_part, db_part = call_bwd_kernel(
+            x=xk, w=wk, wa=wa, el=el, el_self=el_self, valid=valid,
+            g=g.to(xk.dtype).contiguous(), eattr=ea, mattr=mattr,
+            dmask=dmask, seed=seed, **ctx.kw)
+        hc = wk.shape[1]
+        heads = ctx.kw["heads"]
+        dw = dw_part[..., :hc].sum(0)
+        dwa = dw_part[..., hc:].sum(0)                      # [F, 2h]
+        a_cat = torch.cat([a_src_mat, a_dst_mat], dim=1).to(torch.float32)
+        dw_lin = dw + dwa @ a_cat.T
+        d_a = w_lin.to(torch.float32).T @ dwa               # [HC, 2h]
+        return (dx.to(x_dt), dw_lin.to(w_dt),
+                d_a[:, :heads].to(a_src_mat.dtype),
+                d_a[:, heads:].to(a_dst_mat.dtype),
+                dme_part.sum(0).to(me_dt), db_part.sum(0).to(b_dt),
+                None, None, None, None, None, None)
+
+
+def drop_threshold(keep_prob: float):
+    """(threshold, 1 / keep) of the in-kernel draw: a weight is dropped
+    where the Philox word is < round((1 - keep) * 2^32)."""
+    if not 0.0 < keep_prob <= 1.0:
+        raise ValueError(f"keep_prob {keep_prob} not in (0, 1]")
+    thresh = min(2 ** 32 - 1, int(round((1.0 - keep_prob) * 2 ** 32)))
+    return thresh, 1.0 / keep_prob
+
+
 def _check(cond: bool, msg: str):
     if not cond:
-        raise ValueError(f"grid_gat_fwd kernel: {msg}")
+        raise ValueError(f"grid_gat kernel: {msg}")
 
 
 def kernel_args(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
                 valid, bias, connectivity, negative_slope, use_edge, *,
-                bn_scale, bn_bias, fuse_relu, compute_dtype) -> dict:
-    """Check a batched CUDA call and prepare the kernel's own inputs
-    (the edge precompute, casts, contiguous copies). Raises ValueError on
-    anything the kernel does not take."""
+                bn_scale, bn_bias, fuse_relu, compute_dtype, dmask=None,
+                drop_seed=None, keep_prob: float = 1.0,
+                train: bool = False) -> dict:
+    """Check a batched CUDA call and prepare kernel A's own inputs (the
+    edge precompute, casts, contiguous copies, the dropout arguments).
+    ``train`` marks the training form (it counts in ``train_launches``).
+    Raises ValueError on anything the kernel does not take."""
     dt = compute_dtype
     _check(dt in _DTYPE_CODE, f"compute_dtype {dt} (float32 or bfloat16)")
     b, h, w, f_in = x.shape
@@ -227,10 +388,23 @@ def kernel_args(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
            "input too large for the kernel's index arithmetic")
     dev = x.device
     tensors = [x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
-               valid, bias] + [t for t in (bn_scale, bn_bias)
-                               if t is not None]
+               valid, bias] + [t for t in (bn_scale, bn_bias, dmask,
+                                           drop_seed) if t is not None]
     _check(all(t.device == dev for t in tensors),
            "all inputs must be on the device of x")
+    drop_mode, thresh, keep_inv = 0, 0, 1.0
+    if dmask is not None:
+        _check(drop_seed is None, "dmask and drop_seed together")
+        _check(tuple(dmask.shape) == (b, k + 1, heads, h, w),
+               f"dmask {tuple(dmask.shape)} != {(b, k + 1, heads, h, w)}")
+        dmask = dmask.to(torch.float32).contiguous()
+        drop_mode = 1
+    elif drop_seed is not None:
+        _check(drop_seed.dtype == torch.int64 and drop_seed.numel() == 1,
+               "drop_seed must be one int64 element")
+        drop_seed = drop_seed.contiguous()
+        drop_mode = 2
+        thresh, keep_inv = drop_threshold(keep_prob)
 
     wa, el, el_self = edge_precompute(w_lin, a_src_mat, a_dst_mat, m_edge,
                                       eattr, nbr_mask, use_edge, dt)
@@ -247,7 +421,8 @@ def kernel_args(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
                   if fuse_bn else torch.zeros(hc, **f32)),
         heads=heads, connectivity=connectivity,
         negative_slope=float(negative_slope), fuse_bn=fuse_bn,
-        fuse_relu=bool(fuse_relu))
+        fuse_relu=bool(fuse_relu), drop_mode=drop_mode, dmask=dmask,
+        seed=drop_seed, thresh=thresh, keep_inv=keep_inv, train=train)
     for name in ("x", "w", "wa", "el", "el_self", "valid", "bias",
                  "bn_scale", "bn_shift"):
         t = kw[name]
@@ -258,12 +433,19 @@ def kernel_args(x, w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
     return kw
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def call_kernel(*, x, w, wa, el, el_self, valid, bias, bn_scale, bn_shift,
-                heads, connectivity, negative_slope, fuse_bn, fuse_relu):
-    """Launch the kernel on prepared inputs (``kernel_args``) on the
-    current stream; returns the output [B, H, W, HC]. The only place that
-    counts ``launches``."""
-    global launches
+                heads, connectivity, negative_slope, fuse_bn, fuse_relu,
+                drop_mode=0, dmask=None, seed=None, thresh=0, keep_inv=1.0,
+                train=False):
+    """Launch kernel A on prepared inputs (``kernel_args``) on the current
+    stream; returns the output [B, H, W, HC]. The only place that counts
+    ``launches`` (inference form) and ``train_launches`` (training
+    form)."""
+    global launches, train_launches
     from ._build import library
 
     b, h, wd, f_in = x.shape
@@ -277,10 +459,99 @@ def call_kernel(*, x, w, wa, el, el_self, valid, bias, bn_scale, bn_shift,
             el.data_ptr(), el_self.data_ptr(), valid.data_ptr(),
             bias.data_ptr(), bn_scale.data_ptr(), bn_shift.data_ptr(),
             out.data_ptr(), b, h, wd, f_in, hc, heads, connectivity,
-            negative_slope, int(fuse_bn), int(fuse_relu), stream)
+            negative_slope, int(fuse_bn), int(fuse_relu), drop_mode,
+            _ptr(dmask), _ptr(seed), thresh, keep_inv, stream)
     if err != 0:
         msg = lib.grid_gat_cuda_error_string(err).decode()
         raise RuntimeError(f"grid_gat_fwd kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    launches += 1
+    if train:
+        train_launches += 1
+    else:
+        launches += 1
+    return out
+
+
+def _splits(ncell: int):
+    """(nsplit, cells per split) of kernel B's weight-grad partials: at
+    most 64 partials, each over a run of >= 1024 cells (a multiple of the
+    products kernel's depth step, 16)."""
+    target = max(1, min(64, ncell // 1024))
+    cps = -(-ncell // target)
+    cps = -(-cps // 16) * 16
+    return -(-ncell // cps), cps
+
+
+def call_bwd_kernel(*, x, w, wa, el, el_self, valid, g, eattr, mattr, heads,
+                    connectivity, negative_slope, drop_mode=0, dmask=None,
+                    seed=None, thresh=0, keep_inv=1.0):
+    """Launch kernel B (its attention and products kernels) on the inputs
+    kernel A was given (``kernel_args``), the cotangent ``g`` [B, H, W, HC]
+    and the edge attribute terms (``edge_attr_terms``). Returns (dx
+    [B, H, W, F], dW|d(W@a) partials [nsplit, F, HC + 2h], dM_edge
+    partials [nblk, ed, heads], dbias partials [nblk, HC]), the partials
+    f32. The only place that counts ``bwd_launches``."""
+    global bwd_launches
+    from ._build import library
+
+    b, h, wd, f_in = x.shape
+    hc = w.shape[1]
+    ed = eattr.shape[-1]
+    _check(heads in _BWD_HEADS, f"backward: heads={heads} not in "
+           f"{_BWD_HEADS} (kernel B's shared memory)")
+    _check(ed <= _MAX_EDGE_DIM, f"edge_dim {ed} > {_MAX_EDGE_DIM}")
+    _check(tuple(g.shape) == (b, h, wd, hc) and g.dtype == x.dtype
+           and g.is_contiguous(), f"cotangent {tuple(g.shape)} {g.dtype}")
+    dev, dt = x.device, x.dtype
+    nblk = b * math.ceil(h / 8) * math.ceil(wd / 16)
+    nsplit, cps = _splits(b * h * wd)
+    dxh = torch.empty(b, h, wd, hc, device=dev, dtype=dt)
+    dad = torch.empty(b, h, wd, 2 * heads, device=dev, dtype=dt)
+    dme_part = torch.empty(nblk, ed, heads, device=dev, dtype=torch.float32)
+    db_part = torch.empty(nblk, hc, device=dev, dtype=torch.float32)
+    dx = torch.empty(b, h, wd, f_in, device=dev, dtype=dt)
+    dw_part = torch.empty(nsplit, f_in, hc + 2 * heads, device=dev,
+                          dtype=torch.float32)
+    lib = library("grid_gat_bwd")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.grid_gat_bwd(
+            _DTYPE_CODE[dt], x.data_ptr(), w.data_ptr(), wa.data_ptr(),
+            el.data_ptr(), el_self.data_ptr(), valid.data_ptr(),
+            g.data_ptr(), eattr.data_ptr(), mattr.data_ptr(),
+            dxh.data_ptr(), dad.data_ptr(), dme_part.data_ptr(),
+            db_part.data_ptr(), dx.data_ptr(), dw_part.data_ptr(), b, h, wd,
+            f_in, hc, heads, connectivity, ed, negative_slope, drop_mode,
+            _ptr(dmask), _ptr(seed), thresh, keep_inv, nsplit, cps, stream)
+    if err != 0:
+        msg = lib.grid_gat_bwd_error_string(err).decode()
+        raise RuntimeError(f"grid_gat_bwd kernels failed to launch: CUDA "
+                           f"error {err} ({msg})")
+    bwd_launches += 1
+    return dx, dw_part, dme_part, db_part
+
+
+def drop_mask(drop_seed: torch.Tensor, keep_prob: float, batch: int,
+              connectivity: int, heads: int, height: int,
+              width: int) -> torch.Tensor:
+    """The in-kernel dropout draw of ``drop_seed`` written out as the f32
+    mask [B, K+1, heads, H, W] that kernels A and B apply: a debug entry
+    for holding the draw against the streamed-mask path. CUDA only; not on
+    any model path."""
+    from ._build import library
+
+    _check(drop_seed.is_cuda and drop_seed.dtype == torch.int64
+           and drop_seed.numel() == 1, "drop_seed: one int64 on the card")
+    k = len(offsets_for_connectivity(connectivity))
+    thresh, keep_inv = drop_threshold(keep_prob)
+    out = torch.empty(batch, k + 1, heads, height, width,
+                      device=drop_seed.device, dtype=torch.float32)
+    lib = library("grid_gat_fwd")
+    with torch.cuda.device(drop_seed.device):
+        err = lib.grid_gat_drop_mask(
+            out.data_ptr(), drop_seed.data_ptr(), thresh, keep_inv, batch,
+            connectivity, heads, height, width,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grid_gat_drop_mask failed: CUDA error {err}")
     return out

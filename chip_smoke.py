@@ -9,14 +9,29 @@ Run from the root of a checkout. Phases, each printing its own lines:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every CUDA source of the port is compiled from ``csrc/``, one nvcc per
    source, all in parallel, into ``build/torch_kernels/``;
-2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (full width: hidden 64 x 4 heads);
-3. the main path through the port's CLI (``cli.inference.main``) on a
-   synthetic 2304x2304 survey (9 tiles of 1024 with overlap 128: one batch
-   of 8, then one single tile), with the launch counts read around that
-   run; the outputs are checked, and one tile's model forward through the
-   kernel is compared with the same model on its plain functions;
-4. timings with CUDA events after warm-up.
+2. kernel A (inference form) against its plain PyTorch version on the
+   card, at the shapes the inference path gives it (full width: hidden
+   64 x 4 heads, 1024^2 tiles);
+2b. kernel A (training form, streamed dropout mask) and kernel B against
+   the plain forward and autograd of it, at the training model's three
+   layer shapes on [4, 256, 256], f32 and bf16, plus a ragged shape and
+   4-connectivity; and the in-kernel Philox draw: its drop rate, and A + B
+   with the draw equal to A + B given the same draw as a streamed mask;
+3. the inference path through the port's CLI (``cli.inference.main``) on
+   a synthetic 2304x2304 survey (9 tiles of 1024 with overlap 128: one
+   batch of 8, then one single tile), with the launch counts read around
+   that run; the outputs are checked, and one tile's model forward through
+   the kernel is compared with the same model on its plain functions;
+3b. the training path through ``cli.train.main --trainer grid`` on a
+   synthetic clean 928x928 survey (16 tiles of 256, batches of 4, 2
+   epochs, dropout 0.1, f32; then the same in bf16), with the launch
+   counts read around the f32 run; losses finite, every parameter has a
+   gradient, one step's gradients through the kernels agree with the same
+   step on the plain functions, and ``cli.inference`` serves the
+   checkpoint the run wrote;
+4. timings with CUDA events after warm-up: kernel A per inference shape,
+   kernels A (training form) and B per training shape, and the whole
+   train step in f32 and bf16.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -49,6 +64,17 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # f32: the same f32 products summed in another order (~1e-6 measured);
 # bf16: one or two bf16 rounding steps of the output (2^-7 relative each).
 TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+# kernel B vs autograd of the plain version, per gradient against its
+# largest |entry|: f32 2e-4 (sums over all cells in another order); bf16
+# 3e-2 (kernel B rounds dxh and d_ad to bf16 before its products, where
+# autograd rounds after them; the JAX bf16 backward tests' tolerance).
+GRAD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+TRAIN_TILE = 256
+TRAIN_BATCH = 4
+TRAIN_SURVEY = 928      # 4 x 4 tiles of 256 at stride 224
+TRAIN_EPOCHS = 2
+KEEP = 0.9              # 1 - the default dropout (config.model.dropout)
+LEAVES = ("x", "w_lin", "a_src", "a_dst", "m_edge", "bias")
 
 
 def log(msg: str) -> None:
@@ -92,17 +118,19 @@ def phase_card_and_build(torch):
 
 # -- inputs --------------------------------------------------------------------
 
-def synthetic_survey(np, h, w, seed):
-    """Depth ramp + sinusoid + roughness at ~30 m, 1% spikes of 0.5-4 m,
-    one NaN hole and scattered dropouts; uncertainty 0.1-0.4 m."""
+def synthetic_survey(np, h, w, seed, spikes=True):
+    """Depth ramp + sinusoid + roughness at ~30 m, 1% spikes of 0.5-4 m
+    (unless ``spikes`` is off: a clean survey), one NaN hole and scattered
+    dropouts; uncertainty 0.1-0.4 m."""
     rg = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     depth = (30.0 + 0.002 * xx + 0.001 * yy + 0.5 * np.sin(xx / 37.0)
              + 0.3 * np.cos(yy / 53.0)
              + rg.normal(0, 0.02, (h, w))).astype(np.float32)
-    spikes = rg.random((h, w)) < 0.01
-    depth[spikes] += (rg.uniform(0.5, 4.0, spikes.sum())
-                      * rg.choice([-1, 1], spikes.sum())).astype(np.float32)
+    if spikes:
+        hit = rg.random((h, w)) < 0.01
+        depth[hit] += (rg.uniform(0.5, 4.0, hit.sum())
+                       * rg.choice([-1, 1], hit.sum())).astype(np.float32)
     depth[h // 3:h // 3 + 150, w // 2:w // 2 + 200] = np.nan
     depth[rg.random((h, w)) < 0.002] = np.nan
     unc = rg.uniform(0.1, 0.4, (h, w)).astype(np.float32)
@@ -186,7 +214,7 @@ def phase_kernel_vs_plain(torch, cases):
         for label, args, kw, dims in cases:
             out = gf.fused_grid_gat_infer(*args, **kw)
             torch.cuda.synchronize()
-            ref = gf.grid_gat_infer_reference(*args, **kw)
+            ref = gf.grid_gat_reference(*args, **kw)
             torch.cuda.synchronize()
             d = (out.float() - ref.float()).abs()
             rel = (d / (1 + ref.float().abs())).max().item()
@@ -199,6 +227,140 @@ def phase_kernel_vs_plain(torch, cases):
             worst[label] = d.max().item()
             del out, ref
     return worst
+
+
+# -- phase 2b --------------------------------------------------------------------
+
+def train_cases(torch, np, dev):
+    """(label, args, dims) for the training model's three layer shapes on
+    a batch of TRAIN_BATCH tiles of TRAIN_TILE^2, f32 and bf16, plus the
+    mid layer on ragged 250x200 tiles and in 4-connectivity."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import build_grid_inputs
+    from bathymetric_gnn_tpu_torch.models.grid_batched import BatchedGridGNN
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    # the training model at the default config's full width, random
+    # weights from SEED
+    model = BatchedGridGNN(7, 64, MODEL_LAYERS, 4,
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).to(dev)
+    t = TRAIN_TILE
+    depth, _ = synthetic_survey(np, 2 * t, 2 * t, SEED + 4)
+    tiles = np.stack([depth[r:r + t, c:c + t] for r in (0, t)
+                      for c in (0, t)])
+    inputs = {}
+    for conn, hgt, wid in ((8, t, t), (8, 250, 200), (4, t, t)):
+        d = tiles[:, :hgt, :wid]
+        inputs[conn, hgt, wid] = build_grid_inputs(
+            torch.from_numpy(np.nan_to_num(d)).to(dev),
+            torch.from_numpy(np.isfinite(d)).to(dev), connectivity=conn)
+    layers = [(0, "layer0 64->256 h4"), (1, "mid 256->256 h4"),
+              (MODEL_LAYERS - 1, "last 256->64 h1")]
+    cases = [(li, label, dt, t, t, 8) for li, label in layers
+             for dt in ("float32", "bfloat16")]
+    cases += [(1, layers[1][1], "float32", 250, 200, 8),
+              (1, layers[1][1], "float32", t, t, 4)]
+    g = torch.Generator().manual_seed(SEED + 5)
+    out = []
+    for li, label, dtype, hgt, wid, conn in cases:
+        conv = getattr(model, f"GridGATConv_{li}")
+        _, v, nbr, ea, _ = inputs[conn, hgt, wid]
+        f_in = conv.lin_src.shape[0]
+        x = torch.randn(TRAIN_BATCH, hgt, wid, f_in, generator=g).to(dev) \
+            * v[..., None]
+        params = {n: p.detach().clone()
+                  for n, p in conv.named_parameters(recurse=False)}
+        w_lin, a_s, a_d, m_e, bias = gf.gat_param_matrices(
+            params, conv.heads, conv.out_channels, 3)
+        bias = bias + 0.1 * torch.randn(bias.shape, generator=g).to(dev)
+        args = (x, w_lin, a_s, a_d, m_e, ea, nbr.float(), v.float(), bias,
+                conn, 0.2, True)
+        dims = dict(b=TRAIN_BATCH, h=hgt, w=wid, f=f_in, hc=w_lin.shape[1],
+                    heads=conv.heads, k=conn, ed=3, dtype=dtype)
+        out.append((f"{label} {dtype} {TRAIN_BATCH}x{hgt}x{wid} conn{conn}",
+                    args, dims))
+    return out
+
+
+def train_run(torch, fn, args, dtype, g=None, **kw):
+    """fn(*args) and the gradients of <out, g> with respect to x, W,
+    a_src, a_dst, M_edge and bias; g is drawn when not given."""
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (args[0], args[1], args[2], args[3], args[4], args[8])]
+    x, wl, a_s, a_d, me, bias = leaves
+    out = fn(x, wl, a_s, a_d, me, args[5], args[6], args[7], bias,
+             *args[9:], compute_dtype=getattr(torch, dtype), **kw)
+    if g is None:
+        g = torch.randn(out.shape, generator=torch.Generator(
+            ).manual_seed(SEED + 6)).to(out.device, out.dtype)
+    grads = torch.autograd.grad(out, leaves, g)
+    return out.detach(), grads, g
+
+
+def case_dmask(torch, args, dims, seed):
+    gen = torch.Generator(device=args[0].device).manual_seed(seed)
+    shape = (dims["b"], dims["k"] + 1, dims["heads"], dims["h"], dims["w"])
+    return (torch.rand(shape, generator=gen, device=args[0].device)
+            < KEEP).float() / KEEP
+
+
+def phase_train_kernels_vs_plain(torch, cases):
+    """Kernel A (training form, streamed mask) and kernel B vs the plain
+    forward and autograd of it, then the Philox draw."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    errs = {}
+    for i, (label, args, dims) in enumerate(cases):
+        dt = dims["dtype"]
+        dmask = case_dmask(torch, args, dims, SEED + 10 + i)
+        out, grads, g = train_run(torch, gf.fused_grid_gat, args, dt,
+                                  dmask=dmask)
+        torch.cuda.synchronize()
+        ref, rgrads, _ = train_run(torch, gf.grid_gat_reference, args, dt,
+                                   g, dmask=dmask)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        rel = (d / (1 + ref.float().abs())).max().item()
+        ok = rel <= TOL[dt] and bool(torch.isfinite(out.float()).all())
+        gerr, parts = {}, []
+        for name, a, r in zip(LEAVES, grads, rgrads):
+            scale = r.float().abs().max().item() + 1e-12
+            e = (a.float() - r.float()).abs().max().item()
+            gerr[name] = e
+            parts.append(f"{name} {e / scale:.2e}")
+            ok = ok and e <= GRAD_TOL[dt] * scale and bool(
+                torch.isfinite(a.float()).all())
+        log(f"[2b] {label}: A max_rel(1+|ref|) {rel:.3e} (tol "
+            f"{TOL[dt]:.1e}); B err/scale: {', '.join(parts)} (tol "
+            f"{GRAD_TOL[dt]:.1e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"training kernels disagree with the plain version: "
+                  f"{label}")
+        errs[label] = (d.max().item(), gerr)
+        del out, grads, ref, rgrads, dmask
+
+    label, args, dims = next(c for c in cases if c[0].startswith("mid")
+                             and c[2]["dtype"] == "float32"
+                             and c[2]["w"] == TRAIN_TILE and c[2]["k"] == 8)
+    seed = torch.tensor([0x5EED0000C0FFEE], dtype=torch.int64,
+                        device=args[0].device)
+    mask = gf.drop_mask(seed, KEEP, dims["b"], dims["k"], dims["heads"],
+                        dims["h"], dims["w"])
+    rate = (mask == 0).float().mean().item()
+    inv = torch.tensor(1.0 / KEEP, dtype=torch.float32, device=mask.device)
+    check(bool(((mask == 0) | (mask == inv)).all()), "mask values")
+    out_s, gr_s, g = train_run(torch, gf.fused_grid_gat, args, "float32",
+                               drop_seed=seed, keep_prob=KEEP)
+    out_m, gr_m, _ = train_run(torch, gf.fused_grid_gat, args, "float32", g,
+                               dmask=mask)
+    same = torch.equal(out_s, out_m) and all(
+        torch.equal(a, b) for a, b in zip(gr_s, gr_m))
+    log(f"[2b] Philox draw on {label}: realized drop rate {rate:.6f} over "
+        f"{mask.numel()} draws (want {1 - KEEP:.1f} +- 0.002); A and B with "
+        f"the in-kernel draw {'equal' if same else 'DIFFER FROM'} A and B "
+        f"given it as a streamed mask")
+    check(abs(rate - (1 - KEEP)) <= 0.002, f"drop rate {rate}")
+    check(same, "in-kernel draw and streamed mask disagree")
+    return errs
 
 
 # -- phase 3 ---------------------------------------------------------------------
@@ -282,7 +444,7 @@ def phase_model_kernel_vs_plain(torch, np, pipe, depth):
     with torch.no_grad():
         k = pipe.model(*inputs)
         with mock.patch.object(gf, "fused_grid_gat_infer",
-                               gf.grid_gat_infer_reference):
+                               gf.grid_gat_reference):
             p = pipe.model(*inputs)
     v = inputs[1][0]
     agree = (k["predicted_class"] == p["predicted_class"])[0][v].float()
@@ -293,6 +455,186 @@ def phase_model_kernel_vs_plain(torch, np, pipe, depth):
         f"{dconf:.3e}, max |d correction| {dcorr:.3e}")
     check(agree.mean().item() >= 0.999, "class agreement below 0.999")
     check(dconf <= 1e-3 and dcorr <= 1e-2, "model outputs disagree")
+
+
+# -- phase 3b --------------------------------------------------------------------
+
+def plain_layer(gf):
+    """fused_grid_gat with every GAT layer on its plain version."""
+    def plain(*args, dmask=None, drop_seed=None, keep_prob=1.0, **kw):
+        check(drop_seed is None, "plain layer given an in-kernel seed")
+        return gf.grid_gat_reference(*args, dmask=dmask, **kw)
+    return plain
+
+
+def phase_train_end_to_end(torch, np, work):
+    """cli.train --trainer grid on a synthetic clean survey, launch counts
+    read around the f32 run; then the same run in bf16, and cli.inference
+    serving the f32 run's checkpoint."""
+    import json
+    import shutil
+
+    from bathymetric_gnn_tpu_torch.cli import inference as icli
+    from bathymetric_gnn_tpu_torch.cli import train as tcli
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.data.tiling import TileManager
+    from bathymetric_gnn_tpu_torch.io.geotiff import read_geotiff, write_geotiff
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    clean, _ = synthetic_survey(np, TRAIN_SURVEY, TRAIN_SURVEY, SEED + 7,
+                                spikes=False)
+    data = work / "train_data"
+    data.mkdir(parents=True, exist_ok=True)
+    write_geotiff(data / "clean.tif", clean[None], pixel_scale=(2.0, 2.0),
+                  origin=(500000.0, 4000000.0), nodata=float("nan"))
+    tm = TileManager(TRAIN_TILE, 32, 0.3)
+    n_tiles = sum(1 for t in tm.iterate_tiles(clean)
+                  if t.shape == (TRAIN_TILE, TRAIN_TILE))
+    batches = n_tiles // TRAIN_BATCH
+    check(batches >= 2, f"{n_tiles} tiles: fewer than 2 batches")
+
+    def argv(run, *extra):
+        shutil.rmtree(run, ignore_errors=True)
+        return ["--trainer", "grid", "--data-dir", str(data),
+                "--output-dir", str(run), "--epochs", str(TRAIN_EPOCHS),
+                "--batch-size", str(TRAIN_BATCH), "--tile-size",
+                str(TRAIN_TILE), "--overlap", "32", "--seed", str(SEED),
+                *extra]
+
+    def check_run(run, state, tag):
+        hist = json.loads((run / "history.json").read_text())
+        losses = hist["train_loss"] + hist["val_loss"]
+        check(len(hist["train_loss"]) == TRAIN_EPOCHS
+              and all(np.isfinite(losses)), f"{tag} losses {hist}")
+        missing = [n for n, p in state.model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        check(not missing, f"{tag}: no finite gradient for {missing}")
+        for name in ("best", "last", "final"):
+            check((run / name / "model.pt").exists()
+                  and (run / name / "train_state.pt").exists(),
+                  f"{tag}: checkpoint {name} missing")
+        return hist
+
+    run = work / "train_run"
+    a = argv(run)
+    gf.launches = gf.train_launches = gf.bwd_launches = 0
+    t0 = time.perf_counter()
+    state = tcli.main(a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fwd_infer=gf.launches, fwd_train=gf.train_launches,
+                  bwd=gf.bwd_launches)
+    steps = state.step
+    hist = check_run(run, state, "f32")
+    check(steps == TRAIN_EPOCHS * batches, f"steps {steps}")
+    check(counts["fwd_train"] == MODEL_LAYERS * steps
+          and counts["bwd"] == MODEL_LAYERS * steps,
+          f"training launches {counts} != {MODEL_LAYERS} x {steps} steps")
+    check(counts["fwd_infer"] == MODEL_LAYERS * TRAIN_EPOCHS * batches,
+          f"eval launches {counts['fwd_infer']} != {MODEL_LAYERS} layers x "
+          f"{TRAIN_EPOCHS * batches} eval batches")
+    log(f"[3b] cli.train --trainer grid, f32, {n_tiles} tiles of "
+        f"{TRAIN_TILE}^2, {TRAIN_EPOCHS} epochs x {batches} batches of "
+        f"{TRAIN_BATCH}: {steps} steps in {wall:.3f} s (with set-up and "
+        f"eval); launches: kernel A training {counts['fwd_train']}, kernel "
+        f"B {counts['bwd']} (= {MODEL_LAYERS} x {steps}), kernel A "
+        f"inference {counts['fwd_infer']} (eval); train loss "
+        f"{hist['train_loss']}, val loss {hist['val_loss']}; every "
+        f"parameter has a finite gradient")
+
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    cfg_path = work / "bf16.yaml"
+    cfg.save(cfg_path)
+    run16 = work / "train_run_bf16"
+    state16 = tcli.main(argv(run16, "--config", str(cfg_path)))
+    torch.cuda.synchronize()
+    hist16 = check_run(run16, state16, "bf16")
+    log(f"[3b] the same run in bf16: train loss {hist16['train_loss']}, val "
+        f"loss {hist16['val_loss']}")
+
+    out = work / "train_served.tif"
+    n0 = gf.launches
+    stats = icli.main(["--input", str(data / "clean.tif"), "--output",
+                       str(out), "--model", str(run / "final"),
+                       "--tile-size", str(TRAIN_TILE), "--overlap", "32"])
+    torch.cuda.synchronize()
+    # bands: depth, classification, confidence, correction, valid (the
+    # survey has no uncertainty band)
+    bands, _ = read_geotiff(out)
+    valid = np.isfinite(clean)
+    classes = set(np.unique(bands[1][valid]).tolist())
+    calls = stats["tiles_processed"] // 8 + stats["tiles_processed"] % 8
+    check(stats["tiles_processed"] == n_tiles, f"served {stats}")
+    check(gf.launches - n0 == MODEL_LAYERS * calls, "serve launches")
+    check(bands.shape[0] == 5
+          and all(np.isfinite(bands[i][valid]).all() for i in range(5))
+          and classes <= {0.0, 1.0, 2.0}
+          and 0.0 <= bands[2][valid].min() <= bands[2][valid].max() <= 1.0,
+          "served outputs")
+    log(f"[3b] cli.inference served {run / 'final'}: {n_tiles} tiles, "
+        f"classes {sorted(classes)}, mean_confidence "
+        f"{stats['mean_confidence']:.4f}")
+    return dict(counts=counts, steps=steps, wall=wall, data=data)
+
+
+def phase_train_step_kernel_vs_plain(torch, np, work, data):
+    """One training step (dropout 0, full width, one batch of the training
+    data) through kernels A and B vs the same step with every GAT layer on
+    its plain version, both on the card: gradients of every parameter
+    within 1e-3 of the leaf's largest |entry| (the conv biases, whose true
+    gradient under a batch-stats BatchNorm is ~0: within 1e-3 of the
+    largest gradient of all)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    trainer, state, batch = step_setup(torch, np, work, data, "float32",
+                                       dropout=0.0)
+    model = state.model
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def grads():
+        model.load_state_dict(snapshot)
+        for p in model.parameters():
+            p.grad = None
+        losses, _ = trainer.loss_fn(model, batch, train=True)
+        losses["total"].backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    gk = grads()
+    with mock.patch.object(gf, "fused_grid_gat", plain_layer(gf)):
+        gp = grads()
+    big = max(r.abs().max().item() for r in gp.values())
+    worst = 0.0
+    for name, r in gp.items():
+        scale = (big if "GridGATConv" in name and name.endswith(".bias")
+                 else r.abs().max().item() + 1e-12)
+        e = (gk[name] - r).abs().max().item() / scale
+        worst = max(worst, e)
+        check(e <= 1e-3, f"step gradient {name}: {e:.3e} of scale")
+    log(f"[3b] one train step, kernels vs plain on the card (dropout 0): "
+        f"{len(gp)} parameter gradients agree, worst {worst:.3e} of scale "
+        f"(tol 1e-3)")
+
+
+def step_setup(torch, np, work, data, dtype, dropout=1.0 - KEEP):
+    """A GridTrainer on the training survey (full width, ``dtype``), its
+    initial state and one batch of TRAIN_BATCH tiles."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.io.geotiff import read_geotiff
+    from bathymetric_gnn_tpu_torch.training.grid_trainer import (
+        GridTrainer, SyntheticGridDataset, collate_grids)
+
+    cfg = Config()
+    cfg.model.compute_dtype = dtype
+    cfg.model.dropout = dropout
+    cfg.training.class_weights = (1.0, 1.0, 1.0)
+    bands, _ = read_geotiff(data / "clean.tif")
+    ds = SyntheticGridDataset([bands[0]], cfg, tile_size=TRAIN_TILE,
+                              overlap=32, seed=SEED)
+    trainer = GridTrainer(cfg, ds, output_dir=str(work / "step_check"))
+    state = trainer.init_state()
+    batch = collate_grids([ds[i] for i in range(TRAIN_BATCH)])
+    return trainer, state, batch
 
 
 # -- phase 4 ---------------------------------------------------------------------
@@ -341,7 +683,7 @@ def phase_timings(torch, np, cases, pipe, depth):
             wrap_ms = cuda_ms(torch,
                               lambda: gf.fused_grid_gat_infer(*args, **kw), 5)
             plain_ms = cuda_ms(
-                torch, lambda: gf.grid_gat_infer_reference(*args, **kw), 3,
+                torch, lambda: gf.grid_gat_reference(*args, **kw), 3,
                 warmup=1)
             b_ms, b_by, nbytes, flops = bound(dims)
             rows.append(dict(shape=label, ms=ms, wrapper_ms=wrap_ms,
@@ -366,37 +708,169 @@ def phase_timings(torch, np, cases, pipe, depth):
     return rows, fwd_ms / 8
 
 
-def phase_profile(torch, argv):
-    """One more CLI run under torch.profiler: device time by kernel and
-    the device's busy share of the run's wall time (the profiler slows the
-    host, so the idle share it gives is an upper bound)."""
-    from torch.profiler import ProfilerActivity, profile
+def train_bounds(dims):
+    """Least time of kernel A's training form and of kernel B for one call
+    (the larger of bytes / 3.35 TB/s and operations / peak of the input
+    type). A: as ``bound`` without the epilogue (dropout drawn in the
+    kernel: no mask bytes). B: x, W, W@a, the edge logit terms, mask, g
+    and the edge attributes read once, dx and the summed dW, d(W@a),
+    dM_edge and dbias written once; operations: the xh and attention-dot
+    recompute, dx, dW and d(W@a) products and the 9-way dxh and
+    d(weights) sums."""
+    n = dims["b"] * dims["h"] * dims["w"]
+    f, hc, heads, k, ed = (dims["f"], dims["hc"], dims["heads"], dims["k"],
+                           dims["ed"])
+    s = 4 if dims["dtype"] == "float32" else 2
+    a2 = 2 * heads
+    a_bytes = (s * (n * f + f * hc + f * a2 + (k + 1) * heads * n + n * hc)
+               + 4 * n + 4 * hc)
+    a_flops = 2 * n * f * hc + 2 * n * f * a2 + 2 * (k + 1) * n * hc
+    b_bytes = (s * (2 * n * f + f * hc + f * a2 + (k + 1) * heads * n
+                    + n * hc + (k + 1) * n * ed)
+               + 4 * n + 4 * (f * hc + f * a2 + ed * heads + hc))
+    b_flops = (2 * n * f * (hc + a2) + 2 * n * (hc + a2) * f
+               + 2 * n * f * (hc + a2) + 4 * (k + 1) * n * hc)
+    out = {}
+    for name, nbytes, flops in (("A", a_bytes, a_flops),
+                                ("B", b_bytes, b_flops)):
+        t_b = nbytes / PEAK_BYTES * 1e3
+        t_o = flops / PEAK_FLOPS[dims["dtype"]] * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+                     nbytes, flops)
+    return out
 
-    from bathymetric_gnn_tpu_torch.cli import inference as cli
+
+def phase_train_timings(torch, np, cases, work, data):
+    """Kernel A (training form, in-kernel draw) and kernel B per training
+    layer shape against their bounds and plain versions (B's plain version:
+    autograd's backward of the plain forward, forward not timed); then the
+    whole train step (featurize, forward, backward, clip, AdamW) in f32 and
+    bf16."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    rows = []
+    for i, (label, args, dims) in enumerate(cases):
+        if dims["w"] != TRAIN_TILE or dims["k"] != 8:
+            continue
+        dt = getattr(torch, dims["dtype"])
+        seed = torch.tensor([SEED + 20 + i], dtype=torch.int64,
+                            device=args[0].device)
+        kw = gf.kernel_args(*args, bn_scale=None, bn_bias=None,
+                            fuse_relu=False, compute_dtype=dt,
+                            drop_seed=seed, keep_prob=KEEP, train=True)
+        ea, mattr = gf.edge_attr_terms(args[5], args[6], True, dt)
+        g = torch.randn(dims["b"], dims["h"], dims["w"], dims["hc"],
+                        generator=torch.Generator().manual_seed(SEED)
+                        ).to(args[0].device, dt)
+        bkw = {k: kw[k] for k in ("x", "w", "wa", "el", "el_self", "valid",
+                                  "heads", "connectivity", "negative_slope",
+                                  "drop_mode", "dmask", "seed", "thresh",
+                                  "keep_inv")}
+        a_ms = cuda_ms(torch, lambda: gf.call_kernel(**kw), 10)
+        b_ms = cuda_ms(torch, lambda: gf.call_bwd_kernel(
+            g=g, eattr=ea, mattr=mattr, **bkw), 10)
+        layer_ms = cuda_ms(torch, lambda: train_run(
+            torch, gf.fused_grid_gat, args, dims["dtype"], g,
+            drop_seed=seed, keep_prob=KEEP), 5)
+        mask = gf.drop_mask(seed, KEEP, dims["b"], dims["k"], dims["heads"],
+                            dims["h"], dims["w"])
+        with torch.no_grad():
+            pa_ms = cuda_ms(torch, lambda: gf.grid_gat_reference(
+                *args, dmask=mask, compute_dtype=dt), 3, warmup=1)
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (args[0], args[1], args[2], args[3], args[4], args[8])]
+        ref = gf.grid_gat_reference(leaves[0], *leaves[1:5], *args[5:8],
+                                    leaves[5], *args[9:], dmask=mask,
+                                    compute_dtype=dt)
+        pb_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, leaves, g, retain_graph=True), 3, warmup=1)
+        bd = train_bounds(dims)
+        rows.append(dict(shape=label, a_ms=a_ms, b_ms=b_ms,
+                         layer_fwd_bwd_ms=layer_ms, a_plain_ms=pa_ms,
+                         b_plain_ms=pb_ms, a_bound_ms=bd["A"][0],
+                         a_bound_by=bd["A"][1], b_bound_ms=bd["B"][0],
+                         b_bound_by=bd["B"][1], a_bytes=bd["A"][2],
+                         a_flops=bd["A"][3], b_bytes=bd["B"][2],
+                         b_flops=bd["B"][3]))
+        log(f"[4b] {label}: kernel A (training) {a_ms:.3f} ms, plain "
+            f"{pa_ms:.3f} ms, bound {bd['A'][0]:.3f} ms by {bd['A'][1]} "
+            f"({bd['A'][0] / a_ms:.3f} of bound); kernel B {b_ms:.3f} ms, "
+            f"plain backward {pb_ms:.3f} ms, bound {bd['B'][0]:.3f} ms by "
+            f"{bd['B'][1]} ({bd['B'][2] / 1e9:.3f} GB, "
+            f"{bd['B'][3] / 1e9:.1f} GFLOP; {bd['B'][0] / b_ms:.3f} of "
+            f"bound); layer fwd + bwd through autograd {layer_ms:.3f} ms")
+        del kw, bkw, ea, mattr, g, mask, ref, leaves
+
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer, state, batch = step_setup(torch, np, work, data, dtype)
+        fn = lambda: trainer.train_step(state, batch, 1e-3)  # noqa: E731
+        ms = cuda_ms(torch, fn, 5, warmup=2)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            losses, _ = fn()
+        float(losses["total"])
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        check(bool(torch.isfinite(losses["total"])), f"{dtype} step loss")
+        steps[dtype] = dict(ms=ms, host_ms=host_ms)
+        log(f"[4b] train step ({TRAIN_BATCH} x {TRAIN_TILE}^2, full width, "
+            f"dropout {1 - KEEP:.1f}, {dtype}): {ms:.3f} ms (CUDA events), "
+            f"{host_ms:.3f} ms (host clock, ending in a sync)")
+        wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
+        steps[dtype]["busy_share"] = log_profile(
+            "4b", f"3 train steps, {dtype}", wall, prows, top=12)
+        mine = sum(r[0] for r in prows if "grid_gat" in r[2])
+        log(f"[4b]   kernels A and B: {mine / 3:.3f} ms per step of "
+            f"{sum(r[0] for r in prows) / 3:.3f} ms device time")
+        del trainer, state, batch
+    return rows, steps
+
+
+def device_profile(torch, fn):
+    """fn() under torch.profiler: (wall s, [(device ms, count, kernel)])
+    over the device-side events (kernels, copies; the CPU ops that
+    launched them would count twice). The profiler slows the host, so the
+    idle share it gives is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cli.main(argv)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []   # device-side events only (kernels, copies); the CPU ops
-    for ev in prof.key_averages():   # that launched them would count twice
+    rows = []
+    for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
-    busy = sum(r[0] for r in rows)
+    return wall, sorted(rows, reverse=True)
+
+
+def log_profile(tag, what, wall, rows, top=8):
     if not rows:
-        log("[4] profiler: no device time recorded; busy share not measured")
+        log(f"[{tag}] profiler: no device time recorded; busy share not "
+            f"measured")
         return None
-    log(f"[4] profiled cli run: wall {wall:.3f} s, device busy "
-        f"{busy / 1e3:.3f} s ({busy / 1e3 / wall:.3f} of wall)")
-    for ms, n, key in sorted(rows, reverse=True)[:8]:
-        log(f"[4]   {ms:10.3f} ms  x{n:<5d} {key[:90]}")
-    return busy / 1e3 / wall
+    busy = sum(r[0] for r in rows) / 1e3
+    log(f"[{tag}] profiled {what}: wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s ({busy / wall:.3f} of wall), {sum(r[1] for r in rows)}"
+        f" device events")
+    for ms, n, key in rows[:top]:
+        log(f"[{tag}]   {ms:10.3f} ms  x{n:<5d} {key[:90]}")
+    return busy / wall
+
+
+def phase_profile(torch, argv):
+    """One more CLI run under torch.profiler: device time by kernel and
+    the device's busy share of the run's wall time."""
+    from bathymetric_gnn_tpu_torch.cli import inference as cli
+
+    wall, rows = device_profile(torch, lambda: cli.main(argv))
+    return log_profile("4", "cli run", wall, rows)
 
 
 # -- main --------------------------------------------------------------------------
@@ -440,15 +914,24 @@ def main() -> int:
         model = seeded_model(torch, np).to(dev)
         cases = layer_cases(torch, np, model, dev)
         errs = phase_kernel_vs_plain(torch, cases)
+        phase = "2b training kernels vs plain"
+        tcases = train_cases(torch, np, dev)
+        terrs = phase_train_kernels_vs_plain(torch, tcases)
         phase = "3 end to end"
         e2e = phase_end_to_end(torch, np, model, work)
         pipe.load_model(e2e["ckpt"])
         phase_model_kernel_vs_plain(torch, np, pipe, e2e["depth"])
+        phase = "3b training end to end"
+        tr = phase_train_end_to_end(torch, np, work)
+        phase_train_step_kernel_vs_plain(torch, np, work, tr["data"])
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         log(f"[4] end to end (cli.inference, load + 9 tiles + stitch + "
             f"write): {e2e['tiles'] / e2e['wall']:.3f} tiles/s")
         busy_share = phase_profile(torch, e2e["argv"])
+        phase = "4b training timings"
+        trows, step_ms = phase_train_timings(torch, np, tcases, work,
+                                             tr["data"])
     except Exception:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         traceback.print_exc()
@@ -474,6 +957,32 @@ def main() -> int:
         "model_forward_ms_per_tile": tile_ms,
         "end_to_end_tiles_per_s": e2e["tiles"] / e2e["wall"],
         "end_to_end_device_busy_share": busy_share,
+    }]
+    trow = next(r for r in trows if r["shape"].startswith("mid")
+                and "float32" in r["shape"])
+    tlabel = trow["shape"]
+    common = dict(route="cuda", library_ms=None, at=tlabel, shapes=trows,
+                  train_step_ms={k: v["ms"] for k, v in step_ms.items()},
+                  train_steps=tr["steps"])
+    kernels += [{
+        "name": "grid_gat_fwd_train",
+        "source": "bathymetric_gnn_tpu_torch/csrc/grid_gat_fwd.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/grid_gat_fused.py:149",
+        "launches": tr["counts"]["fwd_train"],
+        "max_abs_err": terrs[tlabel][0],
+        "ms": trow["a_ms"], "plain_ms": trow["a_plain_ms"],
+        "bound_ms": trow["a_bound_ms"], "bound_by": trow["a_bound_by"],
+        **common,
+    }, {
+        "name": "grid_gat_bwd",
+        "source": "bathymetric_gnn_tpu_torch/csrc/grid_gat_bwd.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/grid_gat_fused.py:549",
+        "launches": tr["counts"]["bwd"],
+        "max_abs_err": max(terrs[tlabel][1].values()),
+        "grad_max_abs_err": terrs[tlabel][1],
+        "ms": trow["b_ms"], "plain_ms": trow["b_plain_ms"],
+        "bound_ms": trow["b_bound_ms"], "bound_by": trow["b_bound_by"],
+        **common,
     }]
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """PyTorch port vs JAX: the fused grid-GAT inference layer function.
 
 On the CPU the port's ``fused_grid_gat_infer`` runs its plain version
-(``grid_gat_infer_reference``). It is held against the JAX
+(``grid_gat_reference``). It is held against the JAX
 ``_reference_forward`` (+ epilogue) and against the JAX Pallas kernel run
 in interpret mode at a kernel-eligible shape (32x128, block_rows 8), as
 tests/test_pallas_fused.py runs it; a ragged 30x100 tile goes against the

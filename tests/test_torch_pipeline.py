@@ -197,7 +197,8 @@ def test_bag_raises_clearly(tmp_path):
 def test_port_imports_nothing_of_jax():
     """Import every module of the port in a fresh interpreter (the test
     process itself has jax loaded by conftest) and check that no jax*
-    module and no module of the JAX package came with it."""
+    module and no module of the JAX package came with it; the training
+    modules are among those imported."""
     code = r"""
 import importlib, pkgutil, sys
 import bathymetric_gnn_tpu_torch as pkg
@@ -209,7 +210,11 @@ bad = sorted(m for m in sys.modules
              or m == "bathymetric_gnn_tpu" or m.startswith("bathymetric_gnn_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 15, names
+assert len(names) >= 25, names
+for m in ("training.grid_trainer", "training.losses", "training.optim",
+          "training.trainer", "training.datasets", "models.grid_batched",
+          "data.synthetic_noise", "utils.prefetch", "cli.train"):
+    assert pkg.__name__ + "." + m in names, m
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
