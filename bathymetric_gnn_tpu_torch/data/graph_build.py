@@ -1,19 +1,36 @@
-"""Dense-grid model inputs (port of ``bathymetric_gnn_tpu/data/graph_build.py:213-243``).
+"""Model inputs from gridded depth (port of
+``bathymetric_gnn_tpu/data/graph_build.py``).
 
-Only ``build_grid_inputs``, batched over [B, H, W] tiles: it stands in for
-the JAX path's ``jax.vmap`` of the per-tile function. COO graph
-construction is ported in a later slice.
+- ``build_grid_inputs``: the dense-grid model's inputs, batched over
+  [B, H, W] tiles (it stands in for the JAX path's ``jax.vmap`` of the
+  per-tile function).
+- ``GraphBuilder`` with ``knn_k > 0``: a grid's featurization plus k-NN
+  edges over the valid cells, nodes in Hilbert order
+  (``_build_knn_from_grid``, ``build_knn_graph``), all on the host, packed
+  into an ``ops.graph.PaddedGraph``. The grid-connectivity branch
+  (``knn_k == 0``) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..config.config import BucketConfig, GraphConfig
 from ..models.grid_gat import incoming_edge_attrs, neighbor_masks
+from ..ops import edges as edge_ops
 from ..ops import features as feat_ops
 from ..ops.edges import offsets_for_connectivity
+from ..ops.graph import PaddedGraph, make_padded_graph, round_up_to_bucket
+
+# ROADMAP.md's item for the grid-connectivity graph path
+GRID_GRAPH_NOT_PORTED = (
+    "grid-connectivity graphs (graph.knn_k == 0) are not ported to the "
+    "PyTorch port yet (ROADMAP.md, next slices: 'default VR route': "
+    "data/slab_build.py and the grid-connectivity GraphBuilder branch); "
+    "set graph.knn_k > 0 (CLI: --knn-k 8)")
 
 
 def build_grid_inputs(
@@ -43,3 +60,124 @@ def build_grid_inputs(
                                 (float(resolution[0]), float(resolution[1])))
     eattr = torch.where(nbr[..., None], eattr, torch.zeros_like(eattr))
     return gf.features, valid_mask, nbr, eattr, gf.local_std
+
+
+class BuiltGraph:
+    """A PaddedGraph plus what maps its nodes back onto the grid: node i
+    sits at grid cell (rows[i], cols[i]); ``perm[i]`` is the index of node
+    i in the input order (row-major valid cells) before the Hilbert sort."""
+
+    def __init__(self, graph: PaddedGraph, grid_shape, num_nodes, rows,
+                 cols, perm=None):
+        self.graph = graph
+        self.grid_shape = grid_shape
+        self.num_nodes = num_nodes
+        self.rows = rows
+        self.cols = cols
+        self.perm = perm
+
+    def graph_to_grid(self, node_values: np.ndarray,
+                      fill: float = np.nan) -> np.ndarray:
+        """Scatter per-node values back onto the grid."""
+        out = np.full(self.grid_shape, fill, np.float32)
+        n = self.num_nodes
+        out[self.rows[:n], self.cols[:n]] = np.asarray(node_values)[:n]
+        return out
+
+
+class GraphBuilder:
+    """Builds PaddedGraphs from gridded depth on the host (featurization
+    with the port's torch ops on the CPU)."""
+
+    def __init__(self, graph_config: Optional[GraphConfig] = None,
+                 bucket_config: Optional[BucketConfig] = None):
+        self.cfg = graph_config or GraphConfig()
+        self.buckets = bucket_config or BucketConfig()
+
+    def build_graph(
+        self,
+        depth: np.ndarray,
+        valid_mask: Optional[np.ndarray] = None,
+        uncertainty: Optional[np.ndarray] = None,
+        resolution: Tuple[float, float] = (1.0, 1.0),
+    ) -> BuiltGraph:
+        """Grid -> graph. With ``knn_k > 0`` (the only ported branch) the
+        grid featurization is kept and the edges come from a k-NN build
+        over the valid-cell coordinates."""
+        if valid_mask is None:
+            valid_mask = np.isfinite(depth)
+        if self.cfg.knn_k <= 0:
+            raise NotImplementedError(GRID_GRAPH_NOT_PORTED)
+        return self._build_knn_from_grid(depth, valid_mask, uncertainty,
+                                         resolution)
+
+    def _build_knn_from_grid(self, depth, valid_mask, uncertainty,
+                             resolution) -> BuiltGraph:
+        """Grid featurization + k-NN edges over the valid cells. Node
+        features are those of the grid path; the nodes are Hilbert-ordered
+        by ``build_knn_graph`` and rows/cols carry the permutation."""
+        depth = np.asarray(depth, np.float32)
+        valid_mask = np.asarray(valid_mask, bool)
+        unc = (torch.from_numpy(np.asarray(uncertainty, np.float32))[None]
+               if uncertainty is not None else None)
+        gf = feat_ops.compute_grid_features(
+            torch.from_numpy(np.where(np.isfinite(depth), depth, 0.0)
+                             .astype(np.float32))[None],
+            torch.from_numpy(valid_mask)[None], unc,
+            self.cfg.local_stats_window)
+        rows, cols = np.nonzero(valid_mask)
+        feats = gf.features[0].numpy()[rows, cols]
+        lstd = gf.local_std[0].numpy()[rows, cols]
+        dvals = np.where(np.isfinite(depth), depth, 0.0)[rows, cols]
+        pos = np.stack([cols, rows], -1).astype(np.float32)
+        bg = self.build_knn_graph(
+            feats, pos, k=self.cfg.knn_k, local_std=lstd,
+            resolution=(float(resolution[0]), float(resolution[1])),
+            depth=dvals)
+        bg.grid_shape = depth.shape
+        bg.rows = rows[bg.perm]
+        bg.cols = cols[bg.perm]
+        return bg
+
+    def build_knn_graph(
+        self,
+        x: np.ndarray,
+        pos: np.ndarray,
+        k: int,
+        local_std: Optional[np.ndarray] = None,
+        resolution: Tuple[float, float] = (1.0, 1.0),
+        depth: Optional[np.ndarray] = None,
+        spatial_sort: bool = True,
+    ) -> BuiltGraph:
+        """k-NN graph from node coordinates. ``spatial_sort`` first puts
+        the nodes in Hilbert order. Edge features are [distance, depth
+        difference (dst - src), slope in degrees]."""
+        n = x.shape[0]
+        order = None
+        if spatial_sort and n > 1:
+            order = edge_ops.hilbert_order(pos)
+            x = np.asarray(x)[order]
+            pos = np.asarray(pos)[order]
+            if local_std is not None:
+                local_std = np.asarray(local_std)[order]
+            if depth is not None:
+                depth = np.asarray(depth)[order]
+        ei = edge_ops.knn_edges(pos, k)
+        res = np.asarray(resolution, np.float32)
+        delta = (pos[ei[1]] - pos[ei[0]]) * res[None, :]
+        dist = np.sqrt((delta ** 2).sum(-1)).astype(np.float32)
+        if depth is not None:
+            ddiff = (depth[ei[1]] - depth[ei[0]]).astype(np.float32)
+        else:
+            ddiff = np.zeros_like(dist)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            slope = np.degrees(np.arctan(np.where(
+                dist > 0, ddiff / np.maximum(dist, 1e-12), 0.0)))
+        attr = np.stack([dist, ddiff, slope], -1).astype(np.float32)
+        n_pad = round_up_to_bucket(max(n, 1), self.buckets.node_buckets)
+        g = make_padded_graph(x, ei, attr, n_pad=n_pad,
+                              e_pad=n_pad * max(k, 1), pos=pos,
+                              local_std=local_std)
+        return BuiltGraph(g, grid_shape=None, num_nodes=n, rows=None,
+                          cols=None,
+                          perm=order if order is not None else np.arange(n))

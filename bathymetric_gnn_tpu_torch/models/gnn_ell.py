@@ -1,0 +1,121 @@
+"""ELL-layout full model (port of ``bathymetric_gnn_tpu/models/gnn_ell.py``:
+``EllGNNBackbone``, ``EllBathymetricGNN``, ``make_ell_model``).
+
+Submodules carry the JAX model's names (``MLPFeatureExtractor_0``,
+``GNNBackbone_0.GATConv_i``, ``GNNBackbone_0.MaskedBatchNorm_i``, the
+heads), so a graph-trained (COO-layout) checkpoint applies unchanged;
+``utils/weights.coo_state_dict`` renames a port checkpoint's grid-named
+state_dict to these keys. ``sparse_kernel`` picks the GAT layer:
+``"xla"`` the plain ``GATConvELL``; ``"banded_pallas"`` (and ``"banded"``,
+the JAX package's XLA form of the same layer) ``GATConvEllBanded``, whose
+attention runs in kernel C. The model serves (eval mode); only GAT is
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from .conv_ell import GATConvELL, GATConvEllBanded
+from .layers import (ClassificationHead, ConfidenceHead, CorrectionHead,
+                     MaskedBatchNorm, MLPFeatureExtractor)
+
+SPARSE_KERNELS = ("xla", "banded", "banded_pallas")
+NON_GAT_NOT_PORTED = (
+    "gnn_type={!r}: only GAT is ported to the PyTorch port's ELL model "
+    "(ROADMAP.md, queue 1: 'GCN/SAGE/GIN ELL convs')")
+
+
+class EllGNNBackbone(nn.Module):
+    """``num_layers`` GAT layers (``heads`` heads concatenated; the last
+    one 1 head), each followed by a masked BatchNorm (+ ReLU but on the
+    last)."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 num_layers: int, gnn_type: str = "GAT", heads: int = 4,
+                 edge_dim: Optional[int] = None, sparse_kernel: str = "xla",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if gnn_type != "GAT":
+            raise NotImplementedError(NON_GAT_NOT_PORTED.format(gnn_type))
+        if sparse_kernel not in SPARSE_KERNELS:
+            raise ValueError(f"unknown sparse_kernel {sparse_kernel!r}")
+        conv = GATConvELL if sparse_kernel == "xla" else GATConvEllBanded
+        self.num_layers = num_layers
+        width = in_channels
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            hds = 1 if last else heads
+            self.add_module(f"GATConv_{i}", conv(
+                width, hidden_channels, heads=hds, concat=not last,
+                edge_dim=edge_dim, generator=generator))
+            width = hidden_channels * hds
+            self.add_module(f"MaskedBatchNorm_{i}", MaskedBatchNorm(width))
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        node_mask = g.node_mask.to(torch.bool)
+        for i in range(self.num_layers):
+            x = getattr(self, f"GATConv_{i}")(g, x)
+            x = getattr(self, f"MaskedBatchNorm_{i}")(
+                x, node_mask, fuse_relu=i < self.num_layers - 1)
+        return x
+
+
+class EllBathymetricGNN(nn.Module):
+    """BathymetricGNN on ELL graphs: MLP extractor, backbone, then the
+    classification, confidence and correction heads."""
+
+    def __init__(self, in_channels: int, hidden_channels: int = 64,
+                 num_layers: int = 4, gnn_type: str = "GAT", heads: int = 4,
+                 num_classes: int = 3, predict_correction: bool = True,
+                 feature_extractor_layers: int = 2,
+                 edge_dim: Optional[int] = 3, sparse_kernel: str = "xla",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.predict_correction = predict_correction
+        self.MLPFeatureExtractor_0 = MLPFeatureExtractor(
+            in_channels, hidden_channels, feature_extractor_layers, generator)
+        self.GNNBackbone_0 = EllGNNBackbone(
+            hidden_channels, hidden_channels, num_layers, gnn_type, heads,
+            edge_dim=edge_dim, sparse_kernel=sparse_kernel,
+            generator=generator)
+        self.ClassificationHead_0 = ClassificationHead(
+            hidden_channels, num_classes, generator)
+        self.ConfidenceHead_0 = ConfidenceHead(hidden_channels, generator)
+        if predict_correction:
+            self.CorrectionHead_0 = CorrectionHead(hidden_channels,
+                                                   generator)
+
+    def forward(self, g) -> Dict[str, torch.Tensor]:
+        """g: an ``ops.ell.EllGraph`` of tensors -> per-node outputs."""
+        x = self.MLPFeatureExtractor_0(g.x.to(torch.float32))
+        x = self.GNNBackbone_0(g, x)
+        logits = self.ClassificationHead_0(x)
+        out = {
+            "class_logits": logits,
+            "class_probs": torch.softmax(logits, -1),
+            "predicted_class": torch.argmax(logits, -1),
+            "confidence": self.ConfidenceHead_0(x),
+        }
+        if self.predict_correction:
+            out["correction"] = self.CorrectionHead_0(x)
+        return out
+
+
+def make_ell_model(model_cfg, in_channels: int, edge_dim: int = 3,
+                   sparse_kernel: str = "xla") -> EllBathymetricGNN:
+    return EllBathymetricGNN(
+        in_channels=in_channels,
+        hidden_channels=model_cfg.hidden_channels,
+        num_layers=model_cfg.num_layers,
+        gnn_type=model_cfg.gnn_type,
+        heads=model_cfg.heads,
+        num_classes=model_cfg.num_classes,
+        predict_correction=model_cfg.predict_correction,
+        feature_extractor_layers=model_cfg.feature_extractor_layers,
+        edge_dim=edge_dim,
+        sparse_kernel=sparse_kernel,
+    )

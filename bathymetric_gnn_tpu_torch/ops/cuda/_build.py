@@ -46,6 +46,12 @@ KERNELS: Dict[str, tuple] = {
                          + [_I, _I, _VP]),
         "grid_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "ell_gat_fwd": ("ell_gat_fwd.cu", {
+        "ell_gat_fwd": (_I, [_VP] * 10 + [ctypes.c_longlong, _I, _I, _I, _F,
+                                          _I, _I, _VP]),
+        "ell_gat_fwd_warps_per_block": (_I, [_I, _I]),
+        "ell_gat_fwd_error_string": (ctypes.c_char_p, [_I]),
+    }),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

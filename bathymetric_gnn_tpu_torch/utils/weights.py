@@ -11,8 +11,13 @@ port never reads an orbax checkpoint; a JAX user converts one with
         params, stats, meta.get("param_layout", "coo")), cfg, meta)
 
 A port checkpoint directory holds ``model.pt`` (the state_dict),
-``meta.json`` (with ``param_layout``), ``calibration.json`` and, when a
-config is given, ``config.yaml``.
+``meta.json`` (with ``param_layout``, always ``"grid"``: the naming of
+``model.pt``, and ``trained_layout``: the trainer that made the weights,
+``"grid"`` for the dense-grid trainer, ``"coo"`` for the graph trainer),
+``calibration.json`` and, when a config is given, ``config.yaml``.
+``coo_state_dict`` renames a grid-named state_dict to the keys of the
+ELL model (``models/gnn_ell.py``), which nests its layers under
+``GNNBackbone_0`` as the JAX graph models do.
 """
 
 from __future__ import annotations
@@ -62,6 +67,23 @@ def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping],
             for k, v in flat.items()}
 
 
+def coo_state_dict(state_dict: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """A grid-named state_dict (``GridGATConv_i.*``, ``MaskedBatchNorm_i.*``
+    at the top) -> the ELL model's keys (``GNNBackbone_0.GATConv_i.*``,
+    ``GNNBackbone_0.MaskedBatchNorm_i.*``): the inverse of
+    ``params_from_coo`` on state_dict keys. Other keys are kept."""
+    out = {}
+    for key, t in state_dict.items():
+        head, _, rest = key.partition(".")
+        if head.startswith("GridGATConv_"):
+            key = f"GNNBackbone_0.GATConv_{head[len('GridGATConv_'):]}.{rest}"
+        elif head.startswith("MaskedBatchNorm_"):
+            key = f"GNNBackbone_0.{key}"
+        out[key] = t
+    return out
+
+
 def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]
                          ) -> Tuple[Dict, Dict]:
     """Inverse of ``state_dict_from_flax`` (grid layout): returns
@@ -98,7 +120,11 @@ def save_checkpoint(directory, state_dict: Mapping[str, torch.Tensor],
         except TypeError:
             continue
         m[k] = v
-    m["param_layout"] = "grid"  # model.pt is always in the grid layout
+    # the trainer that made the weights (the caller's param_layout, as the
+    # JAX checkpoints record it); model.pt itself is always grid-named
+    m["trained_layout"] = m.get("trained_layout",
+                                m.get("param_layout", "grid"))
+    m["param_layout"] = "grid"
     (d / "meta.json").write_text(json.dumps(m, indent=2))
     cal = dict(calibration or {"confidence_scale": 1.0,
                                "confidence_bias": 0.0})

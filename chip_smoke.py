@@ -8,7 +8,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every CUDA source of the port is compiled from ``csrc/``, one nvcc per
-   source, all in parallel, into ``build/torch_kernels/``;
+   source, all in parallel, into ``build/torch_kernels/``, and the native
+   graph kit (``native/graphkit.cpp``) with g++ beside them;
 2. kernel A (inference form) against its plain PyTorch version on the
    card, at the shapes the inference path gives it (full width: hidden
    64 x 4 heads, 1024^2 tiles);
@@ -17,6 +18,11 @@ Run from the root of a checkout. Phases, each printing its own lines:
    layer shapes on [4, 256, 256], f32 and bf16, plus a ragged shape and
    4-connectivity; and the in-kernel Philox draw: its drop rate, and A + B
    with the draw equal to A + B given the same draw as a streamed mask;
+2c. kernel C (the GAT layer on ELL graphs) against its plain version on
+   the card: a k-NN graph (k 8) of a synthetic 256x256 survey with 5 %
+   holes (~62k nodes padded to 65,536) at HC 256 / 4 heads and HC 64 /
+   1 head, and a ragged batch of small graphs (isolated nodes, fewer than
+   K live slots) at K = 16;
 3. the inference path through the port's CLI (``cli.inference.main``) on
    a synthetic 2304x2304 survey (9 tiles of 1024 with overlap 128: one
    batch of 8, then one single tile), with the launch counts read around
@@ -29,9 +35,18 @@ Run from the root of a checkout. Phases, each printing its own lines:
    gradient, one step's gradients through the kernels agree with the same
    step on the plain functions, and ``cli.inference`` serves the
    checkpoint the run wrote;
+3c. k-NN serving through ``NativeVRProcessor`` (``knn_k=8``, node budget
+   50,000) on 2,000 synthetic refinement grids (sides 3..50, 5 % NODATA)
+   plus one 512x512 grid, from a graph-trained port checkpoint at full
+   width: every grid returns, kernel C's launch count is 4 x the graph
+   chunks and the plain version is not called; one flush is compared with
+   the same processor on the plain functions; grids/s, Mnodes/s and the
+   device's busy share; and ``cli.inference_native`` on a VR BAG when h5py
+   is installed;
 4. timings with CUDA events after warm-up: kernel A per inference shape,
-   kernels A (training form) and B per training shape, and the whole
-   train step in f32 and bf16.
+   kernels A (training form) and B per training shape, the whole train
+   step in f32 and bf16, and kernel C per shape with the model forward of
+   one 65,536-node flush.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -102,13 +117,17 @@ def phase_card_and_build(torch):
     log(card)
     from bathymetric_gnn_tpu_torch.ops.cuda import _build
 
+    from bathymetric_gnn_tpu_torch import native
+
     t0 = time.time()
     libs = _build.build_all()
+    native.library()
     build_s = time.time() - t0
     log(f"[1] card: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"[1] kernels built in {build_s:.2f} s: "
-        + ", ".join(p.name for p in libs.values()))
+        + ", ".join(p.name for p in libs.values()) + ", "
+        + native.library_path().name)
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -137,13 +156,13 @@ def synthetic_survey(np, h, w, seed, spikes=True):
     return depth, unc
 
 
-def seeded_model(torch, np):
+def seeded_model(torch, np, in_channels=7):
     """Full-width default-config model (GAT, hidden 64, 4 layers, 4 heads,
     8-conn, edge_dim 3) with random weights and BatchNorm statistics."""
     from bathymetric_gnn_tpu_torch.models.grid_gat import GridBathymetricGNN
 
     g = torch.Generator().manual_seed(SEED)
-    model = GridBathymetricGNN(7, 64, MODEL_LAYERS, 4, generator=g)
+    model = GridBathymetricGNN(in_channels, 64, MODEL_LAYERS, 4, generator=g)
     rg = np.random.default_rng(SEED)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -873,6 +892,353 @@ def phase_profile(torch, argv):
     return log_profile("4", "cli run", wall, rows)
 
 
+# -- phase 2c: kernel C ---------------------------------------------------------
+
+KNN_K = 8
+KNN_SURVEY = 256        # 256^2 cells, 5 % holes: ~62k nodes, padded to 65,536
+VR_GRIDS = 2000
+VR_BIG = 512            # one SR-surface-sized grid: the one-off 2^18 bucket
+VR_BUDGET = 50000
+
+
+def knn_survey(np, n, seed, holes=0.05):
+    """An n x n survey (ramp + sinusoid + roughness at ~30 m) with
+    ``holes`` of its cells NaN at random; uncertainty 0.1-0.4 m."""
+    rg = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32)
+    depth = (30.0 + 0.002 * xx + 0.001 * yy + 0.5 * np.sin(xx / 37.0)
+             + rg.normal(0, 0.02, (n, n))).astype(np.float32)
+    depth[rg.random((n, n)) < holes] = np.nan
+    return depth, rg.uniform(0.1, 0.4, (n, n)).astype(np.float32)
+
+
+def ell_model(torch, dev):
+    """The k-NN serving model at full width (GAT, hidden 64, 4 layers,
+    4 heads, edge_dim 3, 8 input channels), random weights from SEED."""
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import EllBathymetricGNN
+
+    return EllBathymetricGNN(8, 64, MODEL_LAYERS, heads=4,
+                             sparse_kernel="banded_pallas",
+                             generator=torch.Generator().manual_seed(SEED)
+                             ).to(dev).eval()
+
+
+def knn_graph(torch, np, dev):
+    """The k-NN ELL graph (k 8) of a synthetic KNN_SURVEY^2 survey, built
+    by the port's GraphBuilder, on the card."""
+    from bathymetric_gnn_tpu_torch.config.config import GraphConfig
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+
+    depth, unc = knn_survey(np, KNN_SURVEY, SEED + 30)
+    valid = np.isfinite(depth)
+    bg = GraphBuilder(GraphConfig(knn_k=KNN_K)).build_graph(
+        depth, valid, unc, (1.0, 1.0))
+    return coo_to_ell(bg.graph, KNN_K).to(dev), bg.num_nodes
+
+
+def ragged_graph(torch, np, dev, k=16):
+    """A batch of small k-NN graphs (k 16) as batch_graphs packs them:
+    1x1 and 1x2 grids (isolated nodes, one live slot) and grids with
+    fewer than k + 1 cells among larger ones."""
+    from bathymetric_gnn_tpu_torch.config.config import GraphConfig
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.graph import batch_graphs
+
+    gb = GraphBuilder(GraphConfig(knn_k=k))
+    parts, stds = [], []
+    for i, n in enumerate((1, 2, 5, 40, 3, 63, 1, 17)):
+        depth, unc = knn_survey(np, n, SEED + 40 + i, holes=0.0)
+        if n == 2:
+            depth, unc = depth[:1], unc[:1]
+        bg = gb.build_graph(depth, np.isfinite(depth), unc, (1.0, 1.0))
+        g, m = bg.graph, bg.graph.edge_mask
+        parts.append((g.x[:bg.num_nodes],
+                      np.stack([g.edge_src, g.edge_dst])[:, m],
+                      g.edge_attr[m]))
+        stds.append(g.local_std[:bg.num_nodes])
+    graph, counts = batch_graphs(parts, n_pad=8192, e_pad=8192 * k,
+                                 local_std_list=stds)
+    return coo_to_ell(graph, k).to(dev), int(counts.sum())
+
+
+def ell_cases(torch, np, model, dev):
+    """(label, kernel C kwargs, dims) at the serving path's layer shapes
+    on the survey's k-NN graph (HC 256 / 4 heads: layers 0-2; HC 64 /
+    1 head: the last), and the ragged K = 16 batch."""
+    g, n_live = knn_graph(torch, np, dev)
+    rg_, n_rg = ragged_graph(torch, np, dev)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    bb = model.GNNBackbone_0
+    out = []
+    for li, label, graph, live in (
+            (1, "mid 256->256 h4", g, n_live),
+            (MODEL_LAYERS - 1, "last 256->64 h1", g, n_live),
+            (1, "ragged K16 256->256 h4", rg_, n_rg)):
+        conv = getattr(bb, f"GATConv_{li}")
+        n = graph.x.shape[0]
+        f_in = conv.lin_src.shape[0]
+        mask = graph.node_mask
+        with torch.no_grad():
+            x = torch.randn(n, f_in, generator=gen).to(dev) * mask[:, None]
+            xh = x @ conv.lin_src
+            el, el_self = conv._edge_terms(graph)
+            bias = conv.bias + 0.1 * torch.randn(
+                conv.bias.shape, generator=gen).to(dev)
+        kw = dict(xh=xh, att_src=conv.att_src.detach(),
+                  att_dst=conv.att_dst.detach(), nbr_src=graph.nbr_src,
+                  nbr_mask=graph.nbr_mask, el=el, el_self=el_self,
+                  bias=bias, node_mask=mask)
+        k = graph.nbr_src.shape[1]
+        dims = dict(n=n, k=k, heads=conv.heads, hc=xh.shape[1],
+                    live_nodes=live,
+                    live_edges=int(graph.nbr_mask.sum().item()))
+        out.append((f"{label} N={n} K={k} f32", kw, dims))
+    return out, g
+
+
+def phase_ell_kernel_vs_plain(torch, cases):
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    worst = {}
+    with torch.no_grad():
+        for label, kw, dims in cases:
+            out = ef.ell_gat_fused(**kw)
+            torch.cuda.synchronize()
+            ref = ef.ell_gat_reference(**kw)
+            torch.cuda.synchronize()
+            d = (out - ref).abs()
+            rel = (d / (1 + ref.abs())).max().item()
+            dead = ~kw["node_mask"]
+            ok = (rel <= TOL["float32"] and bool(torch.isfinite(out).all())
+                  and not bool(out[dead].any()))
+            log(f"[2c] {label}: {dims['live_nodes']} live nodes, "
+                f"{dims['live_edges']} live edges; max_abs "
+                f"{d.max().item():.3e} max_rel(1+|ref|) {rel:.3e} tol "
+                f"{TOL['float32']:.1e} {'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel C disagrees with its plain version: {label}")
+            worst[label] = d.max().item()
+            del out, ref
+    return worst
+
+
+# -- phase 3c: k-NN serving -------------------------------------------------------
+
+def make_refinements(np, n_grids, seed):
+    """Refinement grids as benchmarks/vr_bench.py makes them: sides 3..50,
+    depth ramps + noise, ~5 % NODATA (1e6), resolution 0.5-4 m,
+    uncertainty 0.25."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(3, 51, size=(n_grids, 2))
+    grids = []
+    for i in range(n_grids):
+        h, w = int(sizes[i, 0]), int(sizes[i, 1])
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        depth = (20.0 + rng.uniform(-5, 5) + 0.1 * xx + 0.05 * yy
+                 + rng.normal(0, 0.05, (h, w)).astype(np.float32))
+        depth[rng.random((h, w)) < 0.05] = 1.0e6
+        uncert = np.full((h, w), 0.25, np.float32)
+        res = float(rng.uniform(0.5, 4.0))
+        grids.append((depth, uncert, (res, res)))
+    return grids
+
+
+def serve(proc, grids):
+    """Feed grids to a NativeVRProcessor as benchmarks/vr_bench.py does;
+    returns every grid's result, in input order."""
+    out = []
+    for depth, unc, res in grids:
+        proc.add_to_batch(depth, unc, res)
+        if proc.batch_ready():
+            out.extend(proc.flush_batch())
+    return out + proc.drain()
+
+
+def phase_vr_knn(torch, np, work):
+    """NativeVRProcessor (knn_k 8, node budget 50,000) on VR_GRIDS
+    refinement grids + one VR_BIG^2 grid from a graph-trained port
+    checkpoint (full width, 8 input channels)."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.inference.native_vr import (
+        NativeVRProcessor)
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.utils.weights import (load_state_dict,
+                                                         save_checkpoint)
+
+    ckpt = save_checkpoint(work / "knn_ckpt",
+                           seeded_model(torch, np, 8).state_dict(),
+                           meta={"param_layout": "coo"})
+    sd, meta = load_state_dict(ckpt)
+    check(meta["trained_layout"] == "coo", f"checkpoint meta {meta}")
+    cfg = Config()
+    cfg.graph.knn_k = KNN_K
+    proc = NativeVRProcessor(sd, cfg, node_budget=VR_BUDGET)
+    check(proc.sparse_kernel == "banded_pallas",
+          f"sparse_kernel {proc.sparse_kernel}")
+    grids = make_refinements(np, VR_GRIDS, SEED + 50)
+    big, big_unc = knn_survey(np, VR_BIG, SEED + 51)
+    big[np.isnan(big)] = 1.0e6
+    grids.insert(VR_GRIDS // 2, (big, big_unc, (2.0, 2.0)))
+    n_nodes = sum(int((np.abs(d) < 1e5).sum()) for d, _, _ in grids)
+
+    serve(proc, grids[:300])            # warm-up (allocator, first launches)
+    torch.cuda.synchronize()
+    chunks, plain_calls = [], []
+    launch_chunk = proc._launch_graphs_chunk
+    reference = ef.ell_gat_reference
+
+    def counted_chunk(idx):
+        chunks.append(sum(len(proc.pending[i]["rows"]) for i in idx))
+        return launch_chunk(idx)
+
+    def counted_reference(*a, **k):
+        plain_calls.append(1)
+        return reference(*a, **k)
+
+    ef.launches = 0                     # counts of the main path's run
+    with mock.patch.object(proc, "_launch_graphs_chunk", counted_chunk), \
+            mock.patch.object(ef, "ell_gat_reference", counted_reference):
+        t0 = time.perf_counter()
+        results = serve(proc, grids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ef.launches
+
+    check(len(results) == len(grids), f"{len(results)} results for "
+          f"{len(grids)} grids")
+    seen = set()
+    for (depth, _, _), r in zip(grids, results):
+        valid = np.abs(depth) < 1e5
+        cls = r["classification"]
+        check(cls.shape == depth.shape, f"result shape {cls.shape}")
+        check(set(np.unique(cls[valid]).tolist()) <= {0, 1, 2}
+              and bool((cls[~valid] == -1).all()), "classes")
+        check(all(np.isfinite(r[c]).all() for c in ("confidence",
+                                                    "correction")),
+              "non-finite outputs")
+        seen |= set(np.unique(cls[valid]).tolist())
+    check(not plain_calls, f"the plain version ran {len(plain_calls)} times "
+          "on the serving path")
+    check(launches == MODEL_LAYERS * len(chunks),
+          f"ell_gat_fwd launches {launches} != {MODEL_LAYERS} layers x "
+          f"{len(chunks)} graph chunks")
+    check(max(chunks) > proc.node_buckets[-1],
+          "the big grid did not take a one-off bucket")
+    log(f"[3c] NativeVRProcessor knn_k {KNN_K}, budget {VR_BUDGET}: "
+        f"{len(grids)} grids ({VR_GRIDS} refinements + one {VR_BIG}^2), "
+        f"{n_nodes} nodes in {wall:.3f} s: {len(grids) / wall:.3f} grids/s, "
+        f"{n_nodes / wall / 1e6:.4f} Mnodes/s; {len(chunks)} graph chunks, "
+        f"ell_gat_fwd launches {launches} = {MODEL_LAYERS} x "
+        f"{len(chunks)}; plain version called 0 times; classes "
+        f"{sorted(seen)}")
+
+    # one flush, kernel vs plain functions, both on the card
+    flush, nodes = [], 0
+    for gr in grids:
+        flush.append(gr)
+        nodes += int((np.abs(gr[0]) < 1e5).sum())
+        if nodes >= VR_BUDGET:
+            break
+    k_out = serve(proc, flush)
+    with mock.patch.object(ef, "ell_gat_fused",
+                           lambda *a, **k: reference(*a, **k)):
+        p_out = serve(proc, flush)
+    agree = n = 0
+    dconf = 0.0
+    for (depth, _, _), a, b in zip(flush, k_out, p_out):
+        v = np.abs(depth) < 1e5
+        agree += int((a["classification"][v] == b["classification"][v]).sum())
+        n += int(v.sum())
+        dconf = max(dconf, float(np.abs(a["confidence"]
+                                        - b["confidence"]).max()))
+    log(f"[3c] one flush ({len(flush)} grids, {nodes} nodes), kernel vs "
+        f"plain on the card: class agreement {agree / n:.6f}, max |d "
+        f"confidence| {dconf:.3e}")
+    check(agree / n >= 0.999 and dconf <= 1e-3, "flush outputs disagree")
+
+    wall_p, prows = device_profile(torch, lambda: serve(proc, grids[:500]))
+    busy = log_profile("3c", "500 refinement grids", wall_p, prows, top=10)
+    cli_stats = vr_cli(np, work, ckpt, grids[:300])
+    return dict(launches=launches, chunks=len(chunks), wall=wall,
+                grids=len(grids), nodes=n_nodes, busy_share=busy,
+                proc=proc, cli=cli_stats)
+
+
+def vr_cli(np, work, ckpt, grids):
+    """cli.inference_native --knn-k 8 on a VR BAG of ``grids`` written by
+    the port's write_vr_bag, when h5py is installed."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("[3c] cli.inference_native on a VR BAG: not run, h5py is not "
+            "installed on this machine")
+        return None
+    from bathymetric_gnn_tpu_torch.cli import inference_native
+    from bathymetric_gnn_tpu_torch.io.bag import write_vr_bag
+
+    cols = 20
+    refs = [(i // cols, i % cols, d, u, r[0])
+            for i, (d, u, r) in enumerate(grids)]
+    src = work / "vr_in.bag"
+    write_vr_bag(src, (-(-len(refs) // cols), cols), 64.0, refs)
+    stats = inference_native.main([
+        "--input", str(src), "--output", str(work / "vr_out.bag"),
+        "--model", str(ckpt), "--knn-k", str(KNN_K)])
+    check(stats["grids"] == len(grids), f"cli grids {stats}")
+    log(f"[3c] cli.inference_native --knn-k {KNN_K} on a VR BAG of "
+        f"{len(grids)} refinements: {stats}")
+    return stats
+
+
+# -- phase 4c ------------------------------------------------------------------
+
+def ell_bound(dims):
+    """Least time of one kernel C call on this graph's data, over HBM
+    bandwidth: the rows of xh and el_self of the live nodes, el and nbr_src
+    of the live slots, nbr_mask of the live nodes' slots read once,
+    node_mask and out (zeros at padded nodes) over all N, att and bias
+    once; vs its operations for the live nodes and edges (attention dots
+    4 * HC per node; ~8 per live slot and head for logit, max, exp, sum and
+    divide; 2 * HC per live slot and self loop for the weighted sum) over
+    the FP32 peak."""
+    n, k, h, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
+    ln, le = dims["live_nodes"], dims["live_edges"]
+    nbytes = (4 * (ln * hc + ln * h + le * h + le + 3 * hc + n * hc)
+              + ln * k + n)
+    flops = 4 * ln * hc + 8 * (le + ln) * h + 2 * (le + ln) * hc
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_o = flops / PEAK_FLOPS["float32"] * 1e3
+    return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes,
+            flops)
+
+
+def phase_ell_timings(torch, cases, proc, graph):
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    rows = []
+    with torch.no_grad():
+        for label, kw, dims in cases:
+            kargs = ef.kernel_args(**kw)
+            ms = cuda_ms(torch, lambda: ef.call_kernel(**kargs), 20)
+            wrap_ms = cuda_ms(torch, lambda: ef.ell_gat_fused(**kw), 10)
+            plain_ms = cuda_ms(torch, lambda: ef.ell_gat_reference(**kw), 5,
+                               warmup=1)
+            b_ms, b_by, nbytes, flops = ell_bound(dims)
+            rows.append(dict(shape=label, ms=ms, wrapper_ms=wrap_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             bytes=nbytes, flops=flops))
+            log(f"[4c] {label}: kernel C {ms:.4f} ms (wrapper {wrap_ms:.4f} "
+                f"ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
+                f"{b_ms / ms:.3f} of bound")
+            del kargs
+        fwd_ms = cuda_ms(torch, lambda: proc.model(graph), 5, warmup=2)
+    log(f"[4c] EllBathymetricGNN forward, one {graph.x.shape[0]}-node "
+        f"flush (full width, 4 kernel C launches): {fwd_ms:.3f} ms")
+    return rows, fwd_ms
+
+
 # -- main --------------------------------------------------------------------------
 
 def main() -> int:
@@ -917,6 +1283,10 @@ def main() -> int:
         phase = "2b training kernels vs plain"
         tcases = train_cases(torch, np, dev)
         terrs = phase_train_kernels_vs_plain(torch, tcases)
+        phase = "2c kernel C vs plain"
+        kmodel = ell_model(torch, dev)
+        ecases, kgraph = ell_cases(torch, np, kmodel, dev)
+        eerrs = phase_ell_kernel_vs_plain(torch, ecases)
         phase = "3 end to end"
         e2e = phase_end_to_end(torch, np, model, work)
         pipe.load_model(e2e["ckpt"])
@@ -924,6 +1294,8 @@ def main() -> int:
         phase = "3b training end to end"
         tr = phase_train_end_to_end(torch, np, work)
         phase_train_step_kernel_vs_plain(torch, np, work, tr["data"])
+        phase = "3c k-NN serving"
+        vr = phase_vr_knn(torch, np, work)
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         log(f"[4] end to end (cli.inference, load + 9 tiles + stitch + "
@@ -932,6 +1304,9 @@ def main() -> int:
         phase = "4b training timings"
         trows, step_ms = phase_train_timings(torch, np, tcases, work,
                                              tr["data"])
+        phase = "4c kernel C timings"
+        erows, flush_ms = phase_ell_timings(torch, ecases, vr["proc"],
+                                            kgraph)
     except Exception:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         traceback.print_exc()
@@ -984,6 +1359,27 @@ def main() -> int:
         "bound_ms": trow["b_bound_ms"], "bound_by": trow["b_bound_by"],
         **common,
     }]
+    erow = erows[0]
+    kernels.append({
+        "name": "ell_gat_fwd",
+        "route": "cuda",
+        "source": "bathymetric_gnn_tpu_torch/csrc/ell_gat_fwd.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py:1107",
+        "launches": vr["launches"],
+        "max_abs_err": eerrs[erow["shape"]],
+        "ms": erow["ms"],
+        "plain_ms": erow["plain_ms"],
+        "bound_ms": erow["bound_ms"],
+        "bound_by": erow["bound_by"],
+        "library_ms": None,
+        "at": erow["shape"],
+        "shapes": erows,
+        "graph_chunks": vr["chunks"],
+        "model_forward_ms_per_flush": flush_ms,
+        "end_to_end_grids_per_s": vr["grids"] / vr["wall"],
+        "end_to_end_mnodes_per_s": vr["nodes"] / vr["wall"] / 1e6,
+        "end_to_end_device_busy_share": vr["busy_share"],
+    })
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

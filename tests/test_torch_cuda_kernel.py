@@ -234,3 +234,111 @@ def test_model_train_step_grads_on_card(dev):
         scale = (big if "GridGATConv" in name and name.endswith(".bias")
                  else r.abs().max().item() + 1e-6)
         assert (a - r).abs().max().item() <= 1e-3 * scale, name
+
+
+# -- kernel C: the GAT layer on ELL graphs -------------------------------------
+
+def _ell_inputs(dev, n, k, heads, c, seed=0, n_live=None, edge=True):
+    """A k-NN ELL graph over n_live random points padded to n nodes, with
+    the first 5 live nodes isolated and the next 5 keeping 3 live slots;
+    xh, attention vectors, edge-logit terms and bias from ``seed``."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+
+    n_live = n_live or n - n // 16
+    rg = np.random.default_rng(seed)
+    pos = (rg.random((n_live, 2)) * 100).astype(np.float32)
+    x = rg.normal(size=(n_live, 3)).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (n,)
+    g = coo_to_ell(gb.build_knn_graph(x, pos, k).graph, max_degree=k)
+    g.nbr_mask[:5] = False
+    g.nbr_mask[5:10, 3:] = False
+    g = g.to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    hc = heads * c
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+    return dict(xh=rnd(n, hc), att_src=rnd(1, heads, c, s=0.3),
+                att_dst=rnd(1, heads, c, s=0.3), nbr_src=g.nbr_src,
+                nbr_mask=g.nbr_mask, el=rnd(n, k, heads) if edge else None,
+                el_self=rnd(n, heads) if edge else None, bias=rnd(hc, s=0.1),
+                node_mask=g.node_mask)
+
+
+@pytest.mark.parametrize("shape", [
+    (65536 // 16, 8, 4, 64),     # HC 256, 4 heads (layers 0-2)
+    (65536 // 16, 8, 1, 64),     # HC 64, 1 head (last layer)
+    (3000, 16, 4, 64),           # K = 16
+    (1000, 8, 2, 6),             # C % 4 != 0: scalar columns
+])
+@pytest.mark.parametrize("self_loop,edge", [(True, True), (False, True),
+                                            (True, False)])
+def test_ell_kernel_matches_plain(dev, shape, self_loop, edge):
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    n, k, heads, c = shape
+    kw = _ell_inputs(dev, n, k, heads, c, edge=edge)
+    with torch.no_grad():
+        n0 = ef.launches
+        out = ef.ell_gat_fused(**kw, self_loop=self_loop)
+        torch.cuda.synchronize()
+        assert ef.launches == n0 + 1
+        ref = ef.ell_gat_reference(**kw, self_loop=self_loop)
+    err = (out - ref).abs() / (1 + ref.abs())
+    assert err.max().item() <= TOL[torch.float32], err.max().item()
+    assert torch.isfinite(out).all()
+    dead = ~kw["node_mask"]
+    assert dead.any() and not out[dead].any()      # padded nodes: 0
+    if not self_loop:                              # isolated: bias only
+        torch.testing.assert_close(out[:5], kw["bias"].expand(5, -1))
+
+
+def test_ell_kernel_raises_under_grad_and_on_what_it_does_not_take(dev):
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    kw = _ell_inputs(dev, 512, 8, 4, 16)
+    kw["xh"].requires_grad_()
+    with pytest.raises(RuntimeError, match="C'"):
+        ef.ell_gat_fused(**kw)
+    kw["xh"] = kw["xh"].detach()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="float32"):
+            ef.ell_gat_fused(**{**kw, "xh": kw["xh"].bfloat16()})
+        with pytest.raises(ValueError, match="heads"):
+            ef.ell_gat_fused(**{**kw, "att_src": kw["att_src"].reshape(
+                1, 16, 4), "att_dst": kw["att_dst"].reshape(1, 16, 4),
+                "el": None, "el_self": None})
+
+
+def test_ell_model_on_card_matches_cpu(dev):
+    """EllBathymetricGNN at full width (hidden 64, 4 heads, 4 layers)
+    through kernel C on the card vs the same weights on the CPU."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import EllBathymetricGNN
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+
+    rg = np.random.default_rng(1)
+    pos = (rg.random((3500, 2)) * 60).astype(np.float32)
+    x = rg.normal(size=(3500, 8)).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (4096,)
+    g = coo_to_ell(gb.build_knn_graph(x, pos, 8, depth=x[:, 0]).graph, 8)
+    model = EllBathymetricGNN(8, sparse_kernel="banded_pallas",
+                              generator=torch.Generator().manual_seed(0))
+    model.eval()
+    with torch.no_grad():
+        cpu = model(g.to("cpu"))
+        n0 = ef.launches
+        gpu = model.to(dev)(g.to(dev))
+        torch.cuda.synchronize()
+    assert ef.launches == n0 + 4
+    live = torch.from_numpy(g.node_mask)
+    agree = (gpu["predicted_class"].cpu() == cpu["predicted_class"])[live]
+    assert agree.float().mean().item() >= 0.999
+    for key in ("confidence", "correction"):
+        d = (gpu[key].cpu() - cpu[key]).abs()[live].max().item()
+        assert d <= 1e-3, (key, d)

@@ -189,16 +189,25 @@ def test_default_device_is_the_card():
 
 
 def test_bag_raises_clearly(tmp_path):
+    """BAG input is ported (tests/test_torch_bag.py); what is not a BAG
+    raises: a missing file, and an HDF5 file without ``BAG_root``."""
+    import h5py
+
     pipe = BathymetricPipeline(_port_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="BAG"):
+    with pytest.raises(OSError):
         pipe.loader.load(tmp_path / "x.bag")
+    with h5py.File(tmp_path / "y.bag", "w") as f:
+        f.create_dataset("z", data=np.zeros(3))
+    with pytest.raises(ValueError, match="not a BAG"):
+        pipe.loader.load(tmp_path / "y.bag")
 
 
 def test_port_imports_nothing_of_jax():
     """Import every module of the port in a fresh interpreter (the test
     process itself has jax loaded by conftest) and check that no jax*
-    module and no module of the JAX package came with it; the training
-    modules are among those imported."""
+    module and no module of the JAX package came with it, nor h5py (the
+    card's machine has none; BAG I/O imports it when a BAG is opened); the
+    training and k-NN serving modules are among those imported."""
     code = r"""
 import importlib, pkgutil, sys
 import bathymetric_gnn_tpu_torch as pkg
@@ -210,10 +219,14 @@ bad = sorted(m for m in sys.modules
              or m == "bathymetric_gnn_tpu" or m.startswith("bathymetric_gnn_tpu."))
 print(len(names), bad)
 assert not bad, bad
+assert "h5py" not in sys.modules
 assert len(names) >= 25, names
 for m in ("training.grid_trainer", "training.losses", "training.optim",
           "training.trainer", "training.datasets", "models.grid_batched",
-          "data.synthetic_noise", "utils.prefetch", "cli.train"):
+          "data.synthetic_noise", "utils.prefetch", "cli.train", "native",
+          "io.bag", "io.loaders", "ops.graph", "ops.ell",
+          "ops.cuda.ell_gat_fused", "models.conv_ell", "models.gnn_ell",
+          "inference.native_vr", "cli.inference_native"):
     assert pkg.__name__ + "." + m in names, m
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
