@@ -3,16 +3,23 @@
 //
 // Replaces bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py::_kernel_v3 (the
 // wide banded-ELL Pallas TPU kernel behind ell_gat_fused_wide_pallas) in
-// its inference form: f32, no dropout. For node i of an ELL graph
+// f32, in its inference form and its training (dropout) form. For node i
+// of an ELL graph
 // (nbr_src [N, K], nbr_mask [N, K]) and head h it computes
 //   a_src[j, h] = sum_c xh[j, h, c] * att_src[h, c]       (dots kernel)
 //   a_dst[j, h] = sum_c xh[j, h, c] * att_dst[h, c]
 //   l_k    = LeakyReLU(a_src[nbr[i, k], h] + a_dst[i, h] + el[i, k, h])
 //            for each live slot k
 //   l_self = LeakyReLU(a_src[i, h] + a_dst[i, h] + el_self[i, h])
-//   w      = softmax over {l_k} U {l_self}, max over all live slots
+//   w      = softmax over {l_k} U {l_self}, max over all live slots,
+//            times the dropout multipliers d (training form; 1 otherwise)
 //   out[i, h, :] = (w_self * xh[i, h, :] + sum_k w_k * xh[nbr[i, k], h, :])
 //                  [+ bias], 0 where node_mask[i] is false
+// The dropout form multiplies the post-softmax weights of the live slots
+// and of the self loop by 0 or 1 / keep; the denominator stays the
+// undropped one, as in _kernel_v3. The multipliers are streamed ([N, K+1,
+// heads] f32) or drawn here with Philox from a per-layer seed
+// (ell_gat_common.cuh), so kernel C' (ell_gat_bwd.cu) regenerates them.
 // The attention dots, the masked softmax and the weighted gather-sum are
 // all computed here; x @ W and the edge-logit terms el = edge_attr @
 // M_edge, el_self = mean live incoming attr @ M_edge come from the caller.
@@ -50,87 +57,17 @@
 // Fusing the dots into the producer of xh, wider rows per warp and
 // tensor-core/TMA staging are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ell_gat_common.cuh"
+
+using namespace ellgat;
 
 namespace {
-
-constexpr int WARP = 32;
-constexpr int THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float leaky(float v, float slope) {
-  return v >= 0.f ? v : slope * v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = WARP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = WARP / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// dots[i, h] = <xh[i, h, :], att[0, h, :]>, dots[i, heads + h] = <xh[i, h,
-// :], att[1, h, :]>; att is [2, HC] (att_src then att_dst, flattened).
-__global__ void __launch_bounds__(THREADS)
-dots_kernel(const float* __restrict__ xh, const float* __restrict__ att,
-            float* __restrict__ dots, long long n, int heads, int c) {
-  const int lane = threadIdx.x & (WARP - 1);
-  const long long i =
-      (long long)blockIdx.x * (blockDim.x / WARP) + threadIdx.x / WARP;
-  if (i >= n) return;
-  const int hc = heads * c;
-  const float* row = xh + i * hc;
-  for (int h = 0; h < heads; ++h) {
-    float s = 0.f, d = 0.f;
-    for (int j = lane; j < c; j += WARP) {
-      const float v = row[h * c + j];
-      s = fmaf(v, att[h * c + j], s);
-      d = fmaf(v, att[hc + h * c + j], d);
-    }
-    s = warp_sum(s);
-    d = warp_sum(d);
-    if (lane == 0) {
-      dots[i * 2 * heads + h] = s;
-      dots[i * 2 * heads + heads + h] = d;
-    }
-  }
-}
-
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    v[0] = __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    p[0] = v[0];
-  }
-};
-template <>
-struct Vec<4> {
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
 
 // One warp per destination node. Shared memory per warp: weights [K,
 // heads], self weights [heads] (floats), then (after all warps' floats)
 // the K sources (ints, -1 for a dead slot). VEC = 4 needs C % 4 == 0 and
-// 16-byte aligned xh / out / bias (checked by the caller).
+// 16-byte aligned xh / out / bias (checked by the caller). The weights
+// are multiplied by ``drop``'s multipliers after the normalization.
 template <int VEC>
 __global__ void __launch_bounds__(THREADS)
 aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
@@ -141,7 +78,7 @@ aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
                  const float* __restrict__ bias,
                  const uint8_t* __restrict__ node_mask,
                  float* __restrict__ out, long long n, int k, int heads,
-                 int c, float slope, int has_self) {
+                 int c, float slope, int has_self, Drop drop) {
   extern __shared__ float smem[];
   const int wpb = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
@@ -194,8 +131,12 @@ aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
     const float e_self = has_self ? expf(self_l - m) : 0.f;
     den = fmaxf(den + e_self, 1e-16f);
     for (int s = lane; s < k; s += WARP)
-      w_s[s * heads + h] = w_s[s * heads + h] / den;
-    if (lane == 0) wself_s[h] = e_self / den;
+      w_s[s * heads + h] = src_s[s] >= 0 ? w_s[s * heads + h] / den *
+                                               drop.mult(i, s, h, k, heads)
+                                         : 0.f;
+    if (lane == 0)
+      wself_s[h] = has_self ? e_self / den * drop.mult(i, k, h, k, heads)
+                            : 0.f;
   }
   __syncwarp();
 
@@ -228,6 +169,20 @@ aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
   }
 }
 
+// The multipliers of ``drop`` (mode 2) written out as the mask [n, k + 1,
+// heads] that mode 1 streams.
+__global__ void __launch_bounds__(THREADS)
+drop_mask_kernel(float* __restrict__ out, Drop drop, long long n, int k,
+                 int heads) {
+  const long long total = n * (k + 1) * heads;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const int h = (int)(idx % heads);
+    const int s = (int)((idx / heads) % (k + 1));
+    out[idx] = drop.mult(idx / ((long long)(k + 1) * heads), s, h, k, heads);
+  }
+}
+
 }  // namespace
 
 // Shared memory of one aggregate block with `wpb` warps.
@@ -244,30 +199,33 @@ extern "C" int ell_gat_fwd_warps_per_block(int k, int heads) {
   return 0;
 }
 
-// Kernel C, inference form. xh [n, heads * c] f32; att [2, heads * c] f32;
-// nbr [n, k] int32; nmask [n, k] uint8; el [n, k, heads] f32 or null;
-// el_self [n, heads] f32 or null (zeros); bias [heads * c] f32 or null;
-// node_mask [n] uint8 or null; dots [n, 2 * heads] f32 scratch; out
-// [n, heads * c] f32. Launches on `stream`; returns the CUDA error code of
-// the launches (0 when both were accepted).
+// Kernel C. xh [n, heads * c] f32; att [2, heads * c] f32; nbr [n, k]
+// int32; nmask [n, k] uint8; el [n, k, heads] f32 or null; el_self
+// [n, heads] f32 or null (zeros); bias [heads * c] f32 or null; node_mask
+// [n] uint8 or null; dots [n, 2 * heads] f32 scratch; out [n, heads * c]
+// f32. Dropout (training form): drop_mode 0 none, 1 dmask [n, k + 1,
+// heads] f32, 2 Philox from the int64 at seed with threshold thresh and
+// scale keep_inv. Launches on `stream`; returns the CUDA error code of the
+// launches (0 when both were accepted).
 extern "C" int ell_gat_fwd(const void* xh, const void* att, const void* nbr,
                            const void* nmask, const void* el,
                            const void* el_self, const void* bias,
                            const void* node_mask, void* dots, void* out,
                            long long n, int k, int heads, int c, float slope,
-                           int has_self, int vec, void* stream) {
+                           int has_self, int vec, int drop_mode,
+                           const void* dmask, const void* seed,
+                           unsigned thresh, float keep_inv, void* stream) {
   if (n < 1 || k < 1 || heads < 1 || c < 1 || (vec != 1 && vec != 4) ||
-      (vec == 4 && c % 4 != 0))
+      (vec == 4 && c % 4 != 0) || drop_mode < 0 || drop_mode > 2 ||
+      (drop_mode == 1 && dmask == nullptr) ||
+      (drop_mode == 2 && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   const int wpb = ell_gat_fwd_warps_per_block(k, heads);
   if (wpb < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nodes_per_block = THREADS / WARP;
-  dots_kernel<<<(unsigned)((n + nodes_per_block - 1) / nodes_per_block),
-                THREADS, 0, s>>>(static_cast<const float*>(xh),
-                                 static_cast<const float*>(att),
-                                 static_cast<float*>(dots), n, heads, c);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_dots(static_cast<const float*>(xh),
+                                static_cast<const float*>(att),
+                                static_cast<float*>(dots), n, heads, c, s);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
   const size_t smem = agg_smem(wpb, k, heads);
@@ -280,14 +238,30 @@ extern "C" int ell_gat_fwd(const void* xh, const void* att, const void* nbr,
   const float* args_bias = static_cast<const float*>(bias);
   const uint8_t* args_node = static_cast<const uint8_t*>(node_mask);
   float* args_out = static_cast<float*>(out);
+  const Drop drop = make_drop(drop_mode, dmask, seed, thresh, keep_inv);
   if (vec == 4)
     aggregate_kernel<4><<<blocks, wpb * WARP, smem, s>>>(
         args_xh, args_dots, args_nbr, args_nmask, args_el, args_self,
-        args_bias, args_node, args_out, n, k, heads, c, slope, has_self);
+        args_bias, args_node, args_out, n, k, heads, c, slope, has_self,
+        drop);
   else
     aggregate_kernel<1><<<blocks, wpb * WARP, smem, s>>>(
         args_xh, args_dots, args_nbr, args_nmask, args_el, args_self,
-        args_bias, args_node, args_out, n, k, heads, c, slope, has_self);
+        args_bias, args_node, args_out, n, k, heads, c, slope, has_self,
+        drop);
+  return (int)cudaGetLastError();
+}
+
+// The Philox draw of ``seed`` (mode 2 of ell_gat_fwd) as the f32 mask
+// [n, k + 1, heads] that mode 1 takes.
+extern "C" int ell_gat_drop_mask(void* out, const void* seed, unsigned thresh,
+                                 float keep_inv, long long n, int k,
+                                 int heads, void* stream) {
+  if (n < 1 || k < 1 || heads < 1 || seed == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Drop drop = make_drop(2, nullptr, seed, thresh, keep_inv);
+  drop_mask_kernel<<<1024, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), drop, n, k, heads);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,72 @@
+// Sorted-segment row reduction (kernel F) for Hopper (sm_90a), CUDA C++:
+// the backward of a row gather.
+//
+// Replaces bathymetric_gnn_tpu/ops/pallas/segment_reduce.py::_reduce_kernel
+// (segment_reduce_sorted), the Pallas TPU reducer that the JAX k-NN train
+// step runs for the cotangent of its spill-row gather (ops/ell_banded.py
+// gather_rows_reduce_bwd): out[j] = sum of ct[perm[s]] over the slots s of
+// node j's segment, in sorted order, with no scatter-add.
+//
+// The TPU kernel turns each 1024-node block's contiguous cotangent range
+// into one-hot matmuls on the MXU, with per-block first/jcount tables
+// prefetched into the grid. Hopper reads rows directly, so one warp per
+// output row walks its segment (row_ptr from a source-sorted stable
+// argsort, ops/ell.py src_sorted_slots) and sums in registers
+// (segment_reduce.cuh). The same kernel, with its rows formed in
+// registers from kernel C''s per-slot coefficients instead of read from
+// ct, is the source-side half of kernel C' (ell_gat_bwd.cu).
+//
+// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 non-tensor):
+// it reads each live row of ct once, perm and row_ptr once, and writes out
+// once, one add per element read: bound by bytes. Segments are short (a
+// k-NN source appears in ~K slots), the rows are gathered in sorted
+// order, and the warp's lanes load 16 bytes each.
+
+#include "segment_reduce.cuh"
+
+// Mode (a). ct [S, f] f32; perm [>= row_ptr[n]] int32; row_ptr [n + 1]
+// int32; out [n, f] f32, overwritten. vec 4 needs f % 4 == 0 and 16-byte
+// aligned ct and out (checked by the caller). Launches on `stream`;
+// returns the CUDA error code of the launch.
+extern "C" int segment_reduce_sorted(const void* ct, const void* perm,
+                                     const void* row_ptr, void* out,
+                                     long long n, int f, int vec,
+                                     void* stream) {
+  if (n < 1 || f < 1 || (vec != 1 && vec != 4) || (vec == 4 && f % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const segred::RowsCT rows{static_cast<const float*>(ct), f};
+  return (int)segred::launch_reduce<false>(
+      rows, static_cast<const int*>(perm), static_cast<const int*>(row_ptr),
+      static_cast<float*>(out), n, f, vec,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Mode (b) on its own (kernel C' launches it after its own kernel, adding
+// into dxh): out [n, heads * c] = for each source j the sum over its
+// slots s of alpha[s, h] * dy[s / k, h, :] + dl[s, h] * att_src[h, :].
+// alpha, dl [n * k, heads] f32; dy [n, heads * c] f32; att_src
+// [heads * c] f32; perm / row_ptr as mode (a); out overwritten. vec 4
+// needs c % 4 == 0 and 16-byte aligned dy, att_src and out.
+extern "C" int segment_reduce_gat_rows(const void* alpha, const void* dl,
+                                       const void* dy, const void* att_src,
+                                       const void* perm, const void* row_ptr,
+                                       void* out, long long n, int k,
+                                       int heads, int c, int vec,
+                                       void* stream) {
+  if (n < 1 || k < 1 || heads < 1 || c < 1 || (vec != 1 && vec != 4) ||
+      (vec == 4 && c % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const segred::RowsGAT rows{static_cast<const float*>(alpha),
+                             static_cast<const float*>(dl),
+                             static_cast<const float*>(dy),
+                             static_cast<const float*>(att_src), k, heads,
+                             c};
+  return (int)segred::launch_reduce<false>(
+      rows, static_cast<const int*>(perm), static_cast<const int*>(row_ptr),
+      static_cast<float*>(out), n, heads * c, vec,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* segment_reduce_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -9,14 +9,16 @@ parameter names and shapes (``lin_src`` [F, HC], ``att_src`` /
 - ``GATConvELL``: plain PyTorch gathers, through kernel C's plain version
   ``ell_gat_reference`` on any device (the JAX ``sparse_kernel="xla"``
   route, which is plain XLA there too);
-- ``GATConvEllBanded``: the serving layer of the k-NN path (JAX
+- ``GATConvEllBanded``: the layer of the k-NN path (JAX
   ``sparse_kernel="banded_pallas"``). x @ W and the edge-logit terms are
-  computed here; the attention dots, masked softmax and weighted
-  gather-sum run in ``ops/cuda/ell_gat_fused`` (kernel C on the card, its
-  plain version on the CPU), which also adds the bias and applies the node
-  mask. It is inference only: the backward (kernel C') is still to port,
-  so training mode raises. The port needs no band layout, so the JAX
-  module's ``banded`` argument has no counterpart.
+  computed here; the attention dots, masked softmax, attention dropout
+  and weighted gather-sum run in ``ops/cuda/ell_gat_fused`` (kernel C on
+  the card, its plain version on the CPU), which also adds the bias and
+  applies the node mask. Serving (eval mode, no gradient) takes kernel
+  C's inference form; training takes its dropout form with kernel C' as
+  the backward, and ``lin_edge``/``att_edge`` get their gradients through
+  autograd from C''s d el / d el_self. The port needs no band layout, so
+  the JAX module's ``banded`` argument has no counterpart.
 
 The GCN, GraphSAGE and GIN ELL layers of the JAX module are not ported.
 """
@@ -29,7 +31,21 @@ import torch
 from torch import nn
 
 from ..ops.cuda import ell_gat_fused
+from ..ops.ell import EllTrainGraph
 from .grid_gat import _glorot
+from .layers import keep_mask
+
+
+def make_ell_dropout_mask(generator: torch.Generator, p: float, n: int,
+                          k: int, heads: int) -> torch.Tensor:
+    """Streamed post-softmax attention-dropout multipliers [N, K+1, heads]
+    (slot K is the self loop), each 0 or 1/(1-p), drawn from
+    ``generator`` on its device: the port's layout of the JAX
+    ``make_banded_dropout_masks``. Draws are iid, so the layout changes
+    only which weight each draw multiplies."""
+    keep = 1.0 - p
+    return keep_mask((n, k + 1, heads), keep, generator, generator.device
+                     ).to(torch.float32) / keep
 
 
 class _EllGATParams(nn.Module):
@@ -39,10 +55,12 @@ class _EllGATParams(nn.Module):
                  concat: bool = True, negative_slope: float = 0.2,
                  edge_dim: Optional[int] = None, add_self_loops: bool = True,
                  use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads, self.out_channels = heads, out_channels
         self.concat = concat
+        self.dropout = dropout
         self.negative_slope = negative_slope
         self.edge_dim = edge_dim
         self.add_self_loops = add_self_loops
@@ -90,9 +108,21 @@ class _EllGATParams(nn.Module):
 
 class GATConvELL(_EllGATParams):
     """PyG-exact GAT on the ELL layout in plain PyTorch (the plain version
-    of kernel C, then concat or head mean, bias and the node mask)."""
+    of kernel C, then concat or head mean, bias and the node mask). The
+    JAX ``sparse_kernel="xla"`` route. It has no attention dropout: the
+    COO/XLA training path comes with ROADMAP queue 1 item 11, so training
+    mode with ``dropout`` > 0 raises."""
 
-    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, g, x: torch.Tensor,
+                dropout_rng: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """As ``GATConvEllBanded.forward``; ``dropout_rng`` is unused (no
+        attention dropout here)."""
+        if self.training and self.dropout > 0:
+            raise NotImplementedError(
+                "attention dropout on the plain ELL layer (the COO/XLA "
+                "training path, ROADMAP.md queue 1 item 11) is not ported; "
+                "train with sparse_kernel='banded_pallas'")
         el, el_self = self._edge_terms(g)
         out = ell_gat_fused.ell_gat_reference(
             x @ self.lin_src, self.att_src, self.att_dst, g.nbr_src,
@@ -104,23 +134,51 @@ class GATConvELL(_EllGATParams):
 
 
 class GATConvEllBanded(_EllGATParams):
-    """The k-NN serving layer: kernel C (``ell_gat_fused``) in eval mode."""
+    """The k-NN layer: kernel C (``ell_gat_fused``) when serving, kernels C
+    and C' (``ell_gat_fused_train``) when training or when a gradient is
+    wanted."""
 
-    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "GATConvEllBanded runs in eval mode only: the backward of "
-                "kernel C (C', ROADMAP.md queue 2) is not ported yet")
+    def forward(self, g, x: torch.Tensor,
+                dropout_rng: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """g: an ``ops.ell.EllGraph`` of tensors, x [N, F] -> [N, HC] (or
+        [N, C] for the head mean). In training mode with ``dropout`` > 0
+        the attention dropout draws from ``dropout_rng``: on the card one
+        Philox seed per call (kernels C and C' draw the multipliers from
+        it), on the CPU the streamed mask itself."""
         h, c = self.heads, self.out_channels
         xh = x.to(torch.float32) @ self.lin_src             # [N, HC]
         el, el_self = self._edge_terms(g)
         node_mask = g.node_mask.to(torch.bool)
         fold = self.concat or h == 1   # bias and mask fold into the kernel
-        out = ell_gat_fused.ell_gat_fused(
-            xh, self.att_src, self.att_dst, g.nbr_src, g.nbr_mask, el,
-            el_self, self_loop=self.add_self_loops,
-            bias=self.bias if fold else None, node_mask=node_mask,
-            negative_slope=self.negative_slope)
+        kw = dict(self_loop=self.add_self_loops,
+                  bias=self.bias if fold else None, node_mask=node_mask,
+                  negative_slope=self.negative_slope)
+        args = (xh, self.att_src, self.att_dst, g.nbr_src, g.nbr_mask, el,
+                el_self)
+        if self.training or (torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters())):
+            out = ell_gat_fused.ell_gat_fused_train(
+                *args, **kw, **self._dropout_args(g, dropout_rng),
+                slot_tables=(g.slot_perm, g.slot_row_ptr)
+                if isinstance(g, EllTrainGraph) else None)
+        else:
+            out = ell_gat_fused.ell_gat_fused(*args, **kw)
         if fold:
             return out
         return self._finish(out.reshape(x.shape[0], h, c), node_mask)
+
+    def _dropout_args(self, g, dropout_rng) -> dict:
+        if not (self.training and self.dropout > 0):
+            return {}
+        if dropout_rng is None:
+            raise ValueError("attention dropout in training mode needs a "
+                             "torch.Generator (dropout_rng)")
+        keep = 1.0 - self.dropout
+        n, k = g.nbr_src.shape
+        if g.nbr_src.device.type == "cuda":
+            seed = torch.randint(0, 2 ** 62, (1,), generator=dropout_rng,
+                                 device=g.nbr_src.device, dtype=torch.int64)
+            return dict(drop_seed=seed, keep_prob=keep)
+        return dict(dmask=make_ell_dropout_mask(
+            dropout_rng, self.dropout, n, k, self.heads), keep_prob=keep)

@@ -6,10 +6,15 @@ Submodules carry the JAX model's names (``MLPFeatureExtractor_0``,
 heads), so a graph-trained (COO-layout) checkpoint applies unchanged;
 ``utils/weights.coo_state_dict`` renames a port checkpoint's grid-named
 state_dict to these keys. ``sparse_kernel`` picks the GAT layer:
-``"xla"`` the plain ``GATConvELL``; ``"banded_pallas"`` (and ``"banded"``,
-the JAX package's XLA form of the same layer) ``GATConvEllBanded``, whose
-attention runs in kernel C. The model serves (eval mode); only GAT is
-ported.
+``"xla"`` the plain ``GATConvELL`` (serving only); ``"banded_pallas"``
+(and ``"banded"``, the JAX package's XLA form of the same layer)
+``GATConvEllBanded``, whose attention runs in kernel C and, when
+training, kernel C'. In training mode the BatchNorms normalize with the
+masked moments of the batch's live nodes and update their running
+statistics, and ``dropout`` applies to the extractor, the attention
+weights, the BatchNorm output of every layer but the last (fused with its
+ReLU) and the heads, drawing from the ``dropout_rng`` passed to
+``forward``, as the port's grid model does. Only GAT is ported.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from torch import nn
 
 from .conv_ell import GATConvELL, GATConvEllBanded
 from .layers import (ClassificationHead, ConfidenceHead, CorrectionHead,
-                     MaskedBatchNorm, MLPFeatureExtractor)
+                     MaskedBatchNorm, MLPFeatureExtractor, keep_mask)
 
 SPARSE_KERNELS = ("xla", "banded", "banded_pallas")
 NON_GAT_NOT_PORTED = (
@@ -37,7 +42,8 @@ class EllGNNBackbone(nn.Module):
     def __init__(self, in_channels: int, hidden_channels: int,
                  num_layers: int, gnn_type: str = "GAT", heads: int = 4,
                  edge_dim: Optional[int] = None, sparse_kernel: str = "xla",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         if gnn_type != "GAT":
             raise NotImplementedError(NON_GAT_NOT_PORTED.format(gnn_type))
@@ -45,22 +51,34 @@ class EllGNNBackbone(nn.Module):
             raise ValueError(f"unknown sparse_kernel {sparse_kernel!r}")
         conv = GATConvELL if sparse_kernel == "xla" else GATConvEllBanded
         self.num_layers = num_layers
+        self.dropout = dropout
         width = in_channels
         for i in range(num_layers):
             last = i == num_layers - 1
             hds = 1 if last else heads
             self.add_module(f"GATConv_{i}", conv(
                 width, hidden_channels, heads=hds, concat=not last,
-                edge_dim=edge_dim, generator=generator))
+                edge_dim=edge_dim, generator=generator, dropout=dropout))
             width = hidden_channels * hds
             self.add_module(f"MaskedBatchNorm_{i}", MaskedBatchNorm(width))
 
-    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, g, x: torch.Tensor,
+                dropout_rng: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         node_mask = g.node_mask.to(torch.bool)
+        drop = self.training and self.dropout > 0
         for i in range(self.num_layers):
-            x = getattr(self, f"GATConv_{i}")(g, x)
+            last = i == self.num_layers - 1
+            conv = getattr(self, f"GATConv_{i}")
+            x = conv(g, x, dropout_rng)
+            keep, keep_prob = None, 1.0
+            if drop and not last:
+                # ReLU + feature dropout fold into the norm's pass
+                keep_prob = 1.0 - self.dropout
+                keep = keep_mask(x.shape, keep_prob, dropout_rng, x.device)
             x = getattr(self, f"MaskedBatchNorm_{i}")(
-                x, node_mask, fuse_relu=i < self.num_layers - 1)
+                x, node_mask, fuse_relu=not last, keep=keep,
+                keep_prob=keep_prob)
         return x
 
 
@@ -73,40 +91,50 @@ class EllBathymetricGNN(nn.Module):
                  num_classes: int = 3, predict_correction: bool = True,
                  feature_extractor_layers: int = 2,
                  edge_dim: Optional[int] = 3, sparse_kernel: str = "xla",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.predict_correction = predict_correction
         self.MLPFeatureExtractor_0 = MLPFeatureExtractor(
-            in_channels, hidden_channels, feature_extractor_layers, generator)
+            in_channels, hidden_channels, feature_extractor_layers, generator,
+            dropout)
         self.GNNBackbone_0 = EllGNNBackbone(
             hidden_channels, hidden_channels, num_layers, gnn_type, heads,
             edge_dim=edge_dim, sparse_kernel=sparse_kernel,
-            generator=generator)
+            generator=generator, dropout=dropout)
         self.ClassificationHead_0 = ClassificationHead(
-            hidden_channels, num_classes, generator)
-        self.ConfidenceHead_0 = ConfidenceHead(hidden_channels, generator)
+            hidden_channels, num_classes, generator, dropout)
+        self.ConfidenceHead_0 = ConfidenceHead(hidden_channels, generator,
+                                               dropout)
         if predict_correction:
             self.CorrectionHead_0 = CorrectionHead(hidden_channels,
-                                                   generator)
+                                                   generator, dropout)
 
-    def forward(self, g) -> Dict[str, torch.Tensor]:
-        """g: an ``ops.ell.EllGraph`` of tensors -> per-node outputs."""
-        x = self.MLPFeatureExtractor_0(g.x.to(torch.float32))
-        x = self.GNNBackbone_0(g, x)
-        logits = self.ClassificationHead_0(x)
+    def forward(self, g, dropout_rng: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """g: an ``ops.ell.EllGraph`` of tensors -> per-node outputs.
+        ``dropout_rng``: the generator dropout draws from in training mode
+        (needed when ``dropout`` > 0)."""
+        x = self.MLPFeatureExtractor_0(g.x.to(torch.float32), dropout_rng)
+        x = self.GNNBackbone_0(g, x, dropout_rng)
+        logits = self.ClassificationHead_0(x, dropout_rng)
         out = {
             "class_logits": logits,
             "class_probs": torch.softmax(logits, -1),
             "predicted_class": torch.argmax(logits, -1),
-            "confidence": self.ConfidenceHead_0(x),
+            "confidence": self.ConfidenceHead_0(x, dropout_rng),
         }
         if self.predict_correction:
-            out["correction"] = self.CorrectionHead_0(x)
+            out["correction"] = self.CorrectionHead_0(x, dropout_rng)
         return out
 
 
 def make_ell_model(model_cfg, in_channels: int, edge_dim: int = 3,
-                   sparse_kernel: str = "xla") -> EllBathymetricGNN:
+                   sparse_kernel: str = "xla", dropout: float = 0.0,
+                   generator: Optional[torch.Generator] = None
+                   ) -> EllBathymetricGNN:
+    """The ELL model of ``model_cfg``'s widths; ``dropout`` is the
+    training model's (the JAX config's ``model.dropout``), 0 to serve."""
     return EllBathymetricGNN(
         in_channels=in_channels,
         hidden_channels=model_cfg.hidden_channels,
@@ -118,4 +146,6 @@ def make_ell_model(model_cfg, in_channels: int, edge_dim: int = 3,
         feature_extractor_layers=model_cfg.feature_extractor_layers,
         edge_dim=edge_dim,
         sparse_kernel=sparse_kernel,
+        generator=generator,
+        dropout=dropout,
     )

@@ -30,7 +30,8 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-# the dropout arguments of both layer entries: mode, dmask, seed pointer,
+_LL = ctypes.c_longlong
+# the dropout arguments of the layer entries: mode, dmask, seed pointer,
 # threshold, 1 / keep
 _DROP = [_I, _VP, _VP, _U, _F]
 # name -> (source file, {C function: (restype, argtypes)})
@@ -47,10 +48,23 @@ KERNELS: Dict[str, tuple] = {
         "grid_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_fwd": ("ell_gat_fwd.cu", {
-        "ell_gat_fwd": (_I, [_VP] * 10 + [ctypes.c_longlong, _I, _I, _I, _F,
-                                          _I, _I, _VP]),
+        "ell_gat_fwd": (_I, [_VP] * 10 + [_LL, _I, _I, _I, _F, _I, _I]
+                        + _DROP + [_VP]),
+        "ell_gat_drop_mask": (_I, [_VP, _VP, _U, _F, _LL, _I, _I, _VP]),
         "ell_gat_fwd_warps_per_block": (_I, [_I, _I]),
         "ell_gat_fwd_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "ell_gat_bwd": ("ell_gat_bwd.cu", {
+        "ell_gat_bwd": (_I, [_VP] * 8 + _DROP + [_VP] * 8
+                        + [_LL, _I, _I, _I, _F, _I, _I, _I, _VP]),
+        "ell_gat_bwd_warps_per_block": (_I, [_I, _I, _I]),
+        "ell_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "segment_reduce": ("segment_reduce.cu", {
+        "segment_reduce_sorted": (_I, [_VP] * 4 + [_LL, _I, _I, _VP]),
+        "segment_reduce_gat_rows": (_I, [_VP] * 7 + [_LL, _I, _I, _I, _I,
+                                                      _VP]),
+        "segment_reduce_error_string": (ctypes.c_char_p, [_I]),
     }),
 }
 

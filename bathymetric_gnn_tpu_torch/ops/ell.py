@@ -6,7 +6,9 @@ destination-major as [N, K] source indices + mask, so message passing is
 gather-only: the segment softmax becomes a masked softmax over the slot
 axis and aggregation a weighted sum over K gathered rows. ``coo_to_ell``
 packs on the host (NumPy); ``EllGraph.to`` moves a packed graph to the
-device in one go.
+device in one go. The backward of the gather (the sum over each source's
+slots) runs over the source-sorted slot tables of ``src_sorted_slots``,
+also built on the host.
 """
 
 from __future__ import annotations
@@ -46,9 +48,28 @@ class EllGraph:
 
     def to(self, device) -> "EllGraph":
         """The same graph as torch tensors on ``device``."""
-        return EllGraph(**{
+        return type(self)(**{
             f.name: torch.as_tensor(getattr(self, f.name)).to(device)
             for f in dataclasses.fields(self)})
+
+    def with_src_sorted_slots(self) -> "EllTrainGraph":
+        """This (NumPy) graph with its source-sorted slot tables."""
+        perm, row_ptr = src_sorted_slots(self.nbr_src, self.nbr_mask,
+                                         self.node_mask)
+        return EllTrainGraph(**{f.name: getattr(self, f.name)
+                                for f in dataclasses.fields(EllGraph)},
+                             slot_perm=perm, slot_row_ptr=row_ptr)
+
+
+@dataclasses.dataclass
+class EllTrainGraph(EllGraph):
+    """An EllGraph with the source-sorted slot tables of
+    ``src_sorted_slots`` (``slot_perm`` [N * K], ``slot_row_ptr``
+    [N + 1]), over which the layer's backward reduces: the trainer builds
+    them on the host once per batch."""
+
+    slot_perm: object
+    slot_row_ptr: object
 
 
 def coo_to_ell(g: PaddedGraph, max_degree: Optional[int] = None) -> EllGraph:
@@ -83,6 +104,35 @@ def coo_to_ell(g: PaddedGraph, max_degree: Optional[int] = None) -> EllGraph:
     return EllGraph(x=g.x, nbr_src=nbr_src, nbr_mask=nbr_mask,
                     edge_attr=eattr, node_mask=g.node_mask, pos=g.pos,
                     local_std=g.local_std, graph_id=g.graph_id)
+
+
+def src_sorted_slots(nbr_src: np.ndarray, nbr_mask: np.ndarray,
+                     node_mask: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Source-sorted view of the live slots of an ELL graph, for the
+    backward of its row gather (the counterpart of ``band_ell``'s
+    ``spill_perm``/``spill_src_sorted`` and reducer tables in the JAX
+    package's ``ops/ell_banded.py``).
+
+    Returns (perm [N * K] int32, row_ptr [N + 1] int32): ``perm`` is a
+    stable argsort of the flat slots (slot = dst * K + k) by source node,
+    with dead slots (and the slots of padded destinations, when
+    ``node_mask`` is given) keyed to N so that they sort past
+    ``row_ptr[N]`` and are never read; the slots of source j are
+    ``perm[row_ptr[j]:row_ptr[j + 1]]``, in ascending slot order, so a
+    reduction over them runs in the same order every time.
+    """
+    src = np.asarray(nbr_src)
+    live = np.asarray(nbr_mask, bool)
+    n, k = src.shape
+    if n * k >= 2 ** 31:
+        raise ValueError(f"N * K = {n * k} slots exceed int32")
+    if node_mask is not None:
+        live = live & np.asarray(node_mask, bool)[:, None]
+    key = np.where(live, src, n).reshape(-1).astype(np.int64)
+    perm = np.argsort(key, kind="stable").astype(np.int32)
+    row_ptr = np.searchsorted(key[perm], np.arange(n + 1)).astype(np.int32)
+    return perm, row_ptr
 
 
 def ell_gather(x: torch.Tensor, nbr_src: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Padded graph containers, packed on the host (port of
 ``bathymetric_gnn_tpu/ops/graph.py``: ``round_up_to_bucket``,
-``PaddedGraph``, ``make_padded_graph``, ``batch_graphs``).
+``PaddedGraph``, ``make_padded_graph``, ``batch_graphs``,
+``merge_stacked``).
 
 Everything stays NumPy here: graphs are built and batched on the host, and
 a batch goes to the device once, after ``ops/ell.coo_to_ell``. Sizes are
@@ -161,3 +162,31 @@ def batch_graphs(
         graph_id=np.concatenate(gids) if gids else None,
     )
     return g, np.asarray(counts, np.int64)
+
+
+def merge_stacked(batched: PaddedGraph) -> PaddedGraph:
+    """Flatten a stacked [B, ...] PaddedGraph (``training/datasets.
+    collate_samples``) into one graph of B * N_pad nodes: node arrays
+    reshape to [B * N_pad, ...], edge indices are offset by i * N_pad and
+    ``graph_id`` records each node's sample. Padded edges of each sample
+    target its slot N_pad - 1, so the merged destinations stay
+    non-decreasing (``ops/ell.coo_to_ell`` takes them as they are), and a
+    BatchNorm sees the live nodes of the whole batch."""
+    b, n_pad = np.asarray(batched.node_mask).shape
+    offsets = (np.arange(b, dtype=np.int32) * n_pad)[:, None]
+
+    def flat(a):
+        a = np.asarray(a)
+        return a.reshape((-1,) + a.shape[2:])
+
+    return PaddedGraph(
+        x=flat(batched.x),
+        edge_src=flat(np.asarray(batched.edge_src) + offsets),
+        edge_dst=flat(np.asarray(batched.edge_dst) + offsets),
+        edge_attr=flat(batched.edge_attr),
+        node_mask=flat(batched.node_mask),
+        edge_mask=flat(batched.edge_mask),
+        pos=flat(batched.pos),
+        local_std=flat(batched.local_std),
+        graph_id=np.repeat(np.arange(b, dtype=np.int32), n_pad),
+    )

@@ -17,7 +17,8 @@ A port checkpoint directory holds ``model.pt`` (the state_dict),
 ``calibration.json`` and, when a config is given, ``config.yaml``.
 ``coo_state_dict`` renames a grid-named state_dict to the keys of the
 ELL model (``models/gnn_ell.py``), which nests its layers under
-``GNNBackbone_0`` as the JAX graph models do.
+``GNNBackbone_0`` as the JAX graph models do; ``grid_state_dict`` renames
+back, so the k-NN trainer writes grid-named checkpoints too.
 """
 
 from __future__ import annotations
@@ -80,6 +81,25 @@ def coo_state_dict(state_dict: Mapping[str, torch.Tensor]
             key = f"GNNBackbone_0.GATConv_{head[len('GridGATConv_'):]}.{rest}"
         elif head.startswith("MaskedBatchNorm_"):
             key = f"GNNBackbone_0.{key}"
+        out[key] = t
+    return out
+
+
+def grid_state_dict(state_dict: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """The ELL model's keys (``GNNBackbone_0.GATConv_i.*``,
+    ``GNNBackbone_0.MaskedBatchNorm_i.*``) -> the grid names of a port
+    checkpoint (``GridGATConv_i.*``, ``MaskedBatchNorm_i.*``): the inverse
+    of ``coo_state_dict``. Other keys are kept."""
+    out = {}
+    for key, t in state_dict.items():
+        head, _, rest = key.partition(".")
+        if head == "GNNBackbone_0":
+            layer, _, leaf = rest.partition(".")
+            if layer.startswith("GATConv_"):
+                key = f"GridGATConv_{layer[len('GATConv_'):]}.{leaf}"
+            else:
+                key = rest
         out[key] = t
     return out
 

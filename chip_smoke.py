@@ -23,6 +23,14 @@ Run from the root of a checkout. Phases, each printing its own lines:
    holes (~62k nodes padded to 65,536) at HC 256 / 4 heads and HC 64 /
    1 head, and a ragged batch of small graphs (isolated nodes, fewer than
    K live slots) at K = 16;
+2d. kernel C's dropout form, kernel C' (the layer's backward) and kernel F
+   (the sorted-segment reduction: mode (b), the training path's, on its
+   own, and mode (a) against ``index_add_``) against the plain forward and
+   autograd of it, on a merged batch of 4 k-NN graphs of synthetic 256^2
+   tiles with 5 % holes (N = 262,144) at HC 256 / 4 heads and HC 64 /
+   1 head, and on the ragged K = 16 batch, with no dropout, a streamed
+   mask and the Philox draw (its rate, and C + C' with the draw equal to
+   C + C' given it as a streamed mask);
 3. the inference path through the port's CLI (``cli.inference.main``) on
    a synthetic 2304x2304 survey (9 tiles of 1024 with overlap 128: one
    batch of 8, then one single tile), with the launch counts read around
@@ -43,10 +51,20 @@ Run from the root of a checkout. Phases, each printing its own lines:
    the same processor on the plain functions; grids/s, Mnodes/s and the
    device's busy share; and ``cli.inference_native`` on a VR BAG when h5py
    is installed;
+3d. k-NN training through ``cli.train.main --trainer graph --knn-k 8`` on
+   a synthetic 1024^2 survey with 5 % holes (25 tiles of 256, batches of
+   4, 1 epoch, default width), with the launch counts of kernels C
+   (training form), C' and F read around the run (4 per step each) and no
+   plain version called; losses finite, every parameter has a gradient,
+   ``best/calibration.json`` written, and ``NativeVRProcessor`` serves the
+   checkpoint; one step through the kernels against the same step on the
+   plain functions (dropout 0);
 4. timings with CUDA events after warm-up: kernel A per inference shape,
    kernels A (training form) and B per training shape, the whole train
-   step in f32 and bf16, and kernel C per shape with the model forward of
-   one 65,536-node flush.
+   step in f32 and bf16, kernel C per shape with the model forward of
+   one 65,536-node flush, and (4d) kernel C's training form, C', F's two
+   modes (``index_add_`` beside mode (a)) per k-NN training shape and the
+   k-NN train step on one merged batch with its device busy share.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -937,10 +955,11 @@ def knn_graph(torch, np, dev):
     return coo_to_ell(bg.graph, KNN_K).to(dev), bg.num_nodes
 
 
-def ragged_graph(torch, np, dev, k=16):
+def ragged_graph(torch, np, dev, k=16, slots=False):
     """A batch of small k-NN graphs (k 16) as batch_graphs packs them:
     1x1 and 1x2 grids (isolated nodes, one live slot) and grids with
-    fewer than k + 1 cells among larger ones."""
+    fewer than k + 1 cells among larger ones; with ``slots``, with the
+    source-sorted slot tables that the layer's backward reduces over."""
     from bathymetric_gnn_tpu_torch.config.config import GraphConfig
     from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
     from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
@@ -960,7 +979,10 @@ def ragged_graph(torch, np, dev, k=16):
         stds.append(g.local_std[:bg.num_nodes])
     graph, counts = batch_graphs(parts, n_pad=8192, e_pad=8192 * k,
                                  local_std_list=stds)
-    return coo_to_ell(graph, k).to(dev), int(counts.sum())
+    ell = coo_to_ell(graph, k)
+    if slots:
+        ell = ell.with_src_sorted_slots()
+    return ell.to(dev), int(counts.sum())
 
 
 def ell_cases(torch, np, model, dev):
@@ -1239,6 +1261,582 @@ def phase_ell_timings(torch, cases, proc, graph):
     return rows, fwd_ms
 
 
+# -- phase 2d: kernel C's dropout form, C' and F -------------------------------
+
+KNN_TRAIN_SURVEY = 1024   # 25 tiles of 256^2 at stride 224, 5 % holes
+KNN_BATCH_SURVEY = 480    # 2 x 2 tiles of 256^2: one merged batch of 4
+LR = 1e-3
+
+
+class FixedSamples:
+    """Graph samples built once (the trainer's dataset interface), so the
+    step checks and timings pay the host's graph build once."""
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def class_counts(self):
+        import numpy as np
+
+        return sum(np.bincount(s.targets["labels"][:s.num_nodes],
+                               minlength=3)[:3] for s in self.samples)
+
+    def sample_normalized_corrections(self):
+        import numpy as np
+
+        return np.concatenate([
+            s.targets["correction"][:s.num_nodes][
+                s.targets["noise_mask"][:s.num_nodes]]
+            for s in self.samples])
+
+
+def knn_train_samples(np, depth):
+    """TRAIN_BATCH training samples (k-NN graphs of 256^2 tiles with
+    synthetic noise and targets) of ``depth``, as the trainer's dataset
+    makes them."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.training.datasets import (
+        SyntheticTileDataset)
+
+    cfg = Config()
+    cfg.graph.knn_k = KNN_K
+    ds = SyntheticTileDataset([depth], cfg, tile_size=TRAIN_TILE, overlap=32,
+                              seed=SEED)
+    return FixedSamples([ds[i] for i in range(TRAIN_BATCH)])
+
+
+def knn_train_batch(torch, np, dev, samples):
+    """The merged batch of ``samples`` as the trainer packs it
+    (merge_stacked, coo_to_ell, src_sorted_slots) on the card, its
+    targets, and its live node count."""
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.graph import merge_stacked
+    from bathymetric_gnn_tpu_torch.training.datasets import collate_samples
+    from bathymetric_gnn_tpu_torch.training.trainer import _to_device_targets
+
+    graph, targets = collate_samples(samples.samples)
+    g = coo_to_ell(merge_stacked(graph), KNN_K).with_src_sorted_slots()
+    return (g.to(dev), _to_device_targets(targets, dev),
+            int(np.asarray(g.node_mask).sum()))
+
+
+def knn_train_cases(torch, np, model, dev, samples):
+    """(label, layer kwargs, slot tables, dims) at the k-NN train step's
+    layer shapes on its merged batch (N = 262,144: HC 256 / 4 heads and
+    HC 64 / 1 head), and the ragged K = 16 batch."""
+    g, _, n_live = knn_train_batch(torch, np, dev, samples)
+    rg_, n_rg = ragged_graph(torch, np, dev, slots=True)
+    gen = torch.Generator().manual_seed(SEED + 61)
+    bb = model.GNNBackbone_0
+    out = []
+    for li, label, graph, live in (
+            (1, "mid 256->256 h4", g, n_live),
+            (MODEL_LAYERS - 1, "last 256->64 h1", g, n_live),
+            (1, "ragged K16 256->256 h4", rg_, n_rg)):
+        conv = getattr(bb, f"GATConv_{li}")
+        n = graph.x.shape[0]
+        f_in = conv.lin_src.shape[0]
+        mask = graph.node_mask
+        with torch.no_grad():
+            x = torch.randn(n, f_in, generator=gen).to(dev) * mask[:, None]
+            xh = x @ conv.lin_src
+            el, el_self = conv._edge_terms(graph)
+            bias = conv.bias + 0.1 * torch.randn(
+                conv.bias.shape, generator=gen).to(dev)
+        kw = dict(xh=xh, att_src=conv.att_src.detach(),
+                  att_dst=conv.att_dst.detach(), nbr_src=graph.nbr_src,
+                  nbr_mask=graph.nbr_mask, el=el, el_self=el_self,
+                  bias=bias, node_mask=mask)
+        k = graph.nbr_src.shape[1]
+        live_slots = graph.nbr_mask & mask[:, None]
+        dims = dict(n=n, k=k, heads=conv.heads, hc=xh.shape[1],
+                    live_nodes=live, live_edges=int(live_slots.sum().item()))
+        out.append((f"{label} N={n} K={k} f32", kw,
+                    (graph.slot_perm, graph.slot_row_ptr), dims))
+    return out, g
+
+
+ELL_LEAVES = ("xh", "att_src", "att_dst", "el", "el_self", "bias")
+
+
+def ell_train_run(torch, fn, kw, g=None, **extra):
+    """fn(**kw) and the gradients of <out, g> with respect to xh, att_src,
+    att_dst, el, el_self and bias; g is drawn when not given."""
+    leaves = {n: kw[n].detach().clone().requires_grad_() for n in ELL_LEAVES}
+    out = fn(**{**kw, **leaves}, **extra)
+    if g is None:
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            SEED + 62)).to(out.device)
+    grads = torch.autograd.grad(out, list(leaves.values()), g)
+    return out.detach(), dict(zip(leaves, grads)), g
+
+
+def phase_knn_train_kernels_vs_plain(torch, cases):
+    """Kernel C (training form) and C' (+ F's mode (b)) vs the plain
+    forward and autograd of it, with no dropout, a streamed mask and the
+    Philox draw; the draw's rate and its fwd/bwd agreement; F's mode (a)
+    vs index_add_ and mode (b) on its own vs its plain version."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    errs = {}
+    for i, (label, kw, (perm, row_ptr), dims) in enumerate(cases):
+        dev = kw["xh"].device
+        n, k, heads, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
+        seed = torch.tensor([0x5EED000 + i], dtype=torch.int64,
+                            device=dev)
+        drawn = ef.drop_mask(seed, KEEP, n, k, heads)
+        rate = (drawn == 0).float().mean().item()
+        check(abs(rate - (1 - KEEP)) <= 1e-3, f"drop rate {rate}: {label}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 63 + i)
+        streamed = (torch.rand(n, k + 1, heads, generator=gen, device=dev)
+                    < KEEP).float() / KEEP
+        tables = dict(slot_tables=(perm, row_ptr))
+        worst = {"out": 0.0}
+        g = None
+        for mode, extra, mult in (
+                ("no dropout", {}, None),
+                ("streamed mask", dict(dmask=streamed), streamed),
+                ("Philox", dict(drop_seed=seed, keep_prob=KEEP), drawn)):
+            out, grads, g = ell_train_run(torch, ef.ell_gat_fused_train, kw,
+                                          g, **extra, **tables)
+            torch.cuda.synchronize()
+            ref, rgrads, _ = ell_train_run(torch, ef.ell_gat_reference, kw,
+                                           g, dmask=mult)
+            torch.cuda.synchronize()
+            d = (out - ref).abs()
+            rel = (d / (1 + ref.abs())).max().item()
+            ok = (rel <= TOL["float32"] and bool(torch.isfinite(out).all())
+                  and not bool(out[~kw["node_mask"]].any()))
+            worst["out"] = max(worst["out"], d.max().item())
+            parts = []
+            for name in ELL_LEAVES:
+                a, r = grads[name], rgrads[name]
+                scale = r.abs().max().item() + 1e-12
+                e = (a - r).abs().max().item()
+                worst[name] = max(worst.get(name, 0.0), e)
+                parts.append(f"{name} {e / scale:.2e}")
+                ok = ok and e <= GRAD_TOL["float32"] * scale and bool(
+                    torch.isfinite(a).all())
+            log(f"[2d] {label}, {mode}: C max_rel(1+|ref|) {rel:.3e} (tol "
+                f"{TOL['float32']:.1e}); C' err/scale: {', '.join(parts)} "
+                f"(tol {GRAD_TOL['float32']:.1e}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"C / C' disagree with the plain version: {label}, "
+                      f"{mode}")
+            if mode == "Philox":
+                out_m, gr_m, _ = ell_train_run(torch, ef.ell_gat_fused_train,
+                                               kw, g, dmask=drawn, **tables)
+                same = torch.equal(out, out_m) and all(
+                    torch.equal(grads[nm], gr_m[nm]) for nm in ELL_LEAVES)
+                log(f"[2d] {label}: Philox drop rate {rate:.6f} over "
+                    f"{drawn.numel()} draws (want {1 - KEEP:.1f} +- 1e-3); "
+                    f"C and C' with the in-kernel draw "
+                    f"{'equal' if same else 'DIFFER FROM'} C and C' given it "
+                    f"as a streamed mask")
+                check(same, f"in-kernel draw and streamed mask disagree: "
+                            f"{label}")
+            del out, grads, ref, rgrads
+        # kernel F, mode (b) on its own, on C''s coefficients
+        args = ef.kernel_args(**kw, train=True)
+        bkw = {nm: args[nm] for nm in (
+            "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask",
+            "dmask", "seed", "n", "k", "heads", "c", "negative_slope",
+            "has_self", "drop_mode", "thresh", "keep_inv")}
+        p32, r32 = perm.int(), row_ptr.int()
+        _, alpha, dl, _, _ = ef.call_bwd_kernel(**bkw, perm=p32, row_ptr=r32,
+                                                g=g, source_side=False)
+        fb = sr.gat_rows(alpha, dl, g, kw["att_src"], perm, row_ptr, n, k)
+        fb_ref = sr.gat_rows_reference(alpha, dl, g, kw["att_src"], perm,
+                                       row_ptr, n, k)
+        d_b = (fb - fb_ref).abs()
+        rel_b = (d_b / (1 + fb_ref.abs())).max().item()
+        # kernel F, mode (a), on a cotangent of the live slots' rows
+        src, live = fa_inputs(torch, kw)
+        ct = torch.randn(src.numel(), hc, generator=torch.Generator(
+            ).manual_seed(SEED + 64)).to(dev)
+        pa, ra = fa_tables(torch, src, n)
+        fa = sr.segment_reduce_sorted(ct, pa, ra, n)
+        fa_lib = torch.zeros(n, hc, device=dev).index_add_(0, src.long(), ct)
+        d_a = (fa - fa_lib).abs()
+        rel_a = (d_a / (1 + fa_lib.abs())).max().item()
+        ok = rel_a <= TOL["float32"] and rel_b <= TOL["float32"]
+        log(f"[2d] {label}: F mode (b) vs plain max_rel(1+|ref|) "
+            f"{rel_b:.3e}; F mode (a) vs index_add_ over {src.numel()} live "
+            f"slots max_rel {rel_a:.3e} (tol {TOL['float32']:.1e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"kernel F disagrees: {label}")
+        worst["f_b"] = d_b.max().item()
+        worst["f_a"] = d_a.max().item()
+        errs[label] = worst
+        del ct, fa, fa_lib, fb, fb_ref, alpha, dl, streamed, drawn
+    return errs
+
+
+def fa_inputs(torch, kw):
+    """The source of each live slot (padded destinations excluded), in
+    slot order, and the live-slot mask [N, K]."""
+    live = kw["nbr_mask"] & kw["node_mask"][:, None]
+    return kw["nbr_src"][live].int(), live
+
+
+def fa_tables(torch, src, n):
+    """Source-sorted tables (stable) over the rows of a [S, F] cotangent
+    whose row s belongs to source src[s]: mode (a)'s perm and row_ptr."""
+    perm = torch.sort(src.long(), stable=True).indices.int()
+    row_ptr = torch.searchsorted(src.long()[perm.long()],
+                                 torch.arange(n + 1, device=src.device)).int()
+    return perm, row_ptr
+
+
+# -- phase 3d: k-NN training end to end -----------------------------------------
+
+def plain_ell_train(ef):
+    """ell_gat_fused_train with every GAT layer on its plain version."""
+    def plain(*args, dmask=None, drop_seed=None, keep_prob=1.0,
+              slot_tables=None, **kw):
+        check(drop_seed is None, "plain layer given an in-kernel seed")
+        return ef.ell_gat_reference(*args, dmask=dmask, **kw)
+    return plain
+
+
+def phase_knn_train_end_to_end(torch, np, work):
+    """cli.train --trainer graph --knn-k 8 on a synthetic KNN_TRAIN_SURVEY^2
+    survey with 5 % holes (default width, tile 256, batch 4, 1 epoch), the
+    launch counts read around the run and the plain versions watched;
+    then NativeVRProcessor serves the checkpoint it wrote."""
+    import json
+    import shutil
+
+    from bathymetric_gnn_tpu_torch.cli import train as tcli
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.data.tiling import TileManager
+    from bathymetric_gnn_tpu_torch.inference.native_vr import (
+        NativeVRProcessor)
+    from bathymetric_gnn_tpu_torch.io.geotiff import write_geotiff
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.utils.weights import load_state_dict
+
+    depth, _ = knn_survey(np, KNN_TRAIN_SURVEY, SEED + 70)
+    data = work / "knn_train_data"
+    data.mkdir(parents=True, exist_ok=True)
+    write_geotiff(data / "survey.tif", depth[None], pixel_scale=(1.0, 1.0),
+                  origin=(500000.0, 4000000.0), nodata=float("nan"))
+    n_tiles = sum(1 for _ in TileManager(TRAIN_TILE, 32, 0.3).iterate_tiles(
+        depth))
+    batches = n_tiles // TRAIN_BATCH
+    run = work / "knn_train_run"
+    shutil.rmtree(run, ignore_errors=True)
+    argv = ["--trainer", "graph", "--knn-k", str(KNN_K), "--data-dir",
+            str(data), "--output-dir", str(run), "--epochs", "1", "--seed",
+            str(SEED)]
+
+    plain_calls = []
+
+    def counted(fn):
+        def wrapped(*a, **k):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **k)
+        return wrapped
+
+    ef.launches = ef.train_launches = ef.bwd_launches = sr.launches = 0
+    with mock.patch.object(ef, "ell_gat_reference",
+                           counted(ef.ell_gat_reference)), \
+            mock.patch.object(sr, "segment_reduce_reference",
+                              counted(sr.segment_reduce_reference)), \
+            mock.patch.object(sr, "gat_rows_reference",
+                              counted(sr.gat_rows_reference)):
+        t0 = time.perf_counter()
+        state = tcli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(fwd_train=ef.train_launches, bwd=ef.bwd_launches,
+                  segment_reduce=sr.launches, fwd_infer=ef.launches)
+    steps = state.step
+    check(steps == batches, f"steps {steps} != {batches} batches")
+    check(not plain_calls, f"plain versions ran on the training path: "
+                           f"{sorted(set(plain_calls))}")
+    for key in ("fwd_train", "bwd", "segment_reduce"):
+        check(counts[key] == MODEL_LAYERS * steps,
+              f"{key} launches {counts[key]} != {MODEL_LAYERS} x {steps}")
+    # eval over the training set and the calibration pass: one forward
+    # per batch each, kernel C's inference form
+    check(counts["fwd_infer"] == MODEL_LAYERS * 2 * batches,
+          f"inference-form launches {counts['fwd_infer']}")
+    hist = json.loads((run / "history.json").read_text())
+    check(all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
+          f"losses {hist}")
+    missing = [n for n, p in state.model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not missing, f"no finite gradient for {missing}")
+    cal = json.loads((run / "best" / "calibration.json").read_text())
+    check("fit_on" in cal and cal["confidence_scale"] > 0,
+          f"calibration {cal}")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    log(f"[3d] cli.train --trainer graph --knn-k {KNN_K} on a "
+        f"{KNN_TRAIN_SURVEY}^2 survey (5 % holes): {n_tiles} tiles of "
+        f"{TRAIN_TILE}^2, 1 epoch, {steps} steps of {TRAIN_BATCH} in "
+        f"{wall:.3f} s (with the training-stats sample, eval, calibration "
+        f"and checkpoints); launches: kernel C training {counts['fwd_train']}"
+        f", C' {counts['bwd']}, F {counts['segment_reduce']} (= "
+        f"{MODEL_LAYERS} x {steps}), C inference {counts['fwd_infer']} (eval "
+        f"+ calibration); plain versions called 0 times; train loss "
+        f"{hist['train_loss']}, val loss {hist['val_loss']}; every parameter "
+        f"has a finite gradient; best/calibration.json: scale "
+        f"{cal['confidence_scale']:.4f} bias {cal['confidence_bias']:.4f} on "
+        f"{cal['fit_on']} ({cal['fit_nodes']} cells); training loop "
+        f"{metrics['tiles_per_s']} tiles/s, {metrics['edges_per_s']} edges/s "
+        f"(host clock, metrics.jsonl)")
+
+    sd, meta = load_state_dict(run / "best")
+    check(meta["trained_layout"] == "coo", f"checkpoint meta {meta}")
+    proc = NativeVRProcessor(sd, Config.load(run / "config.yaml"),
+                             node_budget=VR_BUDGET)
+    grids = make_refinements(np, 200, SEED + 71)
+    n0 = ef.launches
+    results = serve(proc, grids)
+    torch.cuda.synchronize()
+    check(len(results) == len(grids), "served grids")
+    for (d, _, _), r in zip(grids, results):
+        v = np.abs(d) < 1e5
+        check(set(np.unique(r["classification"][v]).tolist()) <= {0, 1, 2}
+              and np.isfinite(r["confidence"]).all(), "served outputs")
+    check(ef.launches > n0, "serving did not launch kernel C")
+    log(f"[3d] NativeVRProcessor knn_k {KNN_K} served {len(grids)} "
+        f"refinement grids from {run / 'best'} ({ef.launches - n0} kernel C "
+        f"launches)")
+    return dict(counts=counts, steps=steps, wall=wall, depth=depth,
+                tiles=n_tiles)
+
+
+def knn_step_setup(torch, np, work, samples, dropout):
+    """A k-NN Trainer (full width, ``dropout``, class weights 1) on the
+    fixed samples, its initial state and their merged batch on the card."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.training.trainer import Trainer
+
+    cfg = Config()
+    cfg.graph.knn_k = KNN_K
+    cfg.model.dropout = dropout
+    cfg.training.class_weights = (1.0, 1.0, 1.0)
+    trainer = Trainer(cfg, samples, output_dir=str(work / "knn_step"))
+    state = trainer.init_state(samples[0].graph)
+    g, targets, _ = knn_train_batch(torch, np, trainer.device, samples)
+    return trainer, state, g, targets
+
+
+def phase_knn_step_kernel_vs_plain(torch, np, work, samples):
+    """One k-NN train step (dropout 0, full width, N = 262,144) through
+    kernels C, C' and F vs the same step with every GAT layer on its plain
+    version, both on the card: the loss within 1e-4 relative; every
+    gradient within 1e-3 of its leaf's largest |entry| (the GAT biases,
+    whose true gradient under a batch-statistics BatchNorm is ~0: of the
+    largest gradient of all), as phase 3b holds the grid step; every
+    parameter after the step within 1e-4 of its leaf's largest |entry|.
+    Adam's first step moves each element by LR x g / (|g| + eps): where
+    the element's gradient is within 100 x eps of 0, or the two gradients
+    differ by more than a tenth of it (f32 noise on a ~0 gradient), that
+    move is decided by the noise, so those elements are held within
+    2 x LR instead."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.training.optim import AdamW
+
+    trainer, state, g, targets = knn_step_setup(torch, np, work, samples,
+                                                dropout=0.0)
+    model = state.model
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step():
+        model.load_state_dict(snapshot)
+        state.optimizer = AdamW(model.parameters(),
+                                trainer.config.training.weight_decay)
+        losses, _ = trainer.train_step(state, g, targets, LR)
+        return (float(losses["total"]),
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    lk, gk, pk = step()
+    with mock.patch.object(ef, "ell_gat_fused_train", plain_ell_train(ef)):
+        lp, gp, pp = step()
+    big = max(r.abs().max().item() for r in gp.values())
+    worst_g = worst = 0.0
+    n_ill = 0
+    for name, r in pp.items():
+        gscale = (big if "GATConv" in name and name.endswith(".bias")
+                  else gp[name].abs().max().item() + 1e-12)
+        eg = (gk[name] - gp[name]).abs().max().item() / gscale
+        worst_g = max(worst_g, eg)
+        check(eg <= 1e-3, f"gradient {name}: {eg:.3e} of scale")
+        ill = (((gk[name] - gp[name]).abs() > 0.1 * gp[name].abs())
+               | (gp[name].abs() < 100 * state.optimizer.eps))
+        n_ill += int(ill.sum())
+        d = (pk[name] - r).abs()
+        scale = r.abs().max().item() + 1e-12
+        check(bool((d[ill] <= 2.02 * LR).all()), f"noise moves {name}")
+        e = d[~ill].max().item() / scale if bool((~ill).any()) else 0.0
+        worst = max(worst, e)
+        check(e <= 1e-4, f"parameter {name} after the step: {e:.3e} of "
+                         f"scale")
+    rel = abs(lk - lp) / abs(lp)
+    log(f"[3d] one k-NN train step, kernels vs plain on the card (dropout "
+        f"0, N={g.x.shape[0]}): loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}, "
+        f"tol 1e-4); {len(pp)} gradients agree, worst {worst_g:.3e} of "
+        f"scale (tol 1e-3); parameters after the step agree, worst "
+        f"{worst:.3e} of scale (tol 1e-4), {n_ill} elements with a "
+        f"noise-decided Adam move within 2 x LR")
+    check(rel <= 1e-4, f"step loss {lk} vs {lp}")
+
+
+# -- phase 4d: k-NN training timings ----------------------------------------------
+
+def knn_train_bounds(dims):
+    """Least time of one call (bytes over 3.35 TB/s vs operations over the
+    FP32 peak), counting this graph's live data: ln live nodes, le live
+    slots. C (training form): as ``ell_bound``, the draw made in the
+    kernel. C' (without F): reads xh and dy rows, el_self of the live
+    nodes, el and nbr_src of the live slots, nbr_mask of the live nodes'
+    slots, node_mask and att; writes alpha and dl for the live nodes'
+    slots, dxh and d el_self over all N (zeros at padded rows);
+    operations: the attention dots, the softmax recompute, a dot product
+    and an axpy of C per live slot and head (P and d att_src), and the
+    destination-side rows. F mode (b) alone: reads alpha, dl and perm of
+    the live slots, row_ptr, the dy rows once and att_src, writes out
+    [N, HC]; 4 operations per live slot and column. F mode (a): reads the
+    [S, HC] cotangent (S = live slots), perm and row_ptr, writes out; one
+    add per element read."""
+    n, k, h, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
+    ln, le = dims["live_nodes"], dims["live_edges"]
+    out = {"C": ell_bound(dims)}
+    parts = {
+        "Cp": (4 * (2 * ln * hc + ln * h + le * h + le + 2 * hc
+                    + 2 * ln * k * h + n * hc + n * h) + ln * k + n,
+               4 * ln * hc + 8 * (le + ln) * h + 4 * (le + ln) * hc
+               + 6 * ln * hc),
+        "Fb": (4 * (2 * le * h + le + n + 1 + ln * hc + hc + n * hc),
+               4 * le * hc),
+        "Fa": (4 * (le * hc + le + n + 1 + n * hc), le * hc),
+    }
+    for name, (nbytes, flops) in parts.items():
+        t_b = nbytes / PEAK_BYTES * 1e3
+        t_o = flops / PEAK_FLOPS["float32"] * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+                     nbytes, flops)
+    return out
+
+
+def phase_knn_train_timings(torch, np, cases, work, samples):
+    """CUDA-event times of kernel C's training form (Philox draw), C'
+    (without F), F's mode (b) alone and mode (a) (index_add_ beside it)
+    per shape against their bounds and plain versions; then the k-NN train
+    step on one fixed merged batch: ms per step, the device's busy share
+    under torch.profiler and the top device operations."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    rows = []
+    for i, (label, kw, (perm, row_ptr), dims) in enumerate(cases):
+        dev = kw["xh"].device
+        n, k, heads, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
+        seed = torch.tensor([SEED + 80 + i], dtype=torch.int64, device=dev)
+        args = ef.kernel_args(**kw, drop_seed=seed, keep_prob=KEEP,
+                              train=True)
+        bkw = {nm: args[nm] for nm in (
+            "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask",
+            "dmask", "seed", "n", "k", "heads", "c", "negative_slope",
+            "has_self", "drop_mode", "thresh", "keep_inv")}
+        p32, r32 = perm.int().contiguous(), row_ptr.int().contiguous()
+        g = torch.randn(n, hc, generator=torch.Generator().manual_seed(
+            SEED + 81)).to(dev)
+        c_ms = cuda_ms(torch, lambda: ef.call_kernel(**args), 10)
+        cp_ms = cuda_ms(torch, lambda: ef.call_bwd_kernel(
+            **bkw, perm=p32, row_ptr=r32, g=g, source_side=False), 10)
+        call_ms = cuda_ms(torch, lambda: ef.call_bwd_kernel(
+            **bkw, perm=p32, row_ptr=r32, g=g), 10)
+        _, alpha, dl, _, _ = ef.call_bwd_kernel(**bkw, perm=p32, row_ptr=r32,
+                                                g=g)
+        att_src = kw["att_src"]
+        fb_ms = cuda_ms(torch, lambda: sr.call_gat_rows_kernel(
+            alpha, dl, g, att_src, p32, r32, n, k), 10)
+        mask = ef.drop_mask(seed, KEEP, n, k, heads)
+        with torch.no_grad():
+            pc_ms = cuda_ms(torch, lambda: ef.ell_gat_reference(
+                **kw, dmask=mask), 3, warmup=1)
+            pfb_ms = cuda_ms(torch, lambda: sr.gat_rows_reference(
+                alpha, dl, g, att_src, perm, row_ptr, n, k), 3, warmup=1)
+        leaves = {nm: kw[nm].detach().clone().requires_grad_()
+                  for nm in ELL_LEAVES}
+        ref = ef.ell_gat_reference(**{**kw, **leaves}, dmask=mask)
+        pcp_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, list(leaves.values()), g, retain_graph=True), 3, warmup=1)
+        del ref, leaves
+        src, _ = fa_inputs(torch, kw)
+        ct = torch.randn(src.numel(), hc, generator=torch.Generator(
+            ).manual_seed(SEED + 82)).to(dev)
+        pa, ra = fa_tables(torch, src, n)
+        srcl = src.long()
+        fa_ms = cuda_ms(torch, lambda: sr.call_kernel(ct, pa, ra, n), 10)
+        lib_ms = cuda_ms(torch, lambda: torch.zeros(n, hc, device=dev
+                                                    ).index_add_(0, srcl, ct),
+                         10)
+        pfa_ms = cuda_ms(torch, lambda: sr.segment_reduce_reference(
+            ct, pa, ra, n), 3, warmup=1)
+        bd = knn_train_bounds(dims)
+        row = dict(shape=label, c_ms=c_ms, c_plain_ms=pc_ms,
+                   c_bound_ms=bd["C"][0], c_bound_by=bd["C"][1],
+                   cp_ms=cp_ms, cp_call_with_f_ms=call_ms,
+                   cp_plain_ms=pcp_ms, cp_bound_ms=bd["Cp"][0],
+                   cp_bound_by=bd["Cp"][1], fb_ms=fb_ms, fb_plain_ms=pfb_ms,
+                   fb_bound_ms=bd["Fb"][0], fb_bound_by=bd["Fb"][1],
+                   fa_ms=fa_ms, fa_plain_ms=pfa_ms, fa_library_ms=lib_ms,
+                   fa_bound_ms=bd["Fa"][0], fa_bound_by=bd["Fa"][1],
+                   **{f"{nm}_bytes": bd[nm][2] for nm in bd},
+                   **{f"{nm}_flops": bd[nm][3] for nm in bd})
+        rows.append(row)
+        log(f"[4d] {label}: C training {c_ms:.4f} ms (plain {pc_ms:.4f}, "
+            f"bound {bd['C'][0]:.4f} by {bd['C'][1]}, {bd['C'][0] / c_ms:.3f}"
+            f" of bound); C' {cp_ms:.4f} ms (with F in the same call "
+            f"{call_ms:.4f}; plain autograd backward {pcp_ms:.4f}; bound "
+            f"{bd['Cp'][0]:.4f} by {bd['Cp'][1]}, {bd['Cp'][2] / 1e6:.1f} "
+            f"MB, {bd['Cp'][0] / cp_ms:.3f} of bound); F (b) {fb_ms:.4f} ms "
+            f"(plain {pfb_ms:.4f}, bound {bd['Fb'][0]:.4f} by "
+            f"{bd['Fb'][1]}, {bd['Fb'][0] / fb_ms:.3f} of bound); F (a) over "
+            f"{src.numel()} x {hc} {fa_ms:.4f} ms (index_add_ {lib_ms:.4f}, "
+            f"plain {pfa_ms:.4f}, bound {bd['Fa'][0]:.4f} by {bd['Fa'][1]})")
+        del args, bkw, g, alpha, dl, mask, ct, pa, ra, src, srcl
+
+    trainer, state, g, targets = knn_step_setup(torch, np, work, samples,
+                                                dropout=1.0 - KEEP)
+    fn = lambda: trainer.train_step(state, g, targets, LR)  # noqa: E731
+    ms = cuda_ms(torch, fn, 5, warmup=2)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        losses, _ = fn()
+    float(losses["total"])
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    check(bool(torch.isfinite(losses["total"])), "k-NN step loss")
+    n = g.x.shape[0]
+    log(f"[4d] k-NN train step (merged batch of {TRAIN_BATCH} tiles, N={n}, "
+        f"full width, dropout {1 - KEEP:.1f}, f32, batch on the card): "
+        f"{ms:.3f} ms (CUDA events), {host_ms:.3f} ms (host clock, ending "
+        f"in a sync)")
+    wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
+    busy = log_profile("4d", "3 k-NN train steps", wall, prows, top=14)
+    names = ("aggregate_kernel", "::bwd_kernel", "segred::reduce_kernel",
+             "ellgat::dots_kernel", "drop_mask_kernel")
+    mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
+    log(f"[4d]   kernels C, C' and F: {mine / 3:.3f} ms per step of "
+        f"{sum(r[0] for r in prows) / 3:.3f} ms device time")
+    return rows, dict(ms=ms, host_ms=host_ms, busy_share=busy,
+                      kernels_ms=mine / 3,
+                      device_ms=sum(r[0] for r in prows) / 3)
+
+
 # -- main --------------------------------------------------------------------------
 
 def main() -> int:
@@ -1287,6 +1885,11 @@ def main() -> int:
         kmodel = ell_model(torch, dev)
         ecases, kgraph = ell_cases(torch, np, kmodel, dev)
         eerrs = phase_ell_kernel_vs_plain(torch, ecases)
+        phase = "2d kernels C (training form), C' and F vs plain"
+        ksamples = knn_train_samples(np, knn_survey(np, KNN_BATCH_SURVEY,
+                                                    SEED + 60)[0])
+        kcases, _ = knn_train_cases(torch, np, kmodel, dev, ksamples)
+        kerrs = phase_knn_train_kernels_vs_plain(torch, kcases)
         phase = "3 end to end"
         e2e = phase_end_to_end(torch, np, model, work)
         pipe.load_model(e2e["ckpt"])
@@ -1296,6 +1899,9 @@ def main() -> int:
         phase_train_step_kernel_vs_plain(torch, np, work, tr["data"])
         phase = "3c k-NN serving"
         vr = phase_vr_knn(torch, np, work)
+        phase = "3d k-NN training end to end"
+        ktr = phase_knn_train_end_to_end(torch, np, work)
+        phase_knn_step_kernel_vs_plain(torch, np, work, ksamples)
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         log(f"[4] end to end (cli.inference, load + 9 tiles + stitch + "
@@ -1307,6 +1913,9 @@ def main() -> int:
         phase = "4c kernel C timings"
         erows, flush_ms = phase_ell_timings(torch, ecases, vr["proc"],
                                             kgraph)
+        phase = "4d k-NN training timings"
+        krows, kstep = phase_knn_train_timings(torch, np, kcases, work,
+                                               ksamples)
     except Exception:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         traceback.print_exc()
@@ -1380,6 +1989,48 @@ def main() -> int:
         "end_to_end_mnodes_per_s": vr["nodes"] / vr["wall"] / 1e6,
         "end_to_end_device_busy_share": vr["busy_share"],
     })
+    krow = krows[0]
+    klabel = krow["shape"]
+    kerr = kerrs[klabel]
+    kcommon = dict(route="cuda", library_ms=None, at=klabel, shapes=krows,
+                   train_step=kstep, train_steps=ktr["steps"],
+                   end_to_end_wall_s=ktr["wall"])
+    kernels += [{
+        "name": "ell_gat_fwd_train",
+        "source": "bathymetric_gnn_tpu_torch/csrc/ell_gat_fwd.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py:1107",
+        "launches": ktr["counts"]["fwd_train"],
+        "max_abs_err": kerr["out"],
+        "ms": krow["c_ms"], "plain_ms": krow["c_plain_ms"],
+        "bound_ms": krow["c_bound_ms"], "bound_by": krow["c_bound_by"],
+        **kcommon,
+    }, {
+        "name": "ell_gat_bwd",
+        "source": "bathymetric_gnn_tpu_torch/csrc/ell_gat_bwd.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py:1258",
+        "launches": ktr["counts"]["bwd"],
+        "max_abs_err": max(kerr[nm] for nm in ELL_LEAVES),
+        "grad_max_abs_err": {nm: kerr[nm] for nm in ELL_LEAVES},
+        "ms": krow["cp_ms"], "plain_ms": krow["cp_plain_ms"],
+        "bound_ms": krow["cp_bound_ms"], "bound_by": krow["cp_bound_by"],
+        **kcommon,
+    }, {
+        "name": "segment_reduce",
+        "source": "bathymetric_gnn_tpu_torch/csrc/segment_reduce.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/segment_reduce.py:52",
+        "launches": ktr["counts"]["segment_reduce"],
+        "mode": "b (the training path's: rows formed from C' coefficients)",
+        "max_abs_err": kerr["f_b"],
+        "ms": krow["fb_ms"], "plain_ms": krow["fb_plain_ms"],
+        "bound_ms": krow["fb_bound_ms"], "bound_by": krow["fb_bound_by"],
+        "mode_a": {"max_abs_err": kerr["f_a"], "ms": krow["fa_ms"],
+                   "plain_ms": krow["fa_plain_ms"],
+                   "library_ms": krow["fa_library_ms"],
+                   "library": "torch.Tensor.index_add_",
+                   "bound_ms": krow["fa_bound_ms"],
+                   "bound_by": krow["fa_bound_by"]},
+        **kcommon,
+    }]
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
-"""The grid-GAT CUDA kernels vs their plain PyTorch versions, on the card:
-kernel A in its inference and training forms, kernel B against autograd
-of the plain forward, and the in-kernel Philox dropout draw.
+"""The CUDA kernels vs their plain PyTorch versions, on the card: kernel A
+in its inference and training forms, kernel B against autograd of the
+plain forward, and the in-kernel Philox dropout draw; kernel C (the GAT
+layer on ELL graphs) in its inference and dropout forms, kernel C'
+against autograd of the plain forward, and kernel F (the sorted-segment
+reduction) against ``index_add_``.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (the CPU test runs). On a machine with an H100 and nvcc:
@@ -297,20 +300,29 @@ def test_ell_kernel_matches_plain(dev, shape, self_loop, edge):
 
 
 def test_ell_kernel_raises_under_grad_and_on_what_it_does_not_take(dev):
+    """The serving entry still has no backward (the training entry,
+    ``ell_gat_fused_train``, is held against autograd of the plain version
+    in ``test_ell_train_kernels_match_plain``); both entries raise on what
+    the kernels do not take."""
     from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
 
     kw = _ell_inputs(dev, 512, 8, 4, 16)
     kw["xh"].requires_grad_()
-    with pytest.raises(RuntimeError, match="C'"):
+    with pytest.raises(RuntimeError, match="no backward"):
         ef.ell_gat_fused(**kw)
     kw["xh"] = kw["xh"].detach()
-    with torch.no_grad():
-        with pytest.raises(ValueError, match="float32"):
-            ef.ell_gat_fused(**{**kw, "xh": kw["xh"].bfloat16()})
-        with pytest.raises(ValueError, match="heads"):
-            ef.ell_gat_fused(**{**kw, "att_src": kw["att_src"].reshape(
-                1, 16, 4), "att_dst": kw["att_dst"].reshape(1, 16, 4),
-                "el": None, "el_self": None})
+    wide = {**kw, "att_src": kw["att_src"].reshape(1, 16, 4),
+            "att_dst": kw["att_dst"].reshape(1, 16, 4), "el": None,
+            "el_self": None}
+    for fn in (ef.ell_gat_fused, ef.ell_gat_fused_train):
+        with torch.no_grad():
+            with pytest.raises(ValueError, match="float32"):
+                fn(**{**kw, "xh": kw["xh"].bfloat16()})
+            with pytest.raises(ValueError, match="heads"):
+                fn(**wide)
+    with pytest.raises(ValueError, match="dmask"):
+        ef.ell_gat_fused_train(**kw, dmask=torch.ones(512, 8, 4,
+                                                      device=dev))
 
 
 def test_ell_model_on_card_matches_cpu(dev):
@@ -342,3 +354,217 @@ def test_ell_model_on_card_matches_cpu(dev):
     for key in ("confidence", "correction"):
         d = (gpu[key].cpu() - cpu[key]).abs()[live].max().item()
         assert d <= 1e-3, (key, d)
+
+
+# -- kernel C's dropout form, kernel C' and kernel F ----------------------------
+
+# Gradients of the ELL layer, per leaf against its largest |entry|: f32 2e-4
+# (sums over all slots taken in another order), as for kernel B.
+ELL_LEAVES = ("xh", "att_src", "att_dst", "el", "el_self", "bias")
+
+
+def _ell_train_run(fn, kw, g=None, **extra):
+    """fn(**kw) and the gradients of <out, g> with respect to xh, att_src,
+    att_dst, el, el_self and bias (those given); g drawn when not given."""
+    leaves = {n: kw[n].detach().clone().requires_grad_()
+              for n in ELL_LEAVES if kw.get(n) is not None}
+    out = fn(**{**kw, **leaves}, **extra)
+    if g is None:
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
+                        ).to(out.device)
+    # allow_unused: without a self loop the plain version never reads
+    # el_self (its true gradient is 0)
+    grads = torch.autograd.grad(out, list(leaves.values()), g,
+                                allow_unused=True)
+    return out.detach(), {n: torch.zeros_like(t) if d is None else d
+                          for (n, t), d in zip(leaves.items(), grads)}, g
+
+
+def _ell_dmask(kw, heads, seed=3, keep=0.9):
+    n, k = kw["nbr_src"].shape
+    gen = torch.Generator().manual_seed(seed)
+    m = (torch.rand(n, k + 1, heads, generator=gen) < keep).float() / keep
+    return m.to(kw["xh"].device)
+
+
+@pytest.mark.parametrize("shape", [
+    (65536 // 16, 8, 4, 64),     # HC 256, 4 heads (layers 0-2)
+    (65536 // 16, 8, 1, 64),     # HC 64, 1 head (last layer)
+    (3000, 16, 4, 64),           # K = 16
+    (1000, 8, 2, 6),             # C % 4 != 0: scalar columns
+])
+@pytest.mark.parametrize("self_loop,edge", [(True, True), (False, True),
+                                            (True, False)])
+@pytest.mark.parametrize("drop", [False, True])
+def test_ell_train_kernels_match_plain(dev, shape, self_loop, edge, drop):
+    """Kernel C (training form, streamed dmask) and kernel C' (+ F's mode
+    (b)) vs the plain forward and autograd of it, on the same inputs and
+    mask; padded nodes get zero gradients."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    n, k, heads, c = shape
+    kw = _ell_inputs(dev, n, k, heads, c, edge=edge)
+    dmask = _ell_dmask(kw, heads) if drop else None
+    counts = (ef.train_launches, ef.bwd_launches, sr.launches)
+    out, grads, g = _ell_train_run(ef.ell_gat_fused_train, kw,
+                                   self_loop=self_loop, dmask=dmask)
+    torch.cuda.synchronize()
+    assert (ef.train_launches, ef.bwd_launches, sr.launches) == tuple(
+        x + 1 for x in counts)
+    ref, rgrads, _ = _ell_train_run(ef.ell_gat_reference, kw, g,
+                                    self_loop=self_loop, dmask=dmask)
+    err = (out - ref).abs() / (1 + ref.abs())
+    assert err.max().item() <= TOL[torch.float32], err.max().item()
+    for name, a in grads.items():
+        r = rgrads[name]
+        assert torch.isfinite(a).all(), name
+        scale = r.abs().max().item() + 1e-6
+        d = (a - r).abs().max().item()
+        assert d <= GRAD_TOL[torch.float32] * scale, (name, d, scale)
+    dead = ~kw["node_mask"]
+    assert not grads["xh"][dead].any()
+
+
+def test_ell_philox_rate_and_fwd_bwd_agree(dev):
+    """The in-kernel draw drops 0.1 +- 1e-3 of the weights (2.4 M draws),
+    and kernels C and C' with the draw equal (bit for bit) kernels C and C'
+    given the same draw as a streamed mask."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    seed = torch.tensor([1234567891011], dtype=torch.int64, device=dev)
+    big = ef.drop_mask(seed, 0.9, 65536, 8, 4)
+    rate = (big == 0).float().mean().item()
+    assert abs(rate - 0.1) <= 1e-3, rate
+    inv = torch.tensor(1.0 / 0.9, dtype=torch.float32, device=dev)
+    assert ((big == 0) | (big == inv)).all()
+    kw = _ell_inputs(dev, 4096, 8, 4, 64)
+    mask = ef.drop_mask(seed, 0.9, 4096, 8, 4)
+    torch.testing.assert_close(mask, big[:4096], rtol=0, atol=0)
+    out_s, gr_s, g = _ell_train_run(ef.ell_gat_fused_train, kw,
+                                    drop_seed=seed, keep_prob=0.9)
+    out_m, gr_m, _ = _ell_train_run(ef.ell_gat_fused_train, kw, g,
+                                    dmask=mask)
+    assert torch.equal(out_s, out_m)
+    for name in gr_s:
+        assert torch.equal(gr_s[name], gr_m[name]), name
+    assert not torch.equal(ef.drop_mask(seed + 1, 0.9, 4096, 8, 4), mask)
+
+
+@pytest.mark.parametrize("n,k,f", [(4096, 8, 256), (3000, 16, 64),
+                                   (777, 5, 6)])
+def test_segment_reduce_matches_index_add(dev, n, k, f):
+    """Kernel F, mode (a), over a k-NN graph's source-sorted slot tables
+    (isolated and padded nodes included) vs ``index_add_`` of the live
+    slots' rows; and bit-stable from run to run."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.ops.ell import src_sorted_slots
+
+    kw = _ell_inputs(dev, n, k, 1, 8)
+    src, live = kw["nbr_src"], kw["nbr_mask"] & kw["node_mask"][:, None]
+    perm, row_ptr = (torch.from_numpy(t).to(dev) for t in src_sorted_slots(
+        src.cpu().numpy(), live.cpu().numpy()))
+    ct = torch.randn(n * k, f, generator=torch.Generator().manual_seed(4)
+                     ).to(dev)
+    n0 = sr.launches
+    out = sr.segment_reduce_sorted(ct, perm, row_ptr, n)
+    torch.cuda.synchronize()
+    assert sr.launches == n0 + 1
+    flat = live.reshape(-1)
+    ref = torch.zeros(n, f, device=dev).index_add_(
+        0, src.reshape(-1)[flat].long(), ct[flat])
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        out, sr.segment_reduce_reference(ct, perm, row_ptr, n),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, sr.segment_reduce_sorted(ct, perm, row_ptr, n))
+
+
+@pytest.mark.parametrize("shape", [(65536 // 16, 8, 4, 64),
+                                   (65536 // 16, 8, 1, 64),
+                                   (3000, 16, 4, 64), (1000, 8, 2, 6)])
+def test_segment_reduce_gat_rows_matches_plain(dev, shape):
+    """Kernel F's mode (b) on its own vs its plain version, on C''s own
+    coefficients; and C' without F plus F equals C' with F (the source
+    side it adds into dxh; the sums start from another value, so within
+    f32 rounding), the per-slot outputs bit for bit."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.ops.ell import src_sorted_slots
+
+    n, k, heads, c = shape
+    kw = _ell_inputs(dev, n, k, heads, c)
+    perm, row_ptr = (torch.from_numpy(t).to(dev) for t in src_sorted_slots(
+        kw["nbr_src"].cpu().numpy(), kw["nbr_mask"].cpu().numpy(),
+        kw["node_mask"].cpu().numpy()))
+    args = ef.kernel_args(**kw, train=True)
+    bkw = {name: args[name] for name in (
+        "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask", "dmask",
+        "seed", "n", "k", "heads", "c", "negative_slope", "has_self",
+        "drop_mode", "thresh", "keep_inv")}
+    g = torch.randn(n, heads * c, generator=torch.Generator().manual_seed(5)
+                    ).to(dev)
+    full = ef.call_bwd_kernel(**bkw, perm=perm.int(), row_ptr=row_ptr.int(),
+                              g=g)
+    n0 = sr.launches
+    dst = ef.call_bwd_kernel(**bkw, perm=perm.int(), row_ptr=row_ptr.int(),
+                             g=g, source_side=False)
+    assert sr.launches == n0
+    src = sr.gat_rows(full[1], full[2], g, kw["att_src"], perm, row_ptr, n,
+                      k)
+    torch.cuda.synchronize()
+    assert sr.launches == n0 + 1
+    ref = sr.gat_rows_reference(full[1], full[2], g, kw["att_src"], perm,
+                                row_ptr, n, k)
+    torch.testing.assert_close(src, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dst[0] + src, full[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(dst[1:], full[1:]):
+        assert torch.equal(a, b)
+
+
+def test_ell_model_train_step_on_card_matches_cpu(dev):
+    """One training step (dropout 0) of EllBathymetricGNN at full width
+    (hidden 64, 4 heads, 4 layers) through kernels C, C' and F on the card
+    vs the same step on the CPU (plain layers): every parameter gets a
+    gradient, within 1e-3 of each leaf's scale (the conv biases before a
+    batch-stats BatchNorm, whose true gradient is ~0: of the largest
+    gradient); the running statistics agree."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import EllBathymetricGNN
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+
+    rg = np.random.default_rng(2)
+    pos = (rg.random((3500, 2)) * 60).astype(np.float32)
+    x = rg.normal(size=(3500, 8)).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (4096,)
+    g = coo_to_ell(gb.build_knn_graph(x, pos, 8, depth=x[:, 0]).graph, 8
+                   ).with_src_sorted_slots()
+    model = EllBathymetricGNN(8, sparse_kernel="banded_pallas",
+                              generator=torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step(device):
+        model.load_state_dict(state)
+        model.to(device).train().zero_grad()
+        out = model(g.to(device))
+        loss = out["class_logits"].square().sum() + out["confidence"].sum() \
+            + out["correction"].square().sum()
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return grads, {k: v.detach().cpu() for k, v in
+                       model.state_dict().items()}
+
+    n0 = ef.bwd_launches
+    gk, sk = step(dev)
+    torch.cuda.synchronize()
+    assert ef.bwd_launches == n0 + 4
+    gc, sc = step("cpu")
+    big = max(r.abs().max().item() for r in gc.values())
+    for name, r in gc.items():
+        scale = (big if "GATConv" in name and name.endswith(".bias")
+                 else r.abs().max().item() + 1e-6)
+        assert (gk[name] - r).abs().max().item() <= 1e-3 * scale, name
+    for name, v in sc.items():
+        torch.testing.assert_close(sk[name], v, rtol=1e-4, atol=1e-5)

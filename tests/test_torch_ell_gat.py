@@ -124,12 +124,27 @@ def test_isolated_and_ragged_nodes(knn_case):
 
 
 def test_kernel_wrapper_has_no_backward(knn_case):
+    """The serving entry (kernel C's inference form) still has no backward
+    and raises under grad; the layer itself is differentiable (the training
+    entry, kernels C and C' on the card): its gradients equal autograd of
+    the plain GATConvELL on the same weights."""
     _, _, h, tg = knn_case
     layer = GATConvEllBanded(16, 12, heads=2, edge_dim=3).eval()
-    with pytest.raises(RuntimeError, match="C'"):
-        layer(tg, torch.from_numpy(h))            # grad mode, params
-    with pytest.raises(NotImplementedError, match="C'"):
-        layer.train()(tg, torch.from_numpy(h))
+    xh = (torch.from_numpy(h) @ layer.lin_src).detach().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ef.ell_gat_fused(xh, layer.att_src, layer.att_dst, tg.nbr_src,
+                         tg.nbr_mask)
+    plain = GATConvELL(16, 12, heads=2, edge_dim=3)
+    plain.load_state_dict(layer.state_dict())
+    w = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2048, 24)).astype(np.float32))
+    grads = []
+    for m in (layer.train(), plain.train()):
+        x = torch.from_numpy(h).requires_grad_()
+        (m(tg, x) * w).sum().backward()
+        grads.append([x.grad] + [p.grad for p in m.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
 
 
 @pytest.fixture(scope="module")

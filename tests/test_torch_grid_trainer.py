@@ -302,5 +302,5 @@ def test_cli_train_then_serve_on_cpu(tmp_path):
     ["--trainer", "grid", "--gnn-type", "GCN"],
 ])
 def test_cli_unported_options_exit(tmp_path, extra):
-    with pytest.raises(SystemExit, match="queue 1 items 11-12"):
+    with pytest.raises(SystemExit, match="queue 1 item 11"):
         tcli.main(["--data-dir", str(tmp_path), "--device", "cpu"] + extra)

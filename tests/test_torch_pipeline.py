@@ -207,7 +207,8 @@ def test_port_imports_nothing_of_jax():
     process itself has jax loaded by conftest) and check that no jax*
     module and no module of the JAX package came with it, nor h5py (the
     card's machine has none; BAG I/O imports it when a BAG is opened); the
-    training and k-NN serving modules are among those imported."""
+    training, k-NN serving and k-NN training modules are among those
+    imported."""
     code = r"""
 import importlib, pkgutil, sys
 import bathymetric_gnn_tpu_torch as pkg
@@ -226,7 +227,8 @@ for m in ("training.grid_trainer", "training.losses", "training.optim",
           "data.synthetic_noise", "utils.prefetch", "cli.train", "native",
           "io.bag", "io.loaders", "ops.graph", "ops.ell",
           "ops.cuda.ell_gat_fused", "models.conv_ell", "models.gnn_ell",
-          "inference.native_vr", "cli.inference_native"):
+          "inference.native_vr", "cli.inference_native",
+          "ops.cuda.segment_reduce", "utils.prof"):
     assert pkg.__name__ + "." + m in names, m
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
