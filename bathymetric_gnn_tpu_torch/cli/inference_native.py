@@ -46,8 +46,10 @@ def parse_args(argv=None):
                         "valid cells (the only route ported)")
     p.add_argument("--sparse-kernel",
                    choices=["auto", "xla", "banded", "banded_pallas"],
-                   help="override model.sparse_kernel (auto = kernel C for "
-                        "k-NN GAT; xla = plain PyTorch gathers)")
+                   help="override model.sparse_kernel (auto = "
+                        "banded_pallas, kernel C, for k-NN GAT; banded = "
+                        "kernel E and the spill fold on 128-row bands; xla "
+                        "= plain PyTorch gathers)")
     p.add_argument("--no-sidecar", action="store_true")
     p.add_argument("--no-uncertainty-scaling", action="store_true")
     p.add_argument("--device", default=None,

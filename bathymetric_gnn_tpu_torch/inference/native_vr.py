@@ -7,8 +7,11 @@ packed into padded ELL batches under a node budget, run through
 ``EllBathymetricGNN`` in one forward per chunk of at most the largest node
 bucket, and un-batched back onto their grids. On the card every GAT layer
 runs kernel C (``sparse_kernel`` "auto" resolves to "banded_pallas" for a
-k-NN GAT model, as on the TPU); on the CPU (only when asked for with
-``device="cpu"``) the kernel's plain version runs.
+k-NN GAT model, as on the TPU), or with ``sparse_kernel="banded"`` kernel
+E and the spill fold, over each chunk's band/spill decomposition
+(``ops/ell_banded.band_ell``, 128-row bands, built on the host beside the
+graph); on the CPU (only when asked for with ``device="cpu"``) the
+kernels' plain versions run.
 
 One flush generation stays in flight: a flush launches its chunks on the
 device and starts non-blocking copies of the packed f16 outputs to pinned
@@ -33,6 +36,7 @@ from ..config.constants import CORRECTION_NORM_FLOOR
 from ..data.graph_build import GraphBuilder
 from ..models.gnn_ell import make_ell_model
 from ..ops.ell import coo_to_ell
+from ..ops.ell_banded import band_ell
 from ..ops.graph import batch_graphs, round_up_to_bucket
 from ..utils.weights import coo_state_dict
 from .pipeline import infer_in_channels, resolve_device
@@ -201,8 +205,11 @@ class NativeVRProcessor:
             [(p["x"], p["edge_index"], p["edge_attr"]) for p in entries],
             n_pad=n_pad, e_pad=n_pad * self.knn_k,
             local_std_list=[p["local_std"] for p in entries])
-        g = coo_to_ell(graph, max_degree=self.knn_k).to(self.device)
-        out = self.model(g)
+        ell = coo_to_ell(graph, max_degree=self.knn_k)
+        banded = (band_ell(ell, band_rows=128).to(self.device)
+                  if self.sparse_kernel == "banded" else None)
+        g = ell.to(self.device)
+        out = self.model(g, banded=banded)
         corr = out.get("correction")
         if corr is None:
             corr = torch.zeros_like(out["confidence"])

@@ -1,7 +1,8 @@
 """GAT layers on the ELL layout (port of ``bathymetric_gnn_tpu/models/conv_ell.py``:
-``GATConvELL`` and ``GATConvEllBanded``).
+``GATConvELL``, ``GATConvEllBanded``, ``make_banded_dropout_masks`` and
+``banded_masks_wide_to_khn``).
 
-Both compute the PyG-exact GAT layer of the JAX modules, with their
+Both layers compute the PyG-exact GAT layer of the JAX modules, with their
 parameter names and shapes (``lin_src`` [F, HC], ``att_src`` /
 ``att_dst`` / ``att_edge`` [1, heads, C], ``lin_edge`` [edge_dim, HC],
 ``bias``), so one state_dict drives either:
@@ -9,18 +10,19 @@ parameter names and shapes (``lin_src`` [F, HC], ``att_src`` /
 - ``GATConvELL``: plain PyTorch gathers, through kernel C's plain version
   ``ell_gat_reference`` on any device (the JAX ``sparse_kernel="xla"``
   route, which is plain XLA there too);
-- ``GATConvEllBanded``: the layer of the k-NN path (JAX
-  ``sparse_kernel="banded_pallas"``). x @ W and the edge-logit terms are
-  computed here; the attention dots, masked softmax, attention dropout
-  and weighted gather-sum run in ``ops/cuda/ell_gat_fused`` (kernel C on
-  the card, its plain version on the CPU), which also adds the bias and
-  applies the node mask. Serving (eval mode, no gradient) takes kernel
-  C's inference form; training takes its dropout form with kernel C' as
-  the backward, and ``lin_edge``/``att_edge`` get their gradients through
-  autograd from C''s d el / d el_self. The port needs no band layout, so
-  the JAX module's ``banded`` argument has no counterpart.
+- ``GATConvEllBanded``: the layer of the k-NN path, on the routes of the
+  JAX module. Route C (JAX ``sparse_kernel="banded_pallas"``, the wide
+  kernel): x @ W and the edge-logit terms are computed here; the attention
+  dots, masked softmax, attention dropout and weighted gather-sum run in
+  ``ops/cuda/ell_gat_fused`` (kernel C, and C' as its backward), which
+  also adds the bias and applies the node mask; it needs no band layout.
+  Routes D (``wide_kernel=False``: kernels D and D') and E (JAX
+  ``sparse_kernel="banded"``: kernel E and the spill fold) run in
+  ``ops/cuda/ell_gat_banded`` on the band/spill decomposition
+  (``ops/ell_banded.band_ell``) passed as ``banded``.
 
-The GCN, GraphSAGE and GIN ELL layers of the JAX module are not ported.
+On the card the kernels run, on the CPU their plain versions. The GCN,
+GraphSAGE and GIN ELL layers of the JAX module are not ported.
 """
 
 from __future__ import annotations
@@ -30,10 +32,23 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cuda import ell_gat_fused
+from ..ops.cuda import ell_gat_banded, ell_gat_fused
 from ..ops.ell import EllTrainGraph
+from ..ops.ell_banded import NEG_BIG, banded_gat_spill_pass_flat
 from .grid_gat import _glorot
 from .layers import keep_mask
+
+BANDED_DROPOUT_NEEDS_FUSED = (
+    "attention dropout on the banded path needs the fused kernel "
+    "(use_pallas=True, spill_in_kernel=True); train with GATConvELL "
+    "otherwise (same parameters)")
+BANDED_E_NO_BACKWARD = (
+    "the banded band/spill route (use_pallas=False or "
+    "spill_in_kernel=False: kernel E and the spill fold) serves only: kernel "
+    "E has no backward in the JAX package either, and training on it is not "
+    "ported (ROADMAP.md queue 3, 'banded training'); call it under "
+    "torch.no_grad(), or train with use_pallas=True "
+    "(sparse_kernel='banded_pallas')")
 
 
 def make_ell_dropout_mask(generator: torch.Generator, p: float, n: int,
@@ -46,6 +61,32 @@ def make_ell_dropout_mask(generator: torch.Generator, p: float, n: int,
     keep = 1.0 - p
     return keep_mask((n, k + 1, heads), keep, generator, generator.device
                      ).to(torch.float32) / keep
+
+
+def make_banded_dropout_masks(generator: torch.Generator, dropout: float,
+                              n: int, k: int, heads: int, spill_shape):
+    """Streamed post-softmax attention-dropout multipliers for kernels D
+    and D': ([(K+1) * heads, N] in-band slots and self loop (row k * heads
+    + h; the self loop at k = K), [T, heads, S] spill entries), each 0 or
+    1/(1-p), drawn from ``generator`` on its device (``spill_shape`` is
+    ``spill_dst_local_b``'s [T, 1, S]). The JAX function's ``wide=False``
+    layout; the same draw feeds forward and backward."""
+    t_count, _, s_max = spill_shape
+    keep = 1.0 - dropout
+    dm = keep_mask(((k + 1) * heads, n), keep, generator, generator.device)
+    dm_sp = keep_mask((t_count, heads, s_max), keep, generator,
+                      generator.device)
+    return dm.to(torch.float32) / keep, dm_sp.to(torch.float32) / keep
+
+
+def banded_masks_wide_to_khn(dm_w: torch.Tensor, k: int,
+                             heads: int) -> torch.Tensor:
+    """[T, H, (K+1) * R] wide-layout mask -> [(K+1) * H, N]: element
+    (t, h, kk * R + r) maps to (kk * H + h, t * R + r)."""
+    t_count, h_dim, _ = dm_w.shape
+    r_band = dm_w.shape[-1] // (k + 1)
+    return (dm_w.reshape(t_count, h_dim, k + 1, r_band)
+            .permute(2, 1, 0, 3).reshape((k + 1) * heads, t_count * r_band))
 
 
 class _EllGATParams(nn.Module):
@@ -114,10 +155,10 @@ class GATConvELL(_EllGATParams):
     mode with ``dropout`` > 0 raises."""
 
     def forward(self, g, x: torch.Tensor,
-                dropout_rng: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """As ``GATConvEllBanded.forward``; ``dropout_rng`` is unused (no
-        attention dropout here)."""
+                dropout_rng: Optional[torch.Generator] = None,
+                banded=None) -> torch.Tensor:
+        """As ``GATConvEllBanded.forward``; ``dropout_rng`` and ``banded``
+        are unused (no attention dropout, no band layout here)."""
         if self.training and self.dropout > 0:
             raise NotImplementedError(
                 "attention dropout on the plain ELL layer (the COO/XLA "
@@ -134,18 +175,55 @@ class GATConvELL(_EllGATParams):
 
 
 class GATConvEllBanded(_EllGATParams):
-    """The k-NN layer: kernel C (``ell_gat_fused``) when serving, kernels C
-    and C' (``ell_gat_fused_train``) when training or when a gradient is
-    wanted."""
+    """The k-NN layer, on one of three routes picked as the JAX module
+    picks them (``use_pallas``, ``spill_in_kernel``, ``wide_kernel``, with
+    its defaults; the device, not ``use_pallas``, decides between a kernel
+    and its plain version):
+
+    - C (``use_pallas``, ``spill_in_kernel`` and ``wide_kernel``): kernel C
+      (``ell_gat_fused``) when serving, kernels C and C'
+      (``ell_gat_fused_train``) when training or when a gradient is wanted;
+      no band layout needed;
+    - D (``use_pallas`` and ``spill_in_kernel``, not ``wide_kernel``):
+      kernel D (``ell_gat_banded.ell_gat_fused_v2``), with D' as its
+      backward and streamed attention dropout;
+    - E (otherwise; JAX's XLA form when ``use_pallas`` is off): kernel E
+      (``ell_gat_band_part``) and the spill fold
+      (``ops/ell_banded.banded_gat_spill_pass_flat``); serving only.
+
+    D and E read the ``banded`` decomposition (``ops/ell_banded.band_ell``
+    of the same graph) passed to ``forward``.
+    """
+
+    def __init__(self, *args, use_pallas: bool = False,
+                 spill_in_kernel: bool = True, wide_kernel: bool = True,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.use_pallas = use_pallas
+        self.spill_in_kernel = spill_in_kernel
+        self.wide_kernel = wide_kernel
+
+    @property
+    def route(self) -> str:
+        """"C", "D" or "E": the kernels this layer runs."""
+        if self.use_pallas and self.spill_in_kernel:
+            return "C" if self.wide_kernel else "D"
+        return "E"
 
     def forward(self, g, x: torch.Tensor,
-                dropout_rng: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_rng: Optional[torch.Generator] = None,
+                banded=None) -> torch.Tensor:
         """g: an ``ops.ell.EllGraph`` of tensors, x [N, F] -> [N, HC] (or
-        [N, C] for the head mean). In training mode with ``dropout`` > 0
-        the attention dropout draws from ``dropout_rng``: on the card one
-        Philox seed per call (kernels C and C' draw the multipliers from
-        it), on the CPU the streamed mask itself."""
+        [N, C] for the head mean); ``banded``: its ``BandedEll`` of tensors
+        (routes D and E). In training mode with ``dropout`` > 0 the
+        attention dropout draws from ``dropout_rng``: on route C on the
+        card one Philox seed per call (kernels C and C' draw the
+        multipliers from it), else the streamed masks themselves."""
+        if (self.training and self.dropout > 0
+                and not (self.use_pallas and self.spill_in_kernel)):
+            raise NotImplementedError(BANDED_DROPOUT_NEEDS_FUSED)
+        if self.route != "C":
+            return self._forward_banded(g, x, dropout_rng, banded)
         h, c = self.heads, self.out_channels
         xh = x.to(torch.float32) @ self.lin_src             # [N, HC]
         el, el_self = self._edge_terms(g)
@@ -156,8 +234,7 @@ class GATConvEllBanded(_EllGATParams):
                   negative_slope=self.negative_slope)
         args = (xh, self.att_src, self.att_dst, g.nbr_src, g.nbr_mask, el,
                 el_self)
-        if self.training or (torch.is_grad_enabled() and any(
-                p.requires_grad for p in self.parameters())):
+        if self._grad_wanted():
             out = ell_gat_fused.ell_gat_fused_train(
                 *args, **kw, **self._dropout_args(g, dropout_rng),
                 slot_tables=(g.slot_perm, g.slot_row_ptr)
@@ -168,12 +245,113 @@ class GATConvEllBanded(_EllGATParams):
             return out
         return self._finish(out.reshape(x.shape[0], h, c), node_mask)
 
-    def _dropout_args(self, g, dropout_rng) -> dict:
+    def _grad_wanted(self) -> bool:
+        return self.training or (torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters()))
+
+    def banded_inputs(self, g, banded, x: torch.Tensor,
+                      fold_dots: bool = False) -> dict:
+        """The inputs of kernels D and E for x [N, F] on g and its
+        ``banded`` decomposition, as the JAX module builds them: xh
+        [N, heads, C], the attention dots a_src / a_dst [N, heads] (with
+        ``fold_dots`` as x @ (W . att), the JAX serving form), the
+        block-diagonal a_cat_mat [HC, 2 * heads], el_t [K * heads, N] (the
+        edge logits of banded's static attributes plus the NEG_BIG mask of
+        dead and spilled slots), el_self_t [heads, N] or None, m_edge
+        [edge_dim, heads] or None."""
+        h, c = self.heads, self.out_channels
+        n, k = g.nbr_src.shape
+        x = x.to(torch.float32)
+        xh2 = x @ self.lin_src                                # [N, HC]
+        if fold_dots:
+            w3 = self.lin_src.reshape(x.shape[-1], h, c)
+            a_src = x @ torch.einsum("fhc,hc->fh", w3,
+                                     self.att_src.reshape(h, c))
+            a_dst = x @ torch.einsum("fhc,hc->fh", w3,
+                                     self.att_dst.reshape(h, c))
+        else:
+            x3 = xh2.reshape(n, h, c)
+            a_src = (x3 * self.att_src).sum(-1)               # [N, H]
+            a_dst = (x3 * self.att_dst).sum(-1)
+        m_edge = None
+        if self.edge_dim is not None and g.edge_attr.shape[-1] > 0:
+            m_edge = torch.einsum(
+                "fac,ac->fa", self.lin_edge.reshape(self.edge_dim, h, c),
+                self.att_edge.reshape(h, c))
+        if banded.negmask_t.shape[0] == k * h:
+            negmask_t = banded.negmask_t
+        else:  # banded built for another head count: rebuild
+            negmask_t = torch.where(
+                banded.loc_t < 0, torch.full_like(banded.loc_t, NEG_BIG,
+                                                  dtype=torch.float32),
+                torch.zeros_like(banded.loc_t, dtype=torch.float32)
+            ).repeat_interleave(h, dim=0)
+        if m_edge is not None:
+            el_t = torch.einsum("kfn,fh->khn", banded.eattr_t, m_edge
+                                ).reshape(k * h, n) + negmask_t
+            el_self_t = (m_edge.T @ banded.mean_attr_t
+                         if self.add_self_loops else None)
+        else:
+            el_t = negmask_t
+            el_self_t = (torch.zeros(h, n, device=x.device)
+                         if self.add_self_loops else None)
+        col_head = torch.arange(h * c, device=x.device)[:, None] // c
+        diag = (col_head == torch.arange(h, device=x.device)[None, :]
+                ).to(torch.float32)
+        a_cat_mat = torch.cat([diag * self.att_src.reshape(h * c)[:, None],
+                               diag * self.att_dst.reshape(h * c)[:, None]],
+                              dim=1)
+        return dict(xh=xh2.reshape(n, h, c), a_src=a_src, a_dst=a_dst,
+                    a_cat_mat=a_cat_mat, el_t=el_t, el_self_t=el_self_t,
+                    m_edge=m_edge)
+
+    def _forward_banded(self, g, x, dropout_rng, banded) -> torch.Tensor:
+        """Routes D and E (as the JAX module's ``use_pallas`` branches,
+        ``conv_ell.py:200-352``)."""
+        if banded is None:
+            raise ValueError(
+                "sparse_kernel=banded* needs the BandedEll structure "
+                "(pass banded=band_ell(g))")
+        route = self.route
+        if route == "E" and self._grad_wanted():
+            raise NotImplementedError(BANDED_E_NO_BACKWARD)
+        h, c = self.heads, self.out_channels
+        n, k = g.nbr_src.shape
+        # serving on route D folds W into the attention dots, as JAX does
+        kw = self.banded_inputs(g, banded, x,
+                                fold_dots=route == "D" and not self.training)
+        if route == "D":
+            rng = self._dropout_rng(dropout_rng)
+            masks = None if rng is None else make_banded_dropout_masks(
+                rng, self.dropout, n, k, h,
+                tuple(banded.spill_dst_local_b.shape))
+            out2 = ell_gat_banded.ell_gat_fused_v2(
+                **kw, banded=banded, negative_slope=self.negative_slope,
+                dropout_masks=masks)
+        else:
+            y2, m, denom = ell_gat_banded.ell_gat_band_part(
+                kw["xh"], kw["a_cat_mat"], kw["el_t"], kw["el_self_t"],
+                banded, negative_slope=self.negative_slope)
+            out2 = banded_gat_spill_pass_flat(
+                y2, m, denom, kw["xh"].reshape(n, h * c),
+                torch.cat([kw["a_src"], kw["a_dst"]], dim=1), kw["m_edge"],
+                banded, heads=h, negative_slope=self.negative_slope)
+        return self._finish(out2.reshape(n, h, c),
+                            g.node_mask.to(torch.bool))
+
+    def _dropout_rng(self, dropout_rng):
+        """The generator of the attention dropout, or None without it."""
         if not (self.training and self.dropout > 0):
-            return {}
+            return None
         if dropout_rng is None:
             raise ValueError("attention dropout in training mode needs a "
                              "torch.Generator (dropout_rng)")
+        return dropout_rng
+
+    def _dropout_args(self, g, dropout_rng) -> dict:
+        dropout_rng = self._dropout_rng(dropout_rng)
+        if dropout_rng is None:
+            return {}
         keep = 1.0 - self.dropout
         n, k = g.nbr_src.shape
         if g.nbr_src.device.type == "cuda":

@@ -5,16 +5,21 @@ Submodules carry the JAX model's names (``MLPFeatureExtractor_0``,
 ``GNNBackbone_0.GATConv_i``, ``GNNBackbone_0.MaskedBatchNorm_i``, the
 heads), so a graph-trained (COO-layout) checkpoint applies unchanged;
 ``utils/weights.coo_state_dict`` renames a port checkpoint's grid-named
-state_dict to these keys. ``sparse_kernel`` picks the GAT layer:
-``"xla"`` the plain ``GATConvELL`` (serving only); ``"banded_pallas"``
-(and ``"banded"``, the JAX package's XLA form of the same layer)
-``GATConvEllBanded``, whose attention runs in kernel C and, when
-training, kernel C'. In training mode the BatchNorms normalize with the
-masked moments of the batch's live nodes and update their running
-statistics, and ``dropout`` applies to the extractor, the attention
-weights, the BatchNorm output of every layer but the last (fused with its
-ReLU) and the heads, drawing from the ``dropout_rng`` passed to
-``forward``, as the port's grid model does. Only GAT is ported.
+state_dict to these keys. ``sparse_kernel`` picks the GAT layer, as the
+JAX model does: ``"xla"`` the plain ``GATConvELL`` (serving only);
+``"banded_pallas"`` ``GATConvEllBanded(use_pallas=True)``, whose attention
+runs in kernel C and, when training, kernel C' (or, with ``wide_kernel``
+switched off on its layers, kernels D and D'); ``"banded"``
+``GATConvEllBanded(use_pallas=False)``, kernel E and the spill fold
+(serving only). The banded routes but C read the ``banded`` decomposition
+(``ops/ell_banded.band_ell`` of the graph) passed to ``forward``, and
+raise the JAX model's ValueError without it. In training mode the
+BatchNorms normalize with the masked moments of the batch's live nodes
+and update their running statistics, and ``dropout`` applies to the
+extractor, the attention weights, the BatchNorm output of every layer but
+the last (fused with its ReLU) and the heads, drawing from the
+``dropout_rng`` passed to ``forward``, as the port's grid model does.
+Only GAT is ported.
 """
 
 from __future__ import annotations
@@ -49,7 +54,11 @@ class EllGNNBackbone(nn.Module):
             raise NotImplementedError(NON_GAT_NOT_PORTED.format(gnn_type))
         if sparse_kernel not in SPARSE_KERNELS:
             raise ValueError(f"unknown sparse_kernel {sparse_kernel!r}")
-        conv = GATConvELL if sparse_kernel == "xla" else GATConvEllBanded
+        if sparse_kernel == "xla":
+            conv, kw = GATConvELL, {}
+        else:
+            conv = GATConvEllBanded
+            kw = dict(use_pallas=sparse_kernel == "banded_pallas")
         self.num_layers = num_layers
         self.dropout = dropout
         width = in_channels
@@ -58,19 +67,20 @@ class EllGNNBackbone(nn.Module):
             hds = 1 if last else heads
             self.add_module(f"GATConv_{i}", conv(
                 width, hidden_channels, heads=hds, concat=not last,
-                edge_dim=edge_dim, generator=generator, dropout=dropout))
+                edge_dim=edge_dim, generator=generator, dropout=dropout,
+                **kw))
             width = hidden_channels * hds
             self.add_module(f"MaskedBatchNorm_{i}", MaskedBatchNorm(width))
 
     def forward(self, g, x: torch.Tensor,
-                dropout_rng: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_rng: Optional[torch.Generator] = None,
+                banded=None) -> torch.Tensor:
         node_mask = g.node_mask.to(torch.bool)
         drop = self.training and self.dropout > 0
         for i in range(self.num_layers):
             last = i == self.num_layers - 1
             conv = getattr(self, f"GATConv_{i}")
-            x = conv(g, x, dropout_rng)
+            x = conv(g, x, dropout_rng, banded)
             keep, keep_prob = None, 1.0
             if drop and not last:
                 # ReLU + feature dropout fold into the norm's pass
@@ -110,13 +120,14 @@ class EllBathymetricGNN(nn.Module):
             self.CorrectionHead_0 = CorrectionHead(hidden_channels,
                                                    generator, dropout)
 
-    def forward(self, g, dropout_rng: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, g, dropout_rng: Optional[torch.Generator] = None,
+                banded=None) -> Dict[str, torch.Tensor]:
         """g: an ``ops.ell.EllGraph`` of tensors -> per-node outputs.
         ``dropout_rng``: the generator dropout draws from in training mode
-        (needed when ``dropout`` > 0)."""
+        (needed when ``dropout`` > 0); ``banded``: g's ``BandedEll`` of
+        tensors, for the banded routes that read it."""
         x = self.MLPFeatureExtractor_0(g.x.to(torch.float32), dropout_rng)
-        x = self.GNNBackbone_0(g, x, dropout_rng)
+        x = self.GNNBackbone_0(g, x, dropout_rng, banded)
         logits = self.ClassificationHead_0(x, dropout_rng)
         out = {
             "class_logits": logits,

@@ -60,6 +60,20 @@ KERNELS: Dict[str, tuple] = {
         "ell_gat_bwd_warps_per_block": (_I, [_I, _I, _I]),
         "ell_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "ell_gat_band": ("ell_gat_band.cu", {
+        "ell_gat_band": (_I, [_VP] * 9 + [_LL] + [_I] * 4 + [_F, _I, _VP]),
+        "ell_gat_band_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "ell_gat_v2_fwd": ("ell_gat_v2_fwd.cu", {
+        "ell_gat_v2_fwd": (_I, [_VP] * 12 + [_LL] + [_I] * 5
+                           + [_F, _I, _VP]),
+        "ell_gat_v2_fwd_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "ell_gat_v2_bwd": ("ell_gat_v2_bwd.cu", {
+        "ell_gat_v2_bwd": (_I, [_VP] * 24 + [_LL] + [_I] * 5
+                           + [_F, _I, _I, _VP]),
+        "ell_gat_v2_bwd_error_string": (ctypes.c_char_p, [_I]),
+    }),
     "segment_reduce": ("segment_reduce.cu", {
         "segment_reduce_sorted": (_I, [_VP] * 4 + [_LL, _I, _I, _VP]),
         "segment_reduce_gat_rows": (_I, [_VP] * 7 + [_LL, _I, _I, _I, _I,

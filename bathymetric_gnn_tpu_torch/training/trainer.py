@@ -18,8 +18,10 @@ weights grid-named, ``meta["param_layout"] = "coo"``) under ``best/``,
 epochs), each with ``train_state.pt`` for ``--resume``;
 ``cli/inference_native --knn-k K`` serves them. Not ported: the COO graph
 trainer (``knn_k == 0`` or ``sparse_kernel="xla"``, ROADMAP queue 1 item
-11) and the worker-process loader (``num_workers > 0`` loads in a
-prefetch thread).
+11), training on the ``sparse_kernel="banded"`` route (it raises: with
+dropout the JAX layer's own refusal, without it because kernel E has no
+backward; ROADMAP queue 3) and the worker-process loader (``num_workers >
+0`` loads in a prefetch thread).
 """
 
 from __future__ import annotations
@@ -129,6 +131,15 @@ class Trainer:
             sk = "banded_pallas"
         if self.knn_k <= 0 or sk == "xla":
             raise NotImplementedError(COO_TRAINER_NOT_PORTED)
+        if sk == "banded":
+            # the JAX trainer runs this route with use_pallas=False: its
+            # layer refuses attention dropout, and kernel E has no backward
+            from ..models.conv_ell import (BANDED_DROPOUT_NEEDS_FUSED,
+                                           BANDED_E_NO_BACKWARD)
+
+            raise NotImplementedError(BANDED_DROPOUT_NEEDS_FUSED
+                                      if mc.dropout > 0
+                                      else BANDED_E_NO_BACKWARD)
         if mc.gnn_type != "GAT":
             raise NotImplementedError(
                 f"gnn_type {mc.gnn_type!r} on k-NN graphs: only GAT is "

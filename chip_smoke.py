@@ -64,7 +64,21 @@ Run from the root of a checkout. Phases, each printing its own lines:
    step in f32 and bf16, kernel C per shape with the model forward of
    one 65,536-node flush, and (4d) kernel C's training form, C', F's two
    modes (``index_add_`` beside mode (a)) per k-NN training shape and the
-   k-NN train step on one merged batch with its device busy share.
+   k-NN train step on one merged batch with its device busy share;
+2e. (run after 2d) kernel E (the banded band part) on phase 2c's k-NN
+   graph split into 128-row bands (HC 256 / 4 heads and HC 64 / 1 head),
+   kernels D and D' (the fused banded layer and its backward, with F's
+   mode (a) behind its spill gathers) on phase 2d's merged batch, with no
+   dropout and a streamed mask, against their plain versions;
+3e. (run after 3d) ``NativeVRProcessor`` with ``sparse_kernel="banded"``
+   (kernel E and the spill fold) on phase 3c's grids from the same
+   checkpoint: E's launch count is 4 x the graph chunks, kernel C and the
+   plain versions are not called, the results agree with 3c's; grids/s
+   and the device's busy share;
+4e. (run after 4d) CUDA-event times of E, D and D' against their bounds and
+   plain versions, the D + D' layer beside C + C' on the same batch, and
+   one k-NN train step with every layer on route D (``wide_kernel=False``):
+   its launches, ms and busy share.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -1184,7 +1198,7 @@ def phase_vr_knn(torch, np, work):
     cli_stats = vr_cli(np, work, ckpt, grids[:300])
     return dict(launches=launches, chunks=len(chunks), wall=wall,
                 grids=len(grids), nodes=n_nodes, busy_share=busy,
-                proc=proc, cli=cli_stats)
+                proc=proc, cli=cli_stats, grid_list=grids, results=results)
 
 
 def vr_cli(np, work, ckpt, grids):
@@ -1837,6 +1851,417 @@ def phase_knn_train_timings(torch, np, cases, work, samples):
                       device_ms=sum(r[0] for r in prows) / 3)
 
 
+# -- phase 2e: kernels E, D and D' (the banded-ELL routes) ---------------------
+
+BAND_ROWS = 128
+# kernel vs plain version on the card, against the largest |entry| of the
+# plain result: forward 1e-5 (the same f32 operations summed in another
+# order); gradients 1e-4 of each gradient's scale (sums over slots and
+# over the d acat partials in another order)
+BAND_FWD_TOL = 1e-5
+BAND_GRAD_TOL = 1e-4
+V2_LEAVES = ("xh", "a_src", "a_dst", "a_cat_mat", "el_t", "el_self_t",
+             "m_edge")
+
+
+def band_cases(torch, np, model, dev, g, seed):
+    """(label, layer inputs, banded, dims) for kernels E, D and D' on g (an
+    ELL graph on the card) split into BAND_ROWS-row bands by band_ell on
+    the host: the mid layer (HC 256 / 4 heads) and the last (HC 64 /
+    1 head) of ``model`` on a random x, their inputs built as the layer
+    builds them (``GATConvEllBanded.banded_inputs``)."""
+    from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
+
+    banded = band_ell(g.to("cpu"), band_rows=BAND_ROWS).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    mask = g.node_mask
+    n, k = g.nbr_src.shape
+    t_count, _, s_max = banded.spill_dst_local_b.shape
+    dims = dict(n=n, k=k, r=BAND_ROWS, t=t_count, s_max=s_max,
+                live_nodes=int(mask.sum().item()),
+                in_band=int(((banded.loc_t >= 0) & mask[None, :]).sum()
+                            .item()),
+                spills=int((banded.spill_dst_local_b >= 0).sum().item()))
+    out = []
+    for li, label in ((1, "mid 256->256 h4"),
+                      (MODEL_LAYERS - 1, "last 256->64 h1")):
+        conv = getattr(model.GNNBackbone_0, f"GATConv_{li}")
+        with torch.no_grad():
+            x = torch.randn(n, conv.lin_src.shape[0],
+                            generator=gen).to(dev) * mask[:, None]
+            kw = conv.banded_inputs(g, banded, x)
+        d = dict(dims, heads=conv.heads, hc=conv.heads * conv.out_channels)
+        out.append((f"{label} N={n} K={k} R={BAND_ROWS} f32", kw, banded, d))
+    return out
+
+
+def v2_run(torch, fn, kw, banded, g=None, masks=None):
+    """fn(**kw) (ell_gat_fused_v2 or its plain version) and the gradients
+    of <out, g> with respect to the layer inputs; g drawn when not
+    given."""
+    leaves = {n: kw[n].detach().clone().requires_grad_()
+              for n in V2_LEAVES if kw.get(n) is not None}
+    out = fn(**{**kw, **leaves}, banded=banded, dropout_masks=masks)
+    if g is None:
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            SEED + 92)).to(out.device)
+    grads = torch.autograd.grad(out, list(leaves.values()), g)
+    return out.detach(), dict(zip(leaves, grads)), g
+
+
+def v2_masks(torch, dims, dev, seed):
+    """Streamed dropout multipliers (keep KEEP) in kernel D's layout:
+    ([(K+1) * heads, N], [T, heads, S])."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = (((dims["k"] + 1) * dims["heads"], dims["n"]),
+              (dims["t"], dims["heads"], dims["s_max"]))
+    return tuple((torch.rand(sh, generator=gen, device=dev) < KEEP).float()
+                 / KEEP for sh in shapes)
+
+
+def phase_banded_kernels_vs_plain(torch, ecases, dcases):
+    """Kernel E at the serving flush's shapes, kernels D and D' (with F's
+    mode (a) behind D's three spill gathers) at the k-NN training batch's,
+    with no dropout and a streamed mask, against their plain versions."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    errs = {}
+    with torch.no_grad():
+        for label, kw, banded, dims in ecases:
+            args = (kw["xh"], kw["a_cat_mat"], kw["el_t"], kw["el_self_t"],
+                    banded)
+            got = eb.ell_gat_band_part(*args)
+            torch.cuda.synchronize()
+            ref = eb.band_part_reference(*args)
+            torch.cuda.synchronize()
+            ok, parts, worst = True, [], {}
+            for name, a, b in zip(("y", "m", "denom"), got, ref):
+                scale = b.abs().max().item() + 1e-12
+                e = (a - b).abs().max().item()
+                worst[name] = e
+                parts.append(f"{name} {e / scale:.2e}")
+                ok = ok and e <= BAND_FWD_TOL * scale and bool(
+                    torch.isfinite(a).all())
+            log(f"[2e] E {label}: {dims['live_nodes']} live nodes, "
+                f"{dims['in_band']} in-band slots, {dims['spills']} spills; "
+                f"err/scale {', '.join(parts)} (tol {BAND_FWD_TOL:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel E disagrees with its plain version: {label}")
+            errs[("E", label)] = worst["y"]
+            del got, ref
+    for i, (label, kw, banded, dims) in enumerate(dcases):
+        g = None
+        worst = {"out": 0.0}
+        for mode, masks in (("no dropout", None), ("streamed mask",
+                                                   v2_masks(torch, dims,
+                                                            kw["xh"].device,
+                                                            SEED + 93 + i))):
+            n0 = sr.launches
+            out, grads, g = v2_run(torch, eb.ell_gat_fused_v2, kw, banded, g,
+                                   masks)
+            torch.cuda.synchronize()
+            f_a = sr.launches - n0
+            ref, rgrads, _ = v2_run(torch, eb.fused_v2_reference, kw, banded,
+                                    g, masks)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item() + 1e-12
+            e = (out - ref).abs().max().item()
+            worst["out"] = max(worst["out"], e)
+            ok = e <= BAND_FWD_TOL * scale and bool(torch.isfinite(out).all())
+            parts = []
+            for name, a in grads.items():
+                r = rgrads[name]
+                gs = r.abs().max().item() + 1e-12
+                ge = (a - r).abs().max().item()
+                worst[name] = max(worst.get(name, 0.0), ge)
+                parts.append(f"{name} {ge / gs:.2e}")
+                ok = ok and ge <= BAND_GRAD_TOL * gs and bool(
+                    torch.isfinite(a).all())
+            ok = ok and f_a == 3
+            log(f"[2e] D/D' {label}, {mode}: {dims['live_nodes']} live "
+                f"nodes, {dims['in_band']} in-band slots, {dims['spills']} "
+                f"spills (S {dims['s_max']}); D err/scale {e / scale:.2e} "
+                f"(tol {BAND_FWD_TOL:.0e}); D' err/scale: {', '.join(parts)} "
+                f"(tol {BAND_GRAD_TOL:.0e}); F (a) launches in the backward "
+                f"{f_a} (want 3) {'ok' if ok else 'FAIL'}")
+            check(ok, f"D / D' disagree with the plain version: {label}, "
+                      f"{mode}")
+            del out, grads, ref, rgrads
+        errs[("D", label)] = worst["out"]
+        errs[("Dp", label)] = max(v for n_, v in worst.items() if n_ != "out")
+    return errs
+
+
+# -- phase 3e: k-NN serving on the "banded" route ---------------------------------
+
+def phase_vr_banded(torch, np, work, vr):
+    """NativeVRProcessor with sparse_kernel "banded" (kernel E and the spill
+    fold, band_ell per chunk on the host) on phase 3c's grids from the same
+    checkpoint: E launched 4 x the chunks, kernel C and every plain version
+    never; the results agree with 3c's (kernel C's route)."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.inference.native_vr import (
+        NativeVRProcessor)
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.utils.weights import load_state_dict
+
+    sd, _ = load_state_dict(work / "knn_ckpt")
+    cfg = Config()
+    cfg.graph.knn_k = KNN_K
+    cfg.model.sparse_kernel = "banded"
+    proc = NativeVRProcessor(sd, cfg, node_budget=VR_BUDGET)
+    check(proc.sparse_kernel == "banded", f"sparse_kernel {proc.sparse_kernel}")
+    grids = vr["grid_list"]
+    n_nodes = vr["nodes"]
+    serve(proc, grids[:300])            # warm-up
+    torch.cuda.synchronize()
+    chunks, plain_calls = [], []
+    launch_chunk = proc._launch_graphs_chunk
+
+    def counted_chunk(idx):
+        chunks.append(sum(len(proc.pending[i]["rows"]) for i in idx))
+        return launch_chunk(idx)
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            plain_calls.append(name)
+            return fn(*a, **k)
+        return mock.patch.object(mod, name, wrapped)
+
+    eb.band_launches = eb.v2_launches = 0   # counts of the main path's run
+    ef.launches = ef.train_launches = 0
+    with mock.patch.object(proc, "_launch_graphs_chunk", counted_chunk), \
+            counted(eb, "band_part_reference"), \
+            counted(eb, "fused_v2_reference"), counted(eb, "_v2_plain"), \
+            counted(ef, "ell_gat_reference"):
+        t0 = time.perf_counter()
+        results = serve(proc, grids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = eb.band_launches
+    check(len(results) == len(grids), f"{len(results)} results")
+    check(not plain_calls, f"plain versions ran on the serving path: "
+                           f"{sorted(set(plain_calls))}")
+    check(launches == MODEL_LAYERS * len(chunks),
+          f"ell_gat_band launches {launches} != {MODEL_LAYERS} x "
+          f"{len(chunks)} graph chunks")
+    check(ef.launches == ef.train_launches == eb.v2_launches == 0,
+          "kernels C or D launched on the banded route")
+    agree = n = 0
+    dconf = 0.0
+    for (depth, _, _), a, b in zip(grids, results, vr["results"]):
+        v = np.abs(depth) < 1e5
+        check(a["classification"].shape == depth.shape
+              and bool((a["classification"][~v] == -1).all())
+              and all(np.isfinite(a[c]).all() for c in ("confidence",
+                                                        "correction")),
+              "banded route outputs")
+        agree += int((a["classification"][v] == b["classification"][v]).sum())
+        n += int(v.sum())
+        dconf = max(dconf, float(np.abs(a["confidence"]
+                                        - b["confidence"]).max()))
+    log(f"[3e] NativeVRProcessor sparse_kernel banded, knn_k {KNN_K}, budget "
+        f"{VR_BUDGET}: {len(grids)} grids, {n_nodes} nodes in {wall:.3f} s: "
+        f"{len(grids) / wall:.3f} grids/s, {n_nodes / wall / 1e6:.4f} "
+        f"Mnodes/s (3c, kernel C: {vr['grids'] / vr['wall']:.3f} grids/s); "
+        f"{len(chunks)} graph chunks, ell_gat_band launches {launches} = "
+        f"{MODEL_LAYERS} x {len(chunks)}; kernel C 0, plain versions 0; vs "
+        f"kernel C's route: class agreement {agree / n:.6f}, max |d "
+        f"confidence| {dconf:.3e}")
+    check(agree / n >= 0.999 and dconf <= 2e-3,
+          "the banded route disagrees with kernel C's")
+    wall_p, prows = device_profile(torch, lambda: serve(proc, grids[:500]))
+    busy = log_profile("3e", "500 refinement grids, banded", wall_p, prows,
+                       top=10)
+    return dict(launches=launches, chunks=len(chunks), wall=wall,
+                grids=len(grids), nodes=n_nodes, busy_share=busy,
+                agreement=agree / n, max_dconf=dconf)
+
+
+# -- phase 4e: timings of kernels E, D and D' -------------------------------------
+
+def band_bounds(dims, drop=False):
+    """Least time of one call (bytes over 3.35 TB/s vs operations over the
+    FP32 peak), counting this graph's live data: ln live nodes, lb live
+    in-band slots, ls live spill entries. E reads xh and el_self of the live
+    nodes, loc of their slots, el of the in-band slots and acat, and writes
+    y, m and denom over all N; operations: the attention dots (4 HC a
+    node), ~8 per slot and head for the softmax, 2 HC per slot and self
+    loop for the weighted sum. D: as E, plus the spill rows, logits and
+    rows of dst_loc read, ~8 H + 2 HC per spill, one divide per output,
+    and (``drop``) the masks; out written over all N. D' (one call): reads
+    xh, dout, el, loc, el_self, acat, the spill tables and the in-band
+    source tables; writes dxh, d el, d el_self, the spill cotangents over
+    their full tables and d acat; operations: the dots, the softmax
+    recompute, a dot product and an axpy of C per slot, self loop and
+    spill and head, and the acat products of dxh and d acat (8 HC H a
+    node)."""
+    n, k, h, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
+    ln, lb, ls = dims["live_nodes"], dims["in_band"], dims["spills"]
+    ts = dims["t"] * dims["s_max"]
+    e_in = 4 * (ln * hc + lb * h + ln * k + ln * h + 2 * hc * h)
+    e_ops = 4 * ln * hc + 8 * (lb + ln) * h + 2 * (lb + ln) * hc
+    masks = 4 * ((lb + ln) * h + ls * h) if drop else 0
+    parts = {
+        "E": (e_in + 4 * (n * hc + 2 * n * h), e_ops),
+        "D": (e_in + 4 * ls * (h + hc + 1) + masks + 4 * n * hc,
+              e_ops + ls * (8 * h + 2 * hc) + n * hc),
+        "Dp": (e_in + 4 * (n * hc + ls * (h + hc + 1) + lb + n + 1)
+               + masks + 4 * (n * hc + k * h * n + n * h + ts * (h + hc)
+                              + 2 * hc * h),
+               4 * ln * hc + 8 * (lb + ln + ls) * h
+               + 4 * (lb + ln + ls) * hc + 8 * ln * hc * h),
+    }
+    out = {}
+    for name, (nbytes, flops) in parts.items():
+        t_b = nbytes / PEAK_BYTES * 1e3
+        t_o = flops / PEAK_FLOPS["float32"] * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+                     nbytes, flops)
+    return out
+
+
+def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
+    """CUDA-event times of kernel E per serving shape and of kernels D and
+    D' per training shape (no dropout) against their bounds and plain
+    versions; the D + D' layer beside the C + C' layer on the same batch;
+    then one k-NN train step of the full-width model with every layer on
+    route D (``wide_kernel=False``, dropout 0.1): its launches, ms and the
+    device's busy share."""
+    import functools
+
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
+
+    erows, drows = [], []
+    with torch.no_grad():
+        for label, kw, banded, dims in ecases:
+            xh = kw["xh"]
+            n, heads, c = xh.shape
+            args = (xh, kw["a_cat_mat"], kw["el_t"], kw["el_self_t"], banded)
+            kargs = eb.kernel_args(xh.reshape(n, heads * c), kw["a_cat_mat"],
+                                   banded.loc_t, kw["el_t"], kw["el_self_t"],
+                                   band_rows=banded.band_rows)
+            ms = cuda_ms(torch, lambda: eb.call_band_kernel(**kargs), 20)
+            plain_ms = cuda_ms(torch, lambda: eb.band_part_reference(*args),
+                               5, warmup=1)
+            b = band_bounds(dims)["E"]
+            erows.append(dict(shape=label, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b[0], bound_by=b[1], bytes=b[2],
+                              flops=b[3]))
+            log(f"[4e] E {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, "
+                f"{b[3] / 1e9:.3f} GFLOP), {b[0] / ms:.3f} of bound")
+    for (label, kw, banded, dims), (_, ckw, tables, _) in zip(dcases,
+                                                              kcases):
+        xh = kw["xh"]
+        n, heads, c = xh.shape
+        with torch.no_grad():
+            l_spill, xh_spill = eb._spill_inputs(
+                xh.reshape(n, heads * c), kw["a_src"], kw["a_dst"],
+                kw["m_edge"], banded, 0.2, eb._plain_gather)
+            kargs = eb.kernel_args(
+                xh.reshape(n, heads * c), kw["a_cat_mat"], banded.loc_t,
+                kw["el_t"], kw["el_self_t"], l_spill, xh_spill,
+                banded.spill_dst_local_b, band_rows=banded.band_rows)
+            g = torch.randn(n, heads * c, generator=torch.Generator(
+                ).manual_seed(SEED + 94)).to(xh.device)
+            bkw = {nm: kargs[nm] for nm in (
+                "xh", "acat", "loc", "el", "el_self", "l_spill", "xh_spill",
+                "dst_loc", "dmask", "dmask_sp", "n", "k", "heads", "c", "r",
+                "s_max", "negative_slope")}
+            perm = banded.band_perm.int().contiguous()
+            row_ptr = banded.band_row_ptr.int().contiguous()
+            d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs), 10)
+            dp_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
+                **bkw, dout=g, perm=perm, row_ptr=row_ptr), 10)
+            pd_ms = cuda_ms(torch, lambda: eb.fused_v2_reference(
+                **kw, banded=banded), 3, warmup=1)
+        leaves = {nm: kw[nm].detach().clone().requires_grad_()
+                  for nm in V2_LEAVES if kw.get(nm) is not None}
+        ref = eb.fused_v2_reference(**{**kw, **leaves}, banded=banded)
+        pdp_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, list(leaves.values()), g, retain_graph=True), 3, warmup=1)
+        del ref
+
+        def layer_d():
+            out = eb.ell_gat_fused_v2(**{**kw, **leaves}, banded=banded)
+            return torch.autograd.grad(out, list(leaves.values()), g)
+
+        cleaves = {nm: ckw[nm].detach().clone().requires_grad_()
+                   for nm in ELL_LEAVES}
+
+        def layer_c():
+            out = ef.ell_gat_fused_train(**{**ckw, **cleaves},
+                                         slot_tables=tables)
+            return torch.autograd.grad(out, list(cleaves.values()), g)
+
+        ld_ms = cuda_ms(torch, layer_d, 5)
+        lc_ms = cuda_ms(torch, layer_c, 5)
+        bd = band_bounds(dims)
+        drows.append(dict(
+            shape=label, d_ms=d_ms, d_plain_ms=pd_ms, d_bound_ms=bd["D"][0],
+            d_bound_by=bd["D"][1], dp_ms=dp_ms, dp_plain_ms=pdp_ms,
+            dp_bound_ms=bd["Dp"][0], dp_bound_by=bd["Dp"][1],
+            layer_d_fwd_bwd_ms=ld_ms, layer_c_fwd_bwd_ms=lc_ms,
+            **{f"{nm}_bytes": bd[nm][2] for nm in ("D", "Dp")},
+            **{f"{nm}_flops": bd[nm][3] for nm in ("D", "Dp")}))
+        log(f"[4e] D {label}: {d_ms:.4f} ms (plain {pd_ms:.4f}, bound "
+            f"{bd['D'][0]:.4f} by {bd['D'][1]}, {bd['D'][0] / d_ms:.3f} of "
+            f"bound); D' {dp_ms:.4f} ms (plain autograd backward "
+            f"{pdp_ms:.4f}, bound {bd['Dp'][0]:.4f} by {bd['Dp'][1]}, "
+            f"{bd['Dp'][2] / 1e6:.1f} MB, {bd['Dp'][0] / dp_ms:.3f} of "
+            f"bound); layer forward + backward: D + D' (+ spill gathers and "
+            f"F (a)) {ld_ms:.4f} ms, C + C' (+ F (b)) {lc_ms:.4f} ms")
+        del kargs, bkw, g, l_spill, xh_spill, leaves, cleaves
+
+    trainer, state, g, targets = knn_step_setup(torch, np, work, samples,
+                                                dropout=1.0 - KEEP)
+    banded = band_ell(g.to("cpu"), band_rows=BAND_ROWS).to(g.x.device)
+    model = state.model
+    for i in range(MODEL_LAYERS):
+        getattr(model.GNNBackbone_0, f"GATConv_{i}").wide_kernel = False
+    model.forward = functools.partial(model.forward, banded=banded)
+    fn = lambda: trainer.train_step(state, g, targets, LR)  # noqa: E731
+    eb.v2_launches = eb.v2_bwd_launches = sr.launches = 0  # the main path
+    ef.train_launches = ef.bwd_launches = 0
+    losses, _ = fn()
+    torch.cuda.synchronize()
+    counts = dict(v2=eb.v2_launches, v2_bwd=eb.v2_bwd_launches,
+                  segment_reduce=sr.launches,
+                  c=ef.train_launches + ef.bwd_launches)
+    check(bool(torch.isfinite(losses["total"])), "route D step loss")
+    check(counts == dict(v2=MODEL_LAYERS, v2_bwd=MODEL_LAYERS,
+                         segment_reduce=3 * MODEL_LAYERS, c=0),
+          f"route D step launches {counts}")
+    missing = [nm for nm, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not missing, f"no finite gradient for {missing}")
+    ms = cuda_ms(torch, fn, 5, warmup=1)
+    log(f"[4e] k-NN train step on route D (every layer wide_kernel=False; "
+        f"merged batch N={g.x.shape[0]}, full width, dropout "
+        f"{1 - KEEP:.1f}, f32): launches D {counts['v2']}, D' "
+        f"{counts['v2_bwd']}, F (a) {counts['segment_reduce']}, C 0; "
+        f"{ms:.3f} ms (CUDA events)")
+    wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
+    busy = log_profile("4e", "3 route-D k-NN train steps", wall, prows,
+                       top=14)
+    names = ("v2_fwd_kernel", "v2_bwd_", "band::acat_dots_kernel",
+             "segred::reduce_kernel")
+    mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
+    log(f"[4e]   kernels D, D' and F (a): {mine / 3:.3f} ms per step of "
+        f"{sum(r[0] for r in prows) / 3:.3f} ms device time")
+    return erows, drows, dict(ms=ms, busy_share=busy, counts=counts,
+                              kernels_ms=mine / 3,
+                              device_ms=sum(r[0] for r in prows) / 3)
+
+
 # -- main --------------------------------------------------------------------------
 
 def main() -> int:
@@ -1888,8 +2313,12 @@ def main() -> int:
         phase = "2d kernels C (training form), C' and F vs plain"
         ksamples = knn_train_samples(np, knn_survey(np, KNN_BATCH_SURVEY,
                                                     SEED + 60)[0])
-        kcases, _ = knn_train_cases(torch, np, kmodel, dev, ksamples)
+        kcases, kbatch = knn_train_cases(torch, np, kmodel, dev, ksamples)
         kerrs = phase_knn_train_kernels_vs_plain(torch, kcases)
+        phase = "2e kernels E, D and D' vs plain"
+        becases = band_cases(torch, np, kmodel, dev, kgraph, SEED + 90)
+        bdcases = band_cases(torch, np, kmodel, dev, kbatch, SEED + 91)
+        berrs = phase_banded_kernels_vs_plain(torch, becases, bdcases)
         phase = "3 end to end"
         e2e = phase_end_to_end(torch, np, model, work)
         pipe.load_model(e2e["ckpt"])
@@ -1902,6 +2331,8 @@ def main() -> int:
         phase = "3d k-NN training end to end"
         ktr = phase_knn_train_end_to_end(torch, np, work)
         phase_knn_step_kernel_vs_plain(torch, np, work, ksamples)
+        phase = "3e k-NN serving on the banded route"
+        bvr = phase_vr_banded(torch, np, work, vr)
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         log(f"[4] end to end (cli.inference, load + 9 tiles + stitch + "
@@ -1916,6 +2347,9 @@ def main() -> int:
         phase = "4d k-NN training timings"
         krows, kstep = phase_knn_train_timings(torch, np, kcases, work,
                                                ksamples)
+        phase = "4e kernels E, D and D' timings"
+        berows, bdrows, dstep = phase_banded_timings(
+            torch, np, becases, bdcases, kcases, work, ksamples)
     except Exception:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         traceback.print_exc()
@@ -2030,6 +2464,47 @@ def main() -> int:
                    "bound_ms": krow["fa_bound_ms"],
                    "bound_by": krow["fa_bound_by"]},
         **kcommon,
+    }]
+    berow, bdrow = berows[0], bdrows[0]
+    kernels += [{
+        "name": "ell_gat_band",
+        "route": "cuda",
+        "source": "bathymetric_gnn_tpu_torch/csrc/ell_gat_band.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py:88",
+        "launches": bvr["launches"],
+        "max_abs_err": berrs[("E", berow["shape"])],
+        "ms": berow["ms"], "plain_ms": berow["plain_ms"],
+        "bound_ms": berow["bound_ms"], "bound_by": berow["bound_by"],
+        "library_ms": None,
+        "at": berow["shape"],
+        "shapes": berows,
+        "graph_chunks": bvr["chunks"],
+        "end_to_end_grids_per_s": bvr["grids"] / bvr["wall"],
+        "end_to_end_mnodes_per_s": bvr["nodes"] / bvr["wall"] / 1e6,
+        "end_to_end_device_busy_share": bvr["busy_share"],
+        "class_agreement_with_kernel_c_route": bvr["agreement"],
+    }]
+    dcommon = dict(route="cuda", library_ms=None, at=bdrow["shape"],
+                   shapes=bdrows, route_d_train_step=dstep)
+    kernels += [{
+        "name": "ell_gat_v2_fwd",
+        "source": "bathymetric_gnn_tpu_torch/csrc/ell_gat_v2_fwd.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py:268",
+        "launches": dstep["counts"]["v2"],
+        "max_abs_err": berrs[("D", bdrow["shape"])],
+        "ms": bdrow["d_ms"], "plain_ms": bdrow["d_plain_ms"],
+        "bound_ms": bdrow["d_bound_ms"], "bound_by": bdrow["d_bound_by"],
+        **dcommon,
+    }, {
+        "name": "ell_gat_v2_bwd",
+        "source": "bathymetric_gnn_tpu_torch/csrc/ell_gat_v2_bwd.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py:625",
+        "launches": dstep["counts"]["v2_bwd"],
+        "max_abs_err": berrs[("Dp", bdrow["shape"])],
+        "ms": bdrow["dp_ms"], "plain_ms": bdrow["dp_plain_ms"],
+        "bound_ms": bdrow["dp_bound_ms"], "bound_by": bdrow["dp_bound_by"],
+        "segment_reduce_mode_a_launches": dstep["counts"]["segment_reduce"],
+        **dcommon,
     }]
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,9 @@ in its inference and training forms, kernel B against autograd of the
 plain forward, and the in-kernel Philox dropout draw; kernel C (the GAT
 layer on ELL graphs) in its inference and dropout forms, kernel C'
 against autograd of the plain forward, and kernel F (the sorted-segment
-reduction) against ``index_add_``.
+reduction) against ``index_add_``; kernels E (the banded band part), D
+(the fused banded layer) and D' (its backward, with F's mode (a) behind
+its spill gathers) against their plain versions and autograd of them.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (the CPU test runs). On a machine with an H100 and nvcc:
@@ -568,3 +570,202 @@ def test_ell_model_train_step_on_card_matches_cpu(dev):
         assert (gk[name] - r).abs().max().item() <= 1e-3 * scale, name
     for name, v in sc.items():
         torch.testing.assert_close(sk[name], v, rtol=1e-4, atol=1e-5)
+
+
+# -- kernels E, D and D': the banded-ELL layer ----------------------------------
+
+def _banded_inputs(dev, n, k, heads, c, r, seed=0, self_loop=True,
+                   edge=True, drop=False):
+    """A k-NN graph over n - n / 16 random points padded to n nodes, split
+    by band_ell into r-row bands on the card, with the layer inputs of
+    ``ell_gat_fused_v2`` from ``seed`` (el_t carrying the NEG_BIG mask) and
+    streamed dropout masks (keep 0.9) when ``drop``."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
+
+    n_live = n - n // 16
+    rg = np.random.default_rng(seed)
+    pos = (rg.random((n_live, 2)) * 100).astype(np.float32)
+    x = rg.normal(size=(n_live, 3)).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (n,)
+    g = coo_to_ell(gb.build_knn_graph(x, pos, k).graph, max_degree=k)
+    banded = band_ell(g, band_rows=r, heads=heads).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+    xh = rnd(n, heads, c)
+    att = rnd(2, heads, c, s=0.3)
+    hc = heads * c
+    diag = (torch.arange(hc, device=dev)[:, None] // c
+            == torch.arange(heads, device=dev)[None]).float()
+    el_t = banded.negmask_t + (rnd(k * heads, n) if edge else 0.0)
+    masks = None
+    if drop:
+        t_count, _, s_max = banded.spill_dst_local_b.shape
+        masks = tuple((torch.rand(*shape, generator=gen) < 0.9).float().to(dev)
+                      / 0.9 for shape in (((k + 1) * heads, n),
+                                          (t_count, heads, s_max)))
+    return dict(xh=xh, a_src=(xh * att[0]).sum(-1),
+                a_dst=(xh * att[1]).sum(-1),
+                a_cat_mat=torch.cat([diag * att[0].reshape(hc, 1),
+                                     diag * att[1].reshape(hc, 1)], 1),
+                el_t=el_t, el_self_t=rnd(heads, n) if self_loop else None,
+                m_edge=rnd(3, heads, s=0.3) if edge else None,
+                banded=banded, dropout_masks=masks)
+
+
+BANDED_SHAPES = [
+    (4096, 8, 4, 64, 128),       # HC 256, 4 heads (layers 0-2), R 128
+    (4096, 8, 1, 64, 128),       # HC 64, 1 head (last layer)
+    (2048, 16, 4, 64, 256),      # K = 16, R 256
+    (1024, 8, 2, 6, 128),        # C % 4 != 0: scalar columns
+]
+
+
+@pytest.mark.parametrize("shape", BANDED_SHAPES)
+@pytest.mark.parametrize("self_loop,edge", [(True, True), (False, True),
+                                            (True, False)])
+def test_band_kernel_matches_plain(dev, shape, self_loop, edge):
+    """Kernel E vs its plain version: y, m and denom within the f32
+    tolerance of (1 + |ref|)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    n, k, heads, c, r = shape
+    kw = _banded_inputs(dev, n, k, heads, c, r, self_loop=self_loop,
+                        edge=edge)
+    args = (kw["xh"], kw["a_cat_mat"], kw["el_t"], kw["el_self_t"],
+            kw["banded"])
+    with torch.no_grad():
+        n0 = eb.band_launches
+        got = eb.ell_gat_band_part(*args)
+        torch.cuda.synchronize()
+        assert eb.band_launches == n0 + 1
+        want = eb.band_part_reference(*args)
+    for name, a, b in zip(("y", "m", "denom"), got, want):
+        err = ((a - b).abs() / (1 + b.abs())).max().item()
+        assert err <= TOL[torch.float32], (name, err)
+        assert torch.isfinite(a).all(), name
+
+
+V2_LEAVES = ("xh", "a_src", "a_dst", "a_cat_mat", "el_t", "el_self_t",
+             "m_edge")
+
+
+def _v2_run(fn, kw, g=None):
+    leaves = {n: kw[n].detach().clone().requires_grad_()
+              for n in V2_LEAVES if kw.get(n) is not None}
+    out = fn(**{**kw, **leaves})
+    if g is None:
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
+                        ).to(out.device)
+    grads = torch.autograd.grad(out, list(leaves.values()), g)
+    return out.detach(), dict(zip(leaves, grads)), g
+
+
+@pytest.mark.parametrize("shape", BANDED_SHAPES)
+@pytest.mark.parametrize("self_loop,edge", [(True, True), (False, True),
+                                            (True, False)])
+@pytest.mark.parametrize("drop", [False, True])
+def test_v2_kernels_match_plain(dev, shape, self_loop, edge, drop):
+    """Kernel D and kernel D' (with F's mode (a) behind the three spill
+    gathers) vs the plain forward and autograd of it, on the same inputs
+    and masks; and D' repeats bit for bit."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    n, k, heads, c, r = shape
+    kw = _banded_inputs(dev, n, k, heads, c, r, self_loop=self_loop,
+                        edge=edge, drop=drop)
+    counts = (eb.v2_launches, eb.v2_bwd_launches, sr.launches)
+    out, grads, g = _v2_run(eb.ell_gat_fused_v2, kw)
+    torch.cuda.synchronize()
+    assert (eb.v2_launches, eb.v2_bwd_launches, sr.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 3)
+    ref, rgrads, _ = _v2_run(eb.fused_v2_reference, kw, g)
+    err = ((out - ref).abs() / (1 + ref.abs())).max().item()
+    assert err <= TOL[torch.float32], err
+    for name, a in grads.items():
+        rr = rgrads[name]
+        assert torch.isfinite(a).all(), name
+        scale = rr.abs().max().item() + 1e-6
+        d = (a - rr).abs().max().item()
+        assert d <= GRAD_TOL[torch.float32] * scale, (name, d, scale)
+    out2, grads2, _ = _v2_run(eb.ell_gat_fused_v2, kw, g)
+    assert torch.equal(out, out2)
+    assert all(torch.equal(grads[nm], grads2[nm]) for nm in grads)
+
+
+def test_banded_kernels_raise_on_what_they_do_not_take(dev):
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    kw = _banded_inputs(dev, 1024, 8, 4, 16, 128)
+    xh = kw["xh"].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        eb.ell_gat_band_part(xh, kw["a_cat_mat"], kw["el_t"], None,
+                             kw["banded"])
+    wide = torch.zeros(64, 18, device=dev)            # 9 heads
+    with torch.no_grad():
+        for bad, match in (({"xh": kw["xh"].double()}, "float32"),
+                           ({"a_cat_mat": wide}, "heads"),
+                           ({"el_t": kw["el_t"][:-1]}, "el_t")):
+            args = {**kw, **bad}
+            with pytest.raises(ValueError, match=match):
+                eb.ell_gat_band_part(args["xh"], args["a_cat_mat"],
+                                     args["el_t"], None, kw["banded"])
+            with pytest.raises(ValueError, match=match):
+                eb.ell_gat_fused_v2(**args)
+        t_count = kw["banded"].spill_dst_local_b.shape[0]
+        with pytest.raises(ValueError, match="dropout masks"):
+            eb.ell_gat_fused_v2(**{**kw, "dropout_masks": (
+                torch.ones(9 * 4, 1024, device=dev),
+                torch.ones(t_count, 4, 1, device=dev))})
+
+
+def test_route_d_model_train_step_on_card_matches_cpu(dev):
+    """One training step (dropout 0) of EllBathymetricGNN at full width
+    with every layer on route D (``wide_kernel=False``), through kernels D,
+    D' and F on the card vs the same step on the CPU: every gradient within
+    1e-3 of its leaf's scale (the conv biases: of the largest gradient),
+    as for route C."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import EllBathymetricGNN
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
+
+    rg = np.random.default_rng(2)
+    pos = (rg.random((3500, 2)) * 60).astype(np.float32)
+    x = rg.normal(size=(3500, 8)).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (4096,)
+    g = coo_to_ell(gb.build_knn_graph(x, pos, 8, depth=x[:, 0]).graph, 8)
+    banded = band_ell(g, band_rows=128)
+    model = EllBathymetricGNN(8, sparse_kernel="banded_pallas",
+                              generator=torch.Generator().manual_seed(0))
+    for i in range(4):
+        getattr(model.GNNBackbone_0, f"GATConv_{i}").wide_kernel = False
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step(device):
+        model.load_state_dict(state)
+        model.to(device).train().zero_grad()
+        out = model(g.to(device), banded=banded.to(device))
+        loss = out["class_logits"].square().sum() + out["confidence"].sum() \
+            + out["correction"].square().sum()
+        loss.backward()
+        return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    n0 = (eb.v2_launches, eb.v2_bwd_launches)
+    gk = step(dev)
+    torch.cuda.synchronize()
+    assert (eb.v2_launches, eb.v2_bwd_launches) == (n0[0] + 4, n0[1] + 4)
+    gc = step("cpu")
+    big = max(r.abs().max().item() for r in gc.values())
+    for name, r in gc.items():
+        scale = (big if "GATConv" in name and name.endswith(".bias")
+                 else r.abs().max().item() + 1e-6)
+        assert (gk[name] - r).abs().max().item() <= 1e-3 * scale, name

@@ -67,7 +67,9 @@ LAYERS = {
 
 
 def _port_layer(cls, kw, params):
-    m = cls(16, edge_dim=3, **kw)
+    # GATConvEllBanded on route C, as JAX's use_pallas=True
+    extra = dict(use_pallas=True) if cls is GATConvEllBanded else {}
+    m = cls(16, edge_dim=3, **kw, **extra)
     m.load_state_dict({k: torch.from_numpy(np.array(v))
                        for k, v in params.items()})
     return m.eval()
@@ -129,7 +131,8 @@ def test_kernel_wrapper_has_no_backward(knn_case):
     entry, kernels C and C' on the card): its gradients equal autograd of
     the plain GATConvELL on the same weights."""
     _, _, h, tg = knn_case
-    layer = GATConvEllBanded(16, 12, heads=2, edge_dim=3).eval()
+    layer = GATConvEllBanded(16, 12, heads=2, edge_dim=3,
+                             use_pallas=True).eval()
     xh = (torch.from_numpy(h) @ layer.lin_src).detach().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         ef.ell_gat_fused(xh, layer.att_src, layer.att_dst, tg.nbr_src,

@@ -87,7 +87,8 @@ def _jax_grads(layer, params, g, banded, x, w, rng=None):
 
 
 def _port_grads(kw, params, tg, x, w, dropout=0.0):
-    layer = tce.GATConvEllBanded(16, edge_dim=3, dropout=dropout, **kw)
+    layer = tce.GATConvEllBanded(16, edge_dim=3, dropout=dropout,
+                                 use_pallas=True, **kw)
     layer.load_state_dict({k: torch.from_numpy(np.array(v))
                            for k, v in params.items()})
     xt = torch.from_numpy(x).requires_grad_()
