@@ -1,5 +1,5 @@
 // Band part of the banded-ELL GAT layer (kernel E), for Hopper (sm_90a),
-// CUDA C++, f32, forward only.
+// CUDA C++, f32 and bf16, forward only.
 //
 // Replaces bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py::_kernel (the
 // Pallas band kernel behind ell_gat_band_part_pallas, launched by
@@ -16,6 +16,9 @@
 // y is left UNNORMALIZED: the spill fold (ops/ell_banded.py
 // banded_gat_spill_pass_flat) adds the out-of-window edges and divides
 // once by the joint denominator. Outputs y [N, HC], m and denom [N, heads].
+// bf16 form (compute_dtype="bfloat16"): xh and acat are read as bf16, and
+// y, m and denom are f32 as in the TPU kernel (it has no lowp output); the
+// dots, the softmax and the sum run in f32.
 //
 // The TPU kernel keeps a 3R-row window of xh in VMEM per band and gathers
 // by one-hot matmuls on the MXU, since the TPU has no fast gather. Hopper
@@ -32,13 +35,14 @@
 // at N = 65,536, K = 8, HC 256, 4 heads it must read xh (67.1 MB), el
 // (8.4 MB), loc (2.1 MB), el_self and acat, and write y (67.1 MB) and the
 // two statistics: ~146 MB, ~0.044 ms; its ~0.5 GFLOP take ~0.008 ms at the
-// FP32 rate, so it is bound by bytes. This version reads xh twice (dots,
-// then the gather) and each in-band neighbour row once more per slot.
+// FP32 rate, so it is bound by bytes (bf16 halves the xh read). This
+// version reads xh twice (dots, then the gather) and each in-band
+// neighbour row once more per slot.
 
 #include "ell_gat_banded.cuh"
 
 using namespace band;
-using ellgat::Vec;
+using ellgat::VecT;
 
 namespace {
 
@@ -55,9 +59,9 @@ size_t band_smem(int wpb, int k, int heads) {
   return f + (size_t)wpb * k * sizeof(long long);
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-band_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
+band_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
             const int* __restrict__ loc, const float* __restrict__ el,
             const float* __restrict__ el_self, float* __restrict__ y,
             float* __restrict__ m_out, float* __restrict__ den_out,
@@ -95,60 +99,72 @@ band_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
     const int h = col / c;
     float acc[VEC], v[VEC];
     const float ws = eself_s[h];
-    Vec<VEC>::load(xh + i * hc + col, v);
+    VecT<T, VEC>::load(xh + i * hc + col, v);
 #pragma unroll
     for (int q = 0; q < VEC; ++q) acc[q] = ws * v[q];
     for (int s = 0; s < k; ++s) {
       const long long j = src_s[s];
       if (j < 0) continue;
       const float w = e_s[s * heads + h];
-      Vec<VEC>::load(xh + j * hc + col, v);
+      VecT<T, VEC>::load(xh + j * hc + col, v);
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[q] = fmaf(w, v[q], acc[q]);
     }
-    Vec<VEC>::store(yrow + col, acc);
+    VecT<float, VEC>::store(yrow + col, acc);
   }
 }
 
 }  // namespace
 
-// Kernel E. xh [n, heads * c] f32; acat [heads * c, 2 * heads] f32; loc
-// [k, n] int32; el [k * heads, n] f32; el_self [heads, n] f32 or null (no
-// self loop); ac [n, 2 * heads] f32 scratch; outputs y [n, heads * c], m
-// and den [n, heads] f32. n must be a multiple of the band rows r. vec 4
-// needs c % 4 == 0 and 16-byte aligned xh and y. Launches on `stream`;
-// returns the CUDA error code of the launches (0 when both were accepted).
-extern "C" int ell_gat_band(const void* xh, const void* acat, const void* loc,
-                            const void* el, const void* el_self, void* ac,
-                            void* y, void* m, void* den, long long n, int k,
-                            int heads, int c, int r, float slope, int vec,
-                            void* stream) {
-  if (n < 1 || k < 1 || heads < 1 || heads > MAX_HEADS || c < 1 || r < 1 ||
-      n % r != 0 || (vec != 1 && vec != 4) || (vec == 4 && c % 4 != 0))
-    return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch_band(const void* xh, const void* acat, const void* loc,
+                const void* el, const void* el_self, void* ac, void* y,
+                void* m, void* den, long long n, int k, int heads, int c,
+                int r, float slope, int vec, size_t smem, cudaStream_t s) {
   const int wpb = THREADS / WARP;
-  const size_t smem = band_smem(wpb, k, heads);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fxh = static_cast<const float*>(xh);
-  cudaError_t err = launch_acat_dots(fxh, static_cast<const float*>(acat),
-                                     static_cast<float*>(ac), n, heads * c,
-                                     2 * heads, s);
+  const T* txh = static_cast<const T*>(xh);
+  cudaError_t err = launch_acat_dots<T>(txh, static_cast<const T*>(acat),
+                                        static_cast<float*>(ac), n, heads * c,
+                                        2 * heads, s);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
+#define BAND_ARGS                                                            \
+  txh, static_cast<const float*>(ac), static_cast<const int*>(loc),          \
+      static_cast<const float*>(el), static_cast<const float*>(el_self),     \
+      static_cast<float*>(y), static_cast<float*>(m),                        \
+      static_cast<float*>(den), n, k, heads, c, r, slope
   if (vec == 4)
-    band_kernel<4><<<blocks, THREADS, smem, s>>>(
-        fxh, static_cast<const float*>(ac), static_cast<const int*>(loc),
-        static_cast<const float*>(el), static_cast<const float*>(el_self),
-        static_cast<float*>(y), static_cast<float*>(m),
-        static_cast<float*>(den), n, k, heads, c, r, slope);
+    band_kernel<T, 4><<<blocks, THREADS, smem, s>>>(BAND_ARGS);
   else
-    band_kernel<1><<<blocks, THREADS, smem, s>>>(
-        fxh, static_cast<const float*>(ac), static_cast<const int*>(loc),
-        static_cast<const float*>(el), static_cast<const float*>(el_self),
-        static_cast<float*>(y), static_cast<float*>(m),
-        static_cast<float*>(den), n, k, heads, c, r, slope);
+    band_kernel<T, 1><<<blocks, THREADS, smem, s>>>(BAND_ARGS);
+#undef BAND_ARGS
   return (int)cudaGetLastError();
+}
+
+// Kernel E. dtype: 0 = float32, 1 = bfloat16 (xh, acat). xh [n, heads *
+// c]; acat [heads * c, 2 * heads]; loc [k, n] int32; el [k * heads, n]
+// f32; el_self [heads, n] f32 or null (no self loop); ac [n, 2 * heads]
+// f32 scratch; outputs y [n, heads * c], m and den [n, heads] f32. n must
+// be a multiple of the band rows r. vec 4 needs c % 4 == 0 and 16-byte
+// aligned xh and y. Launches on `stream`; returns the CUDA error code of
+// the launches (0 when both were accepted).
+extern "C" int ell_gat_band(int dtype, const void* xh, const void* acat,
+                            const void* loc, const void* el,
+                            const void* el_self, void* ac, void* y, void* m,
+                            void* den, long long n, int k, int heads, int c,
+                            int r, float slope, int vec, void* stream) {
+  if (n < 1 || k < 1 || heads < 1 || heads > MAX_HEADS || c < 1 || r < 1 ||
+      n % r != 0 || (vec != 1 && vec != 4) || (vec == 4 && c % 4 != 0) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = band_smem(THREADS / WARP, k, heads);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_band<bf16>(xh, acat, loc, el, el_self, ac, y, m, den, n, k,
+                             heads, c, r, slope, vec, smem, s);
+  return launch_band<float>(xh, acat, loc, el, el_self, ac, y, m, den, n, k,
+                            heads, c, r, slope, vec, smem, s);
 }
 
 extern "C" const char* ell_gat_band_error_string(int err) {

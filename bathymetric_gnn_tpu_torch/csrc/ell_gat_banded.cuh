@@ -6,13 +6,18 @@
 // Layouts (ops/ell_banded.py band_ell): loc [K, N] int32 local window
 // index (slot-major), el [K * heads, N] f32 raw edge logits (row k * heads
 // + h), el_self [heads, N] f32; nodes in bands of R rows, band t = i / R.
+// xh, acat and the spill rows are float or bf16 (the I/O type T of each
+// kernel); everything computed from them is f32.
 #pragma once
 
 #include "ell_gat_common.cuh"
 
 namespace band {
 
+using ellgat::bf16;
 using ellgat::FULL;
+using ellgat::ld;
+using ellgat::round_bf;
 using ellgat::THREADS;
 using ellgat::WARP;
 using ellgat::leaky;
@@ -35,10 +40,11 @@ __device__ __forceinline__ long long window_source(int loc, long long i,
 }
 
 // ac[i, j] = sum_col xh[i, col] * acat[col, j] for j < h2 = 2 * heads
-// (acat [HC, h2] row-major: a_src dots then a_dst dots). One warp per
-// node; the lanes stride over the columns.
+// (acat [HC, h2] row-major: a_src dots then a_dst dots; xh and acat of
+// type T, ac f32). One warp per node; the lanes stride over the columns.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-acat_dots_kernel(const float* __restrict__ xh, const float* __restrict__ acat,
+acat_dots_kernel(const T* __restrict__ xh, const T* __restrict__ acat,
                  float* __restrict__ ac, long long n, int hc, int h2) {
   const int lane = threadIdx.x & (WARP - 1);
   const long long i =
@@ -47,13 +53,13 @@ acat_dots_kernel(const float* __restrict__ xh, const float* __restrict__ acat,
   float acc[2 * MAX_HEADS];
 #pragma unroll
   for (int j = 0; j < 2 * MAX_HEADS; ++j) acc[j] = 0.f;
-  const float* row = xh + i * hc;
+  const T* row = xh + i * hc;
   for (int col = lane; col < hc; col += WARP) {
-    const float x = __ldg(row + col);
-    const float* a = acat + (long long)col * h2;
+    const float x = ld(row + col);
+    const T* a = acat + (long long)col * h2;
 #pragma unroll
     for (int j = 0; j < 2 * MAX_HEADS; ++j)
-      if (j < h2) acc[j] = fmaf(x, __ldg(a + j), acc[j]);
+      if (j < h2) acc[j] = fmaf(x, ld(a + j), acc[j]);
   }
 #pragma unroll
   for (int j = 0; j < 2 * MAX_HEADS; ++j) {
@@ -64,12 +70,13 @@ acat_dots_kernel(const float* __restrict__ xh, const float* __restrict__ acat,
   }
 }
 
-inline cudaError_t launch_acat_dots(const float* xh, const float* acat,
-                                    float* ac, long long n, int hc, int h2,
+template <typename T>
+inline cudaError_t launch_acat_dots(const T* xh, const T* acat, float* ac,
+                                    long long n, int hc, int h2,
                                     cudaStream_t s) {
   const int per_block = THREADS / WARP;
-  acat_dots_kernel<<<(unsigned)((n + per_block - 1) / per_block), THREADS, 0,
-                     s>>>(xh, acat, ac, n, hc, h2);
+  acat_dots_kernel<T><<<(unsigned)((n + per_block - 1) / per_block),
+                        THREADS, 0, s>>>(xh, acat, ac, n, hc, h2);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
 // Device helpers shared by the ELL-GAT kernels (ell_gat_fwd.cu, kernel C;
-// ell_gat_bwd.cu, kernel C'): warp reductions, LeakyReLU, vector loads,
-// the attention-dots kernel and the attention-dropout draw.
+// ell_gat_bwd.cu, kernel C'; the banded kernels D, D' and E): warp
+// reductions, LeakyReLU, the I/O types (float or bf16, converted to f32 on
+// load: every product, softmax and sum is taken in f32), vector loads, the
+// attention-dots kernel and the attention-dropout draw.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -30,6 +33,29 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v rounded to the nearest bf16 (where the JAX kernels' interpret mode
+// rounds an f32 intermediate before a bf16 product), kept in f32.
+__device__ __forceinline__ float round_bf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// One element of an I/O stream, as f32.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
 template <int VEC>
 struct Vec;
 template <>
@@ -55,24 +81,72 @@ struct Vec<4> {
   }
 };
 
+// VEC consecutive elements of an I/O stream of type T, as f32: 16-byte
+// loads for float4, 8-byte loads for four bf16 (the caller checks the
+// alignment).
+template <typename T, int VEC>
+struct VecT;
+template <int VEC>
+struct VecT<float, VEC> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    Vec<VEC>::load(p, v);
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    Vec<VEC>::store(p, v);
+  }
+};
+template <>
+struct VecT<bf16, 1> {
+  static __device__ __forceinline__ void load(const bf16* p, float* v) {
+    v[0] = __bfloat162float(p[0]);
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float* v) {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
+};
+template <>
+struct VecT<bf16, 4> {
+  static __device__ __forceinline__ void load(const bf16* p, float* v) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float* v) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const unsigned*>(&a);
+    t.y = *reinterpret_cast<const unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p) = t;
+  }
+};
+
 // dots[i, h] = <xh[i, h, :], att[0, h, :]>, dots[i, heads + h] = <xh[i, h,
-// :], att[1, h, :]>; att is [2, HC] (att_src then att_dst, flattened). One
-// warp per node; the lanes stride over each head's C channels.
+// :], att[1, h, :]>; att is [2, HC] (att_src then att_dst, flattened),
+// xh and att of type T, dots f32. One warp per node; the lanes stride
+// over each head's C channels.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-dots_kernel(const float* __restrict__ xh, const float* __restrict__ att,
+dots_kernel(const T* __restrict__ xh, const T* __restrict__ att,
             float* __restrict__ dots, long long n, int heads, int c) {
   const int lane = threadIdx.x & (WARP - 1);
   const long long i =
       (long long)blockIdx.x * (blockDim.x / WARP) + threadIdx.x / WARP;
   if (i >= n) return;
   const int hc = heads * c;
-  const float* row = xh + i * hc;
+  const T* row = xh + i * hc;
   for (int h = 0; h < heads; ++h) {
     float s = 0.f, d = 0.f;
     for (int j = lane; j < c; j += WARP) {
-      const float v = row[h * c + j];
-      s = fmaf(v, att[h * c + j], s);
-      d = fmaf(v, att[hc + h * c + j], d);
+      const float v = ld(row + h * c + j);
+      s = fmaf(v, ld(att + h * c + j), s);
+      d = fmaf(v, ld(att + hc + h * c + j), d);
     }
     s = warp_sum(s);
     d = warp_sum(d);
@@ -84,11 +158,12 @@ dots_kernel(const float* __restrict__ xh, const float* __restrict__ att,
 }
 
 // Launches dots_kernel for n nodes on stream s.
-inline cudaError_t launch_dots(const float* xh, const float* att,
-                               float* dots, long long n, int heads, int c,
+template <typename T>
+inline cudaError_t launch_dots(const T* xh, const T* att, float* dots,
+                               long long n, int heads, int c,
                                cudaStream_t s) {
   const int nodes_per_block = THREADS / WARP;
-  dots_kernel<<<(unsigned)((n + nodes_per_block - 1) / nodes_per_block),
+  dots_kernel<T><<<(unsigned)((n + nodes_per_block - 1) / nodes_per_block),
                 THREADS, 0, s>>>(xh, att, dots, n, heads, c);
   return cudaGetLastError();
 }

@@ -3,8 +3,8 @@
 //
 // Replaces bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py::_kernel_v3 (the
 // wide banded-ELL Pallas TPU kernel behind ell_gat_fused_wide_pallas) in
-// f32, in its inference form and its training (dropout) form. For node i
-// of an ELL graph
+// f32 and bf16, in its inference form and its training (dropout) form. For
+// node i of an ELL graph
 // (nbr_src [N, K], nbr_mask [N, K]) and head h it computes
 //   a_src[j, h] = sum_c xh[j, h, c] * att_src[h, c]       (dots kernel)
 //   a_dst[j, h] = sum_c xh[j, h, c] * att_dst[h, c]
@@ -23,6 +23,14 @@
 // The attention dots, the masked softmax and the weighted gather-sum are
 // all computed here; x @ W and the edge-logit terms el = edge_attr @
 // M_edge, el_self = mean live incoming attr @ M_edge come from the caller.
+// bf16 form (compute_dtype="bfloat16"): xh, the attention vectors and the
+// bias are read as bf16, out is written as bf16; logits, the softmax, the
+// Philox draw and the accumulation run in f32 as in f32 form. As the JAX
+// layer does (the kernel's bf16 output, then bias.astype(out.dtype) added
+// in bf16), the sum is rounded to bf16 before the bias is added and the
+// result rounded again. The TPU kernel also rounds its spill messages
+// (e_s * xh_spill) to bf16 before their dot; this kernel does not single
+// out spilled slots, so it sums them unrounded like the in-band ones.
 // Dead slots are skipped (never multiplied by 0), so a non-finite value in
 // a row that no live slot names cannot leak in. A node with no live slot
 // gets its self term only; with no self loop either, its output is 0.
@@ -52,7 +60,8 @@
 // el (8.4 MB), nbr_src and the mask (2.6 MB), el_self, and write out
 // (67.1 MB): ~150 MB, ~0.045 ms; its operations (~0.44 GFLOP, dots and
 // the 9-way weighted sum) take ~0.007 ms at the FP32 rate, so it is bound
-// by bytes. This version moves more: xh is read by both kernels, and each
+// by bytes (bf16 halves the xh and out streams: ~82 MB, ~0.025 ms). This
+// version moves more: xh is read by both kernels, and each
 // node's K neighbour rows are gathered (from L2 when they are close).
 // Fusing the dots into the producer of xh, wider rows per warp and
 // tensor-core/TMA staging are later work.
@@ -67,18 +76,20 @@ namespace {
 // heads], self weights [heads] (floats), then (after all warps' floats)
 // the K sources (ints, -1 for a dead slot). VEC = 4 needs C % 4 == 0 and
 // 16-byte aligned xh / out / bias (checked by the caller). The weights
-// are multiplied by ``drop``'s multipliers after the normalization.
-template <int VEC>
+// are multiplied by ``drop``'s multipliers after the normalization. xh,
+// bias and out are of type T (float or bf16).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
+aggregate_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
                  const int* __restrict__ nbr,
                  const uint8_t* __restrict__ nmask,
                  const float* __restrict__ el,
                  const float* __restrict__ el_self,
-                 const float* __restrict__ bias,
+                 const T* __restrict__ bias,
                  const uint8_t* __restrict__ node_mask,
-                 float* __restrict__ out, long long n, int k, int heads,
+                 T* __restrict__ out, long long n, int k, int heads,
                  int c, float slope, int has_self, Drop drop) {
+  constexpr bool LOWP = sizeof(T) == 2;
   extern __shared__ float smem[];
   const int wpb = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
@@ -90,9 +101,9 @@ aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
   const long long i = (long long)blockIdx.x * wpb + warp;
   if (i >= n) return;  // the whole warp leaves together
   const int hc = heads * c;
-  float* orow = out + i * hc;
+  T* orow = out + i * hc;
   if (node_mask != nullptr && !node_mask[i]) {
-    for (int j = lane; j < hc; j += WARP) orow[j] = 0.f;
+    for (int j = lane; j < hc; j += WARP) orow[j] = from_f<T>(0.f);
     return;
   }
   const long long slot0 = i * k;
@@ -145,7 +156,7 @@ aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
     float acc[VEC], v[VEC];
     if (has_self) {
       const float ws = wself_s[h];
-      Vec<VEC>::load(xh + i * hc + col, v);
+      VecT<T, VEC>::load(xh + i * hc + col, v);
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[q] = ws * v[q];
     } else {
@@ -156,16 +167,17 @@ aggregate_kernel(const float* __restrict__ xh, const float* __restrict__ dots,
       const int j = src_s[s];
       if (j < 0) continue;
       const float w = w_s[s * heads + h];
-      Vec<VEC>::load(xh + (long long)j * hc + col, v);
+      VecT<T, VEC>::load(xh + (long long)j * hc + col, v);
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[q] = fmaf(w, v[q], acc[q]);
     }
     if (bias != nullptr) {
-      Vec<VEC>::load(bias + col, v);
+      VecT<T, VEC>::load(bias + col, v);
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[q] += v[q];
+      for (int q = 0; q < VEC; ++q)
+        acc[q] = (LOWP ? round_bf(acc[q]) : acc[q]) + v[q];
     }
-    Vec<VEC>::store(orow + col, acc);
+    VecT<T, VEC>::store(orow + col, acc);
   }
 }
 
@@ -199,16 +211,44 @@ extern "C" int ell_gat_fwd_warps_per_block(int k, int heads) {
   return 0;
 }
 
-// Kernel C. xh [n, heads * c] f32; att [2, heads * c] f32; nbr [n, k]
-// int32; nmask [n, k] uint8; el [n, k, heads] f32 or null; el_self
-// [n, heads] f32 or null (zeros); bias [heads * c] f32 or null; node_mask
-// [n] uint8 or null; dots [n, 2 * heads] f32 scratch; out [n, heads * c]
-// f32. Dropout (training form): drop_mode 0 none, 1 dmask [n, k + 1,
-// heads] f32, 2 Philox from the int64 at seed with threshold thresh and
-// scale keep_inv. Launches on `stream`; returns the CUDA error code of the
-// launches (0 when both were accepted).
-extern "C" int ell_gat_fwd(const void* xh, const void* att, const void* nbr,
-                           const void* nmask, const void* el,
+template <typename T>
+int launch_fwd(const void* xh, const void* att, const void* nbr,
+               const void* nmask, const void* el, const void* el_self,
+               const void* bias, const void* node_mask, void* dots, void* out,
+               long long n, int k, int heads, int c, float slope,
+               int has_self, int vec, const Drop& drop, int wpb,
+               cudaStream_t s) {
+  const T* txh = static_cast<const T*>(xh);
+  cudaError_t err = launch_dots<T>(txh, static_cast<const T*>(att),
+                                   static_cast<float*>(dots), n, heads, c, s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
+  const size_t smem = agg_smem(wpb, k, heads);
+#define AGG_ARGS                                                            \
+  txh, static_cast<const float*>(dots), static_cast<const int*>(nbr),       \
+      static_cast<const uint8_t*>(nmask), static_cast<const float*>(el),    \
+      static_cast<const float*>(el_self), static_cast<const T*>(bias),      \
+      static_cast<const uint8_t*>(node_mask), static_cast<T*>(out), n, k,   \
+      heads, c, slope, has_self, drop
+  if (vec == 4)
+    aggregate_kernel<T, 4><<<blocks, wpb * WARP, smem, s>>>(AGG_ARGS);
+  else
+    aggregate_kernel<T, 1><<<blocks, wpb * WARP, smem, s>>>(AGG_ARGS);
+#undef AGG_ARGS
+  return (int)cudaGetLastError();
+}
+
+// Kernel C. dtype: 0 = float32, 1 = bfloat16 (xh, att, bias, out). xh
+// [n, heads * c]; att [2, heads * c]; nbr [n, k] int32; nmask [n, k]
+// uint8; el [n, k, heads] f32 or null; el_self [n, heads] f32 or null
+// (zeros); bias [heads * c] or null; node_mask [n] uint8 or null; dots
+// [n, 2 * heads] f32 scratch; out [n, heads * c]. Dropout (training form):
+// drop_mode 0 none, 1 dmask [n, k + 1, heads] f32, 2 Philox from the int64
+// at seed with threshold thresh and scale keep_inv. vec 4 needs c % 4 == 0
+// and 16-byte aligned xh, out and bias. Launches on `stream`; returns the
+// CUDA error code of the launches (0 when both were accepted).
+extern "C" int ell_gat_fwd(int dtype, const void* xh, const void* att,
+                           const void* nbr, const void* nmask, const void* el,
                            const void* el_self, const void* bias,
                            const void* node_mask, void* dots, void* out,
                            long long n, int k, int heads, int c, float slope,
@@ -218,38 +258,19 @@ extern "C" int ell_gat_fwd(const void* xh, const void* att, const void* nbr,
   if (n < 1 || k < 1 || heads < 1 || c < 1 || (vec != 1 && vec != 4) ||
       (vec == 4 && c % 4 != 0) || drop_mode < 0 || drop_mode > 2 ||
       (drop_mode == 1 && dmask == nullptr) ||
-      (drop_mode == 2 && seed == nullptr))
+      (drop_mode == 2 && seed == nullptr) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int wpb = ell_gat_fwd_warps_per_block(k, heads);
   if (wpb < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_dots(static_cast<const float*>(xh),
-                                static_cast<const float*>(att),
-                                static_cast<float*>(dots), n, heads, c, s);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
-  const size_t smem = agg_smem(wpb, k, heads);
-  const float* args_xh = static_cast<const float*>(xh);
-  const float* args_dots = static_cast<const float*>(dots);
-  const int* args_nbr = static_cast<const int*>(nbr);
-  const uint8_t* args_nmask = static_cast<const uint8_t*>(nmask);
-  const float* args_el = static_cast<const float*>(el);
-  const float* args_self = static_cast<const float*>(el_self);
-  const float* args_bias = static_cast<const float*>(bias);
-  const uint8_t* args_node = static_cast<const uint8_t*>(node_mask);
-  float* args_out = static_cast<float*>(out);
   const Drop drop = make_drop(drop_mode, dmask, seed, thresh, keep_inv);
-  if (vec == 4)
-    aggregate_kernel<4><<<blocks, wpb * WARP, smem, s>>>(
-        args_xh, args_dots, args_nbr, args_nmask, args_el, args_self,
-        args_bias, args_node, args_out, n, k, heads, c, slope, has_self,
-        drop);
-  else
-    aggregate_kernel<1><<<blocks, wpb * WARP, smem, s>>>(
-        args_xh, args_dots, args_nbr, args_nmask, args_el, args_self,
-        args_bias, args_node, args_out, n, k, heads, c, slope, has_self,
-        drop);
-  return (int)cudaGetLastError();
+  if (dtype == 1)
+    return launch_fwd<bf16>(xh, att, nbr, nmask, el, el_self, bias,
+                            node_mask, dots, out, n, k, heads, c, slope,
+                            has_self, vec, drop, wpb, s);
+  return launch_fwd<float>(xh, att, nbr, nmask, el, el_self, bias, node_mask,
+                           dots, out, n, k, heads, c, slope, has_self, vec,
+                           drop, wpb, s);
 }
 
 // The Philox draw of ``seed`` (mode 2 of ell_gat_fwd) as the f32 mask

@@ -1,5 +1,5 @@
 // Fused banded-ELL GAT layer, backward (kernel D'), for Hopper (sm_90a),
-// CUDA C++, f32, with or without streamed attention dropout.
+// CUDA C++, f32 and bf16, with or without streamed attention dropout.
 //
 // Replaces bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py::_bwd_kernel_v2
 // (the custom VJP _fused_v2 of kernel D, launched by _run_fused_v2_bwd).
@@ -43,6 +43,18 @@
 // the spill logits) are torch gathers whose backward is kernel F mode (a)
 // (ops/ell_banded.gather_rows_reduce_bwd).
 //
+// bf16 form: xh, acat, the spill rows and dout are read as bf16, every
+// sum runs in f32 and d xh is written as bf16 once. Where the JAX kernel's
+// interpret mode rounds (cast() at _bwd_kernel_v2:797, 822, 849) this
+// kernel rounds too: dy = u / Dt to bf16 in the spill dot products c_s and
+// the spill rows' cotangent, each in-band message d_k e_k dy, and the
+// node's dac before its product with acat. JAX emits d xh as three bf16
+// partials (one per window chunk) summed in bf16; the source walk here
+// sums the whole of d xh in f32 and rounds it once. d xh_spill stays f32
+// here; the caller casts it to bf16 for the spill gather's backward
+// (kernel F mode (a)), as JAX does. d el, d el_self, d l_spill and d acat
+// are f32.
+//
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 non-tensor):
 // at N = 262,144, K = 8, HC 256 it must read xh and dout (268 MB each), el,
 // loc and the spill tables, and write d xh (268 MB), d el (33.6 MB) and the
@@ -54,7 +66,7 @@
 #include "ell_gat_banded.cuh"
 
 using namespace band;
-using ellgat::Vec;
+using ellgat::VecT;
 
 namespace {
 
@@ -73,29 +85,44 @@ size_t dst_smem(int wpb, int k, int heads) {
 }
 
 // <u[base:base + c], x[base:base + c]> over the warp.
-__device__ __forceinline__ float warp_dot(const float* __restrict__ u,
-                                          const float* __restrict__ x, int c,
+template <typename T>
+__device__ __forceinline__ float warp_dot(const T* __restrict__ u,
+                                          const T* __restrict__ x, int c,
                                           int lane) {
   float p = 0.f;
-  for (int q = lane; q < c; q += WARP) p = fmaf(__ldg(u + q), __ldg(x + q), p);
+  for (int q = lane; q < c; q += WARP) p = fmaf(ld(u + q), ld(x + q), p);
   return warp_sum(p);
 }
 
+// <bf16(u * inv), x> over the warp (the bf16 form's rounded dy).
+template <typename T>
+__device__ __forceinline__ float warp_dot_rounded(const T* __restrict__ u,
+                                                  const T* __restrict__ x,
+                                                  int c, int lane,
+                                                  float inv) {
+  float p = 0.f;
+  for (int q = lane; q < c; q += WARP)
+    p = fmaf(round_bf(ld(u + q) * inv), ld(x + q), p);
+  return warp_sum(p);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-v2_bwd_dst_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
+v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
                   const int* __restrict__ loc, const float* __restrict__ el,
                   const float* __restrict__ el_self,
                   const float* __restrict__ l_spill,
-                  const float* __restrict__ xh_spill,
+                  const T* __restrict__ xh_spill,
                   const int* __restrict__ dst_loc,
                   const float* __restrict__ dm,
                   const float* __restrict__ dm_sp,
-                  const float* __restrict__ dout, float* __restrict__ alpha,
+                  const T* __restrict__ dout, float* __restrict__ alpha,
                   float* __restrict__ dl, float* __restrict__ cself,
                   float* __restrict__ dac, float* __restrict__ del,
                   float* __restrict__ del_self, float* __restrict__ dl_spill,
                   float* __restrict__ dxh_spill, long long n, int k,
                   int heads, int c, int r, int s_max, float slope) {
+  constexpr bool LOWP = sizeof(T) == 2;
   extern __shared__ float smem[];
   const int wpb = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
@@ -139,8 +166,8 @@ v2_bwd_dst_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
   __syncwarp();
 
   // ---- cotangents, one head at a time (lanes own its C channels) ------
-  const float* u = dout + i * hc;
-  const float* xi = xh + i * hc;
+  const T* u = dout + i * hc;
+  const T* xi = xh + i * hc;
   for (int h = 0; h < heads; ++h) {
     const int base = h * c;
     const float inv = inv_s[h], m = m_s[h], es = es_s[h];
@@ -164,13 +191,16 @@ v2_bwd_dst_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
         const int sp = b0 + __ffs(bits) - 1;
         bits &= bits - 1;
         const long long o = (t * heads + h) * s_max + sp;
-        const float* xs = xh_spill + (t * s_max + sp) * hc + base;
-        const float cs = warp_dot(u + base, xs, c, lane) * inv;
+        const T* xs = xh_spill + (t * s_max + sp) * hc + base;
+        const float cs = LOWP ? warp_dot_rounded(u + base, xs, c, lane, inv)
+                              : warp_dot(u + base, xs, c, lane) * inv;
         const float w = expf(fminf(l_spill[o] - m, 60.f)) *
                         (dm_sp != nullptr ? dm_sp[o] : 1.f);
         sea = fmaf(w, cs, sea);
         float* dxs = dxh_spill + (t * s_max + sp) * hc + base;
-        for (int q = lane; q < c; q += WARP) dxs[q] = w * u[base + q] * inv;
+        for (int q = lane; q < c; q += WARP)
+          dxs[q] = LOWP ? w * round_bf(ld(u + base + q) * inv)
+                        : w * ld(u + base + q) * inv;
         if (lane == 0) dl_spill[o] = w * cs;
       }
     }
@@ -214,18 +244,19 @@ v2_bwd_dst_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
 
 // (3) One warp per source node j: dac[j, :heads] += the dl of its in-band
 // slots (source-sorted: perm[row_ptr[j]:row_ptr[j + 1]]), then
-// d xh[j, :] = cself[j] u[j] + sum_slots alpha u[dst] + acat @ dac[j].
-template <int VEC>
+// d xh[j, :] = cself[j] u[j] + sum_slots alpha u[dst] + acat @ dac[j]
+// (bf16 form: each message alpha u[dst] and dac[j] rounded to bf16 first).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-v2_bwd_src_kernel(const float* __restrict__ dout,
-                  const float* __restrict__ acat,
+v2_bwd_src_kernel(const T* __restrict__ dout, const T* __restrict__ acat,
                   const float* __restrict__ alpha,
                   const float* __restrict__ dl,
                   const float* __restrict__ cself,
                   const int* __restrict__ perm,
                   const int* __restrict__ row_ptr, float* __restrict__ dac,
-                  float* __restrict__ dxh, long long n, int k, int heads,
+                  T* __restrict__ dxh, long long n, int k, int heads,
                   int c) {
+  constexpr bool LOWP = sizeof(T) == 2;
   const int lane = threadIdx.x & (WARP - 1);
   const long long j =
       (long long)blockIdx.x * (blockDim.x / WARP) + threadIdx.x / WARP;
@@ -258,31 +289,35 @@ v2_bwd_src_kernel(const float* __restrict__ dout,
     const int h = col / c;
     float acc[VEC], v[VEC];
     const float cs = cself[j * heads + h];
-    Vec<VEC>::load(dout + j * hc + col, v);
+    VecT<T, VEC>::load(dout + j * hc + col, v);
 #pragma unroll
     for (int q = 0; q < VEC; ++q) acc[q] = cs * v[q];
     for (int p = lo; p < hi; ++p) {
       const long long slot = perm[p];
       const float a = alpha[slot * heads + h];
-      Vec<VEC>::load(dout + (slot / k) * hc + col, v);
+      VecT<T, VEC>::load(dout + (slot / k) * hc + col, v);
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[q] = fmaf(a, v[q], acc[q]);
+      for (int q = 0; q < VEC; ++q)
+        acc[q] = LOWP ? acc[q] + round_bf(a * v[q]) : fmaf(a, v[q], acc[q]);
     }
 #pragma unroll
     for (int q = 0; q < VEC; ++q) {
-      const float* arow = acat + (long long)(col + q) * h2;
+      const T* arow = acat + (long long)(col + q) * h2;
 #pragma unroll
       for (int jj = 0; jj < 2 * MAX_HEADS; ++jj)
-        if (jj < h2) acc[q] = fmaf(d[jj], __ldg(arow + jj), acc[q]);
+        if (jj < h2)
+          acc[q] = fmaf(LOWP ? round_bf(d[jj]) : d[jj], ld(arow + jj),
+                        acc[q]);
     }
-    Vec<VEC>::store(dxh + j * hc + col, acc);
+    VecT<T, VEC>::store(dxh + j * hc + col, acc);
   }
 }
 
 // (4) Block b sums xh[j, col] * dac[j, :] over its run of `per` nodes
 // into part[b, col, :], threads owning columns.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-v2_bwd_dacat_kernel(const float* __restrict__ xh,
+v2_bwd_dacat_kernel(const T* __restrict__ xh,
                     const float* __restrict__ dac, float* __restrict__ part,
                     long long n, int hc, int h2, long long per) {
   const long long j0 = (long long)blockIdx.x * per;
@@ -292,7 +327,7 @@ v2_bwd_dacat_kernel(const float* __restrict__ xh,
 #pragma unroll
     for (int jj = 0; jj < 2 * MAX_HEADS; ++jj) acc[jj] = 0.f;
     for (long long j = j0; j < j1; ++j) {
-      const float x = __ldg(xh + j * hc + col);
+      const float x = ld(xh + j * hc + col);
       const float* dj = dac + j * h2;
 #pragma unroll
       for (int jj = 0; jj < 2 * MAX_HEADS; ++jj)
@@ -307,47 +342,31 @@ v2_bwd_dacat_kernel(const float* __restrict__ xh,
 
 }  // namespace
 
-// Kernel D'. Inputs as ell_gat_v2_fwd (xh, acat, loc, el, el_self,
-// l_spill, xh_spill, dst_loc, dmask, dmask_sp), the output cotangent dout
-// [n, HC] f32 and the in-band slots' source-sorted tables band_perm
-// [n * k] / band_row_ptr [n + 1] int32. Scratch: ac [n, 2 * heads], alpha
-// and dl [n * k, heads], cself [n, heads]. Outputs: dac [n, 2 * heads]
-// (the attention-dot cotangents), dxh [n, HC], del [k * heads, n],
-// del_self [heads, n] (null without a self loop), dl_spill [T, heads, S]
-// and dxh_spill [T, S, HC] (zero-filled by the caller: only live entries
-// are written), part [da_blocks, HC, 2 * heads] (partials of d acat).
-// vec 4 needs c % 4 == 0 and 16-byte aligned dout and dxh. Launches on
-// `stream`; returns the CUDA error code of the launches.
-extern "C" int ell_gat_v2_bwd(
-    const void* xh, const void* acat, const void* loc, const void* el,
-    const void* el_self, const void* l_spill, const void* xh_spill,
-    const void* dst_loc, const void* dmask, const void* dmask_sp,
-    const void* dout, const void* band_perm, const void* band_row_ptr,
-    void* ac, void* alpha, void* dl, void* cself, void* dac, void* dxh,
-    void* del, void* del_self, void* dl_spill, void* dxh_spill, void* part,
-    long long n, int k, int heads, int c, int r, int s_max, float slope,
-    int vec, int da_blocks, void* stream) {
-  if (n < 1 || k < 1 || heads < 1 || heads > MAX_HEADS || c < 1 || r < 1 ||
-      n % r != 0 || s_max < 1 || da_blocks < 1 || (vec != 1 && vec != 4) ||
-      (vec == 4 && c % 4 != 0) || ((dmask == nullptr) != (dmask_sp == nullptr)))
-    return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch_v2_bwd(const void* xh, const void* acat, const void* loc,
+                  const void* el, const void* el_self, const void* l_spill,
+                  const void* xh_spill, const void* dst_loc,
+                  const void* dmask, const void* dmask_sp, const void* dout,
+                  const void* band_perm, const void* band_row_ptr, void* ac,
+                  void* alpha, void* dl, void* cself, void* dac, void* dxh,
+                  void* del, void* del_self, void* dl_spill, void* dxh_spill,
+                  void* part, long long n, int k, int heads, int c, int r,
+                  int s_max, float slope, int vec, int da_blocks,
+                  size_t smem, cudaStream_t s) {
   const int wpb = THREADS / WARP;
-  const size_t smem = dst_smem(wpb, k, heads);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int hc = heads * c, h2 = 2 * heads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fxh = static_cast<const float*>(xh);
-  const float* facat = static_cast<const float*>(acat);
-  cudaError_t err = launch_acat_dots(fxh, facat, static_cast<float*>(ac), n,
-                                     hc, h2, s);
+  const T* txh = static_cast<const T*>(xh);
+  const T* tacat = static_cast<const T*>(acat);
+  cudaError_t err = launch_acat_dots<T>(txh, tacat, static_cast<float*>(ac),
+                                        n, hc, h2, s);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
-  v2_bwd_dst_kernel<<<blocks, THREADS, smem, s>>>(
-      fxh, static_cast<const float*>(ac), static_cast<const int*>(loc),
+  v2_bwd_dst_kernel<T><<<blocks, THREADS, smem, s>>>(
+      txh, static_cast<const float*>(ac), static_cast<const int*>(loc),
       static_cast<const float*>(el), static_cast<const float*>(el_self),
-      static_cast<const float*>(l_spill), static_cast<const float*>(xh_spill),
+      static_cast<const float*>(l_spill), static_cast<const T*>(xh_spill),
       static_cast<const int*>(dst_loc), static_cast<const float*>(dmask),
-      static_cast<const float*>(dmask_sp), static_cast<const float*>(dout),
+      static_cast<const float*>(dmask_sp), static_cast<const T*>(dout),
       static_cast<float*>(alpha), static_cast<float*>(dl),
       static_cast<float*>(cself), static_cast<float*>(dac),
       static_cast<float*>(del), static_cast<float*>(del_self),
@@ -356,23 +375,66 @@ extern "C" int ell_gat_v2_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define V2_SRC_ARGS                                                          \
-  static_cast<const float*>(dout), facat, static_cast<const float*>(alpha), \
+  static_cast<const T*>(dout), tacat, static_cast<const float*>(alpha),     \
       static_cast<const float*>(dl), static_cast<const float*>(cself),      \
       static_cast<const int*>(band_perm),                                   \
       static_cast<const int*>(band_row_ptr), static_cast<float*>(dac),      \
-      static_cast<float*>(dxh), n, k, heads, c
+      static_cast<T*>(dxh), n, k, heads, c
   if (vec == 4)
-    v2_bwd_src_kernel<4><<<blocks, THREADS, 0, s>>>(V2_SRC_ARGS);
+    v2_bwd_src_kernel<T, 4><<<blocks, THREADS, 0, s>>>(V2_SRC_ARGS);
   else
-    v2_bwd_src_kernel<1><<<blocks, THREADS, 0, s>>>(V2_SRC_ARGS);
+    v2_bwd_src_kernel<T, 1><<<blocks, THREADS, 0, s>>>(V2_SRC_ARGS);
 #undef V2_SRC_ARGS
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long per = (n + da_blocks - 1) / da_blocks;
-  v2_bwd_dacat_kernel<<<(unsigned)da_blocks, THREADS, 0, s>>>(
-      fxh, static_cast<const float*>(dac), static_cast<float*>(part), n, hc,
+  v2_bwd_dacat_kernel<T><<<(unsigned)da_blocks, THREADS, 0, s>>>(
+      txh, static_cast<const float*>(dac), static_cast<float*>(part), n, hc,
       h2, per);
   return (int)cudaGetLastError();
+}
+
+// Kernel D'. dtype: 0 = float32, 1 = bfloat16 (xh, acat, xh_spill, dout,
+// dxh). Inputs as ell_gat_v2_fwd (xh, acat, loc, el, el_self, l_spill,
+// xh_spill, dst_loc, dmask, dmask_sp), the output cotangent dout [n, HC]
+// and the in-band slots' source-sorted tables band_perm [n * k] /
+// band_row_ptr [n + 1] int32. Scratch: ac [n, 2 * heads], alpha and dl
+// [n * k, heads], cself [n, heads], f32. Outputs: dac [n, 2 * heads] f32
+// (the attention-dot cotangents), dxh [n, HC], del [k * heads, n],
+// del_self [heads, n] (null without a self loop), dl_spill [T, heads, S]
+// and dxh_spill [T, S, HC] (f32, zero-filled by the caller: only live
+// entries are written), part [da_blocks, HC, 2 * heads] f32 (partials of
+// d acat). vec 4 needs c % 4 == 0 and 16-byte aligned dout and dxh.
+// Launches on `stream`; returns the CUDA error code of the launches.
+extern "C" int ell_gat_v2_bwd(
+    int dtype, const void* xh, const void* acat, const void* loc,
+    const void* el, const void* el_self, const void* l_spill,
+    const void* xh_spill, const void* dst_loc, const void* dmask,
+    const void* dmask_sp, const void* dout, const void* band_perm,
+    const void* band_row_ptr, void* ac, void* alpha, void* dl, void* cself,
+    void* dac, void* dxh, void* del, void* del_self, void* dl_spill,
+    void* dxh_spill, void* part, long long n, int k, int heads, int c, int r,
+    int s_max, float slope, int vec, int da_blocks, void* stream) {
+  if (n < 1 || k < 1 || heads < 1 || heads > MAX_HEADS || c < 1 || r < 1 ||
+      n % r != 0 || s_max < 1 || da_blocks < 1 || (vec != 1 && vec != 4) ||
+      (vec == 4 && c % 4 != 0) ||
+      ((dmask == nullptr) != (dmask_sp == nullptr)) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dst_smem(THREADS / WARP, k, heads);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_v2_bwd<bf16>(
+        xh, acat, loc, el, el_self, l_spill, xh_spill, dst_loc, dmask,
+        dmask_sp, dout, band_perm, band_row_ptr, ac, alpha, dl, cself, dac,
+        dxh, del, del_self, dl_spill, dxh_spill, part, n, k, heads, c, r,
+        s_max, slope, vec, da_blocks, smem, s);
+  return launch_v2_bwd<float>(
+      xh, acat, loc, el, el_self, l_spill, xh_spill, dst_loc, dmask,
+      dmask_sp, dout, band_perm, band_row_ptr, ac, alpha, dl, cself, dac,
+      dxh, del, del_self, dl_spill, dxh_spill, part, n, k, heads, c, r,
+      s_max, slope, vec, da_blocks, smem, s);
 }
 
 extern "C" const char* ell_gat_v2_bwd_error_string(int err) {

@@ -1,5 +1,5 @@
 // Fused banded-ELL GAT layer with the spill edges folded in (kernel D),
-// forward, for Hopper (sm_90a), CUDA C++, f32.
+// forward, for Hopper (sm_90a), CUDA C++, f32 and bf16.
 //
 // Replaces bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py::_kernel_v2
 // (launched by _run_fused_v2_forward behind ell_gat_fused_pallas, the
@@ -24,6 +24,12 @@
 // spill rows xh_spill [T, S, HC] come from the caller (torch), as in the
 // JAX entry.
 //
+// bf16 form (compute_dtype="bfloat16"): xh, acat and the gathered spill
+// rows are read as bf16 and out is written as bf16; logits, the softmax
+// and the sums run in f32. Each spill message d_s e_s xh_spill[t, s] is
+// rounded to bf16 before it is added, as the TPU kernel rounds the
+// operands of its spill dot (_kernel_v2:400-411).
+//
 // Design: as kernel E (ell_gat_band.cu), no window: (1) the attention dots;
 // (2) one warp per destination row. The lanes own slots for the in-band
 // softmax, then stride over the band's spill table (dst_loc, S entries,
@@ -34,12 +40,13 @@
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 non-tensor):
 // at N = 262,144, K = 8, HC 256 it must read xh (268 MB), el (33.6 MB),
 // loc (8.4 MB), the spill tables and write out (268 MB): ~0.58 GB, ~0.17
-// ms; its ~2 GFLOP take ~0.03 ms at the FP32 rate: bound by bytes.
+// ms; its ~2 GFLOP take ~0.03 ms at the FP32 rate: bound by bytes (bf16
+// halves the xh and out streams).
 
 #include "ell_gat_banded.cuh"
 
 using namespace band;
-using ellgat::Vec;
+using ellgat::VecT;
 
 namespace {
 
@@ -56,17 +63,18 @@ size_t v2_smem(int wpb, int k, int heads) {
   return f + (size_t)wpb * k * sizeof(long long);
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-v2_fwd_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
+v2_fwd_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
               const int* __restrict__ loc, const float* __restrict__ el,
               const float* __restrict__ el_self,
               const float* __restrict__ l_spill,
-              const float* __restrict__ xh_spill,
+              const T* __restrict__ xh_spill,
               const int* __restrict__ dst_loc, const float* __restrict__ dm,
-              const float* __restrict__ dm_sp, float* __restrict__ out,
+              const float* __restrict__ dm_sp, T* __restrict__ out,
               long long n, int k, int heads, int c, int r, int s_max,
               float slope) {
+  constexpr bool LOWP = sizeof(T) == 2;
   extern __shared__ float smem[];
   const int wpb = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
@@ -107,7 +115,7 @@ v2_fwd_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
 
   // every lane runs every column step (the spill ballots need the whole
   // warp); lanes past HC only vote
-  float* orow = out + i * hc;
+  T* orow = out + i * hc;
   for (int col0 = 0; col0 < hc; col0 += WARP * VEC) {
     const int col = col0 + lane * VEC;
     const bool active = col < hc;
@@ -117,14 +125,14 @@ v2_fwd_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
     for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
     if (active) {
       const float ws = wself_s[h];
-      Vec<VEC>::load(xh + i * hc + col, v);
+      VecT<T, VEC>::load(xh + i * hc + col, v);
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[q] = ws * v[q];
       for (int s = 0; s < k; ++s) {
         const long long j = src_s[s];
         if (j < 0) continue;
         const float w = w_s[s * heads + h];
-        Vec<VEC>::load(xh + j * hc + col, v);
+        VecT<T, VEC>::load(xh + j * hc + col, v);
 #pragma unroll
         for (int q = 0; q < VEC; ++q) acc[q] = fmaf(w, v[q], acc[q]);
       }
@@ -139,32 +147,63 @@ v2_fwd_kernel(const float* __restrict__ xh, const float* __restrict__ ac,
         const long long o = (t * heads + h) * s_max + sp;
         const float e = expf(fminf(l_spill[o] - m, 60.f)) *
                         (dm_sp != nullptr ? dm_sp[o] : 1.f);
-        Vec<VEC>::load(xh_spill + (t * s_max + sp) * hc + col, v);
+        VecT<T, VEC>::load(xh_spill + (t * s_max + sp) * hc + col, v);
 #pragma unroll
-        for (int q = 0; q < VEC; ++q) acc[q] = fmaf(e, v[q], acc[q]);
+        for (int q = 0; q < VEC; ++q)
+          acc[q] = LOWP ? acc[q] + round_bf(e * v[q]) : fmaf(e, v[q], acc[q]);
       }
     }
     if (active) {
       const float inv = inv_s[h];
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[q] *= inv;
-      Vec<VEC>::store(orow + col, acc);
+      VecT<T, VEC>::store(orow + col, acc);
     }
   }
 }
 
 }  // namespace
 
-// Kernel D. xh [n, heads * c] f32; acat [heads * c, 2 * heads] f32; loc
-// [k, n] int32; el [k * heads, n] f32 (NEG_BIG in dead and spilled slots);
-// el_self [heads, n] f32 or null (no self loop); l_spill [T, heads, S]
-// f32; xh_spill [T, S, heads * c] f32; dst_loc [T, S] int32 (-1 dead);
-// dmask [(k + 1) * heads, n] and dmask_sp [T, heads, S] f32, both or
-// neither (null: no dropout); ac [n, 2 * heads] f32 scratch; out [n,
-// heads * c] f32. T = n / r. vec 4 needs c % 4 == 0 and 16-byte aligned
-// xh, xh_spill and out. Launches on `stream`; returns the CUDA error code
-// of the launches.
-extern "C" int ell_gat_v2_fwd(const void* xh, const void* acat,
+template <typename T>
+int launch_v2_fwd(const void* xh, const void* acat, const void* loc,
+                  const void* el, const void* el_self, const void* l_spill,
+                  const void* xh_spill, const void* dst_loc,
+                  const void* dmask, const void* dmask_sp, void* ac,
+                  void* out, long long n, int k, int heads, int c, int r,
+                  int s_max, float slope, int vec, size_t smem,
+                  cudaStream_t s) {
+  const int wpb = THREADS / WARP;
+  const T* txh = static_cast<const T*>(xh);
+  cudaError_t err = launch_acat_dots<T>(txh, static_cast<const T*>(acat),
+                                        static_cast<float*>(ac), n, heads * c,
+                                        2 * heads, s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
+#define V2_FWD_ARGS                                                          \
+  txh, static_cast<const float*>(ac), static_cast<const int*>(loc),          \
+      static_cast<const float*>(el), static_cast<const float*>(el_self),     \
+      static_cast<const float*>(l_spill), static_cast<const T*>(xh_spill),   \
+      static_cast<const int*>(dst_loc), static_cast<const float*>(dmask),    \
+      static_cast<const float*>(dmask_sp), static_cast<T*>(out), n, k,       \
+      heads, c, r, s_max, slope
+  if (vec == 4)
+    v2_fwd_kernel<T, 4><<<blocks, THREADS, smem, s>>>(V2_FWD_ARGS);
+  else
+    v2_fwd_kernel<T, 1><<<blocks, THREADS, smem, s>>>(V2_FWD_ARGS);
+#undef V2_FWD_ARGS
+  return (int)cudaGetLastError();
+}
+
+// Kernel D. dtype: 0 = float32, 1 = bfloat16 (xh, acat, xh_spill, out). xh
+// [n, heads * c]; acat [heads * c, 2 * heads]; loc [k, n] int32; el
+// [k * heads, n] f32 (NEG_BIG in dead and spilled slots); el_self [heads,
+// n] f32 or null (no self loop); l_spill [T, heads, S] f32; xh_spill [T,
+// S, heads * c]; dst_loc [T, S] int32 (-1 dead); dmask [(k + 1) * heads,
+// n] and dmask_sp [T, heads, S] f32, both or neither (null: no dropout);
+// ac [n, 2 * heads] f32 scratch; out [n, heads * c]. T = n / r. vec 4
+// needs c % 4 == 0 and 16-byte aligned xh, xh_spill and out. Launches on
+// `stream`; returns the CUDA error code of the launches.
+extern "C" int ell_gat_v2_fwd(int dtype, const void* xh, const void* acat,
                               const void* loc, const void* el,
                               const void* el_self, const void* l_spill,
                               const void* xh_spill, const void* dst_loc,
@@ -174,31 +213,20 @@ extern "C" int ell_gat_v2_fwd(const void* xh, const void* acat,
                               int vec, void* stream) {
   if (n < 1 || k < 1 || heads < 1 || heads > MAX_HEADS || c < 1 || r < 1 ||
       n % r != 0 || s_max < 1 || (vec != 1 && vec != 4) ||
-      (vec == 4 && c % 4 != 0) || ((dmask == nullptr) != (dmask_sp == nullptr)))
+      (vec == 4 && c % 4 != 0) ||
+      ((dmask == nullptr) != (dmask_sp == nullptr)) ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const int wpb = THREADS / WARP;
-  const size_t smem = v2_smem(wpb, k, heads);
+  const size_t smem = v2_smem(THREADS / WARP, k, heads);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fxh = static_cast<const float*>(xh);
-  cudaError_t err = launch_acat_dots(fxh, static_cast<const float*>(acat),
-                                     static_cast<float*>(ac), n, heads * c,
-                                     2 * heads, s);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
-#define V2_FWD_ARGS                                                         \
-  fxh, static_cast<const float*>(ac), static_cast<const int*>(loc),         \
-      static_cast<const float*>(el), static_cast<const float*>(el_self),    \
-      static_cast<const float*>(l_spill),                                   \
-      static_cast<const float*>(xh_spill), static_cast<const int*>(dst_loc), \
-      static_cast<const float*>(dmask), static_cast<const float*>(dmask_sp), \
-      static_cast<float*>(out), n, k, heads, c, r, s_max, slope
-  if (vec == 4)
-    v2_fwd_kernel<4><<<blocks, THREADS, smem, s>>>(V2_FWD_ARGS);
-  else
-    v2_fwd_kernel<1><<<blocks, THREADS, smem, s>>>(V2_FWD_ARGS);
-#undef V2_FWD_ARGS
-  return (int)cudaGetLastError();
+  if (dtype == 1)
+    return launch_v2_fwd<bf16>(xh, acat, loc, el, el_self, l_spill, xh_spill,
+                               dst_loc, dmask, dmask_sp, ac, out, n, k, heads,
+                               c, r, s_max, slope, vec, smem, s);
+  return launch_v2_fwd<float>(xh, acat, loc, el, el_self, l_spill, xh_spill,
+                              dst_loc, dmask, dmask_sp, ac, out, n, k, heads,
+                              c, r, s_max, slope, vec, smem, s);
 }
 
 extern "C" const char* ell_gat_v2_fwd_error_string(int err) {

@@ -16,29 +16,44 @@
 // registers from kernel C''s per-slot coefficients instead of read from
 // ct, is the source-side half of kernel C' (ell_gat_bwd.cu).
 //
+// The cotangent is read as float or bf16 (the bf16 model's spill-row
+// gathers, whose cotangent JAX casts to the gathered table's dtype) and
+// summed in f32; out is f32 (the caller casts it to the table's dtype, as
+// JAX's gather backward does).
+//
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 non-tensor):
 // it reads each live row of ct once, perm and row_ptr once, and writes out
 // once, one add per element read: bound by bytes. Segments are short (a
 // k-NN source appears in ~K slots), the rows are gathered in sorted
-// order, and the warp's lanes load 16 bytes each.
+// order, and the warp's lanes load 16 bytes each (8 for bf16).
 
 #include "segment_reduce.cuh"
 
-// Mode (a). ct [S, f] f32; perm [>= row_ptr[n]] int32; row_ptr [n + 1]
-// int32; out [n, f] f32, overwritten. vec 4 needs f % 4 == 0 and 16-byte
-// aligned ct and out (checked by the caller). Launches on `stream`;
-// returns the CUDA error code of the launch.
-extern "C" int segment_reduce_sorted(const void* ct, const void* perm,
-                                     const void* row_ptr, void* out,
-                                     long long n, int f, int vec,
+// Mode (a). dtype: 0 = float32, 1 = bfloat16 (ct). ct [S, f]; perm
+// [>= row_ptr[n]] int32; row_ptr [n + 1] int32; out [n, f] f32,
+// overwritten. vec 4 needs f % 4 == 0 and 16-byte aligned ct and out
+// (checked by the caller). Launches on `stream`; returns the CUDA error
+// code of the launch.
+extern "C" int segment_reduce_sorted(int dtype, const void* ct,
+                                     const void* perm, const void* row_ptr,
+                                     void* out, long long n, int f, int vec,
                                      void* stream) {
-  if (n < 1 || f < 1 || (vec != 1 && vec != 4) || (vec == 4 && f % 4 != 0))
+  if (n < 1 || f < 1 || (vec != 1 && vec != 4) || (vec == 4 && f % 4 != 0) ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const segred::RowsCT rows{static_cast<const float*>(ct), f};
-  return (int)segred::launch_reduce<false>(
-      rows, static_cast<const int*>(perm), static_cast<const int*>(row_ptr),
-      static_cast<float*>(out), n, f, vec,
-      static_cast<cudaStream_t>(stream));
+  const int* p = static_cast<const int*>(perm);
+  const int* rp = static_cast<const int*>(row_ptr);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const segred::RowsCT<ellgat::bf16> rows{
+        static_cast<const ellgat::bf16*>(ct), f};
+    return (int)segred::launch_reduce<false>(rows, p, rp, nullptr, o, n, f,
+                                             vec, s);
+  }
+  const segred::RowsCT<float> rows{static_cast<const float*>(ct), f};
+  return (int)segred::launch_reduce<false>(rows, p, rp, nullptr, o, n, f,
+                                           vec, s);
 }
 
 // Mode (b) on its own (kernel C' launches it after its own kernel, adding
@@ -56,14 +71,14 @@ extern "C" int segment_reduce_gat_rows(const void* alpha, const void* dl,
   if (n < 1 || k < 1 || heads < 1 || c < 1 || (vec != 1 && vec != 4) ||
       (vec == 4 && c % 4 != 0))
     return (int)cudaErrorInvalidValue;
-  const segred::RowsGAT rows{static_cast<const float*>(alpha),
-                             static_cast<const float*>(dl),
-                             static_cast<const float*>(dy),
-                             static_cast<const float*>(att_src), k, heads,
-                             c};
+  const segred::RowsGAT<float> rows{static_cast<const float*>(alpha),
+                                    static_cast<const float*>(dl),
+                                    static_cast<const float*>(dy),
+                                    static_cast<const float*>(att_src),
+                                    nullptr, k, heads, c};
   return (int)segred::launch_reduce<false>(
       rows, static_cast<const int*>(perm), static_cast<const int*>(row_ptr),
-      static_cast<float*>(out), n, heads * c, vec,
+      nullptr, static_cast<float*>(out), n, heads * c, vec,
       static_cast<cudaStream_t>(stream));
 }
 

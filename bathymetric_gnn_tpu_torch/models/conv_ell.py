@@ -17,9 +17,15 @@ parameter names and shapes (``lin_src`` [F, HC], ``att_src`` /
   ``ops/cuda/ell_gat_fused`` (kernel C, and C' as its backward), which
   also adds the bias and applies the node mask; it needs no band layout.
   Routes D (``wide_kernel=False``: kernels D and D') and E (JAX
-  ``sparse_kernel="banded"``: kernel E and the spill fold) run in
-  ``ops/cuda/ell_gat_banded`` on the band/spill decomposition
-  (``ops/ell_banded.band_ell``) passed as ``banded``.
+  ``sparse_kernel="banded"``: kernel E and the spill fold when serving,
+  the JAX route's plain band part and spill pass when a gradient is
+  wanted) run in ``ops/cuda/ell_gat_banded`` on the band/spill
+  decomposition (``ops/ell_banded.band_ell``) passed as ``banded``.
+
+``compute_dtype="bfloat16"`` (the JAX module's): x @ W runs on bf16
+operands with a bf16 result, the kernels take their bf16 forms, and the
+layer's output is bf16 on routes C and D and f32 on route E (its spill
+fold works in f32), the bias added in the output's dtype, as in JAX.
 
 On the card the kernels run, on the CPU their plain versions. The GCN,
 GraphSAGE and GIN ELL layers of the JAX module are not ported.
@@ -34,7 +40,9 @@ from torch import nn
 
 from ..ops.cuda import ell_gat_banded, ell_gat_fused
 from ..ops.ell import EllTrainGraph
-from ..ops.ell_banded import NEG_BIG, banded_gat_spill_pass_flat
+from ..ops.ell_banded import (NEG_BIG, banded_gat_band_part_xla,
+                              banded_gat_spill_pass,
+                              banded_gat_spill_pass_flat)
 from .grid_gat import _glorot
 from .layers import keep_mask
 
@@ -42,13 +50,7 @@ BANDED_DROPOUT_NEEDS_FUSED = (
     "attention dropout on the banded path needs the fused kernel "
     "(use_pallas=True, spill_in_kernel=True); train with GATConvELL "
     "otherwise (same parameters)")
-BANDED_E_NO_BACKWARD = (
-    "the banded band/spill route (use_pallas=False or "
-    "spill_in_kernel=False: kernel E and the spill fold) serves only: kernel "
-    "E has no backward in the JAX package either, and training on it is not "
-    "ported (ROADMAP.md queue 3, 'banded training'); call it under "
-    "torch.no_grad(), or train with use_pallas=True "
-    "(sparse_kernel='banded_pallas')")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def make_ell_dropout_mask(generator: torch.Generator, p: float, n: int,
@@ -97,8 +99,13 @@ class _EllGATParams(nn.Module):
                  edge_dim: Optional[int] = None, add_self_loops: bool = True,
                  use_bias: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: str = "float32"):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or "
+                             "bfloat16")
+        self.compute_dtype = compute_dtype
+        self.cd = COMPUTE_DTYPES[compute_dtype]
         self.heads, self.out_channels = heads, out_channels
         self.concat = concat
         self.dropout = dropout
@@ -139,11 +146,12 @@ class _EllGATParams(nn.Module):
 
     def _finish(self, out: torch.Tensor,
                 node_mask: torch.Tensor) -> torch.Tensor:
-        """[N, heads, C] -> concat or head mean, + bias, node mask."""
+        """[N, heads, C] -> concat or head mean, + bias (in the output's
+        dtype, as JAX's ``b.astype(out.dtype)``), node mask."""
         n = out.shape[0]
         out = (out.reshape(n, -1) if self.concat else out.mean(1))
         if self.bias is not None:
-            out = out + self.bias
+            out = out + self.bias.to(out.dtype)
         return torch.where(node_mask[:, None], out, torch.zeros_like(out))
 
 
@@ -189,7 +197,11 @@ class GATConvEllBanded(_EllGATParams):
       backward and streamed attention dropout;
     - E (otherwise; JAX's XLA form when ``use_pallas`` is off): kernel E
       (``ell_gat_band_part``) and the spill fold
-      (``ops/ell_banded.banded_gat_spill_pass_flat``); serving only.
+      (``ops/ell_banded.banded_gat_spill_pass_flat``) when serving; when a
+      gradient is wanted (training, dropout 0), the JAX XLA route's own
+      math (``banded_gat_band_part_xla`` and ``banded_gat_spill_pass``),
+      differentiated by autograd. That is no fallback: the JAX route runs
+      no Pallas kernel there either (kernel E has no VJP).
 
     D and E read the ``banded`` decomposition (``ops/ell_banded.band_ell``
     of the same graph) passed to ``forward``.
@@ -225,7 +237,7 @@ class GATConvEllBanded(_EllGATParams):
         if self.route != "C":
             return self._forward_banded(g, x, dropout_rng, banded)
         h, c = self.heads, self.out_channels
-        xh = x.to(torch.float32) @ self.lin_src             # [N, HC]
+        xh = x.to(self.cd) @ self.lin_src.to(self.cd)        # [N, HC]
         el, el_self = self._edge_terms(g)
         node_mask = g.node_mask.to(torch.bool)
         fold = self.concat or h == 1   # bias and mask fold into the kernel
@@ -253,16 +265,19 @@ class GATConvEllBanded(_EllGATParams):
                       fold_dots: bool = False) -> dict:
         """The inputs of kernels D and E for x [N, F] on g and its
         ``banded`` decomposition, as the JAX module builds them: xh
-        [N, heads, C], the attention dots a_src / a_dst [N, heads] (with
-        ``fold_dots`` as x @ (W . att), the JAX serving form), the
-        block-diagonal a_cat_mat [HC, 2 * heads], el_t [K * heads, N] (the
-        edge logits of banded's static attributes plus the NEG_BIG mask of
-        dead and spilled slots), el_self_t [heads, N] or None, m_edge
-        [edge_dim, heads] or None."""
+        [N, heads, C] (in the compute dtype), the attention dots a_src /
+        a_dst [N, heads] (f32; with ``fold_dots`` as x @ (W . att), the JAX
+        serving form), the block-diagonal a_cat_mat [HC, 2 * heads], el_t
+        [K * heads, N] (the edge logits of banded's static attributes plus
+        the NEG_BIG mask of dead and spilled slots, the mask in x's dtype
+        as JAX casts it), el_self_t [heads, N] or None, m_edge [edge_dim,
+        heads] or None. Mixed products compute as jnp promotes them: in
+        f32, from the bf16 values."""
         h, c = self.heads, self.out_channels
         n, k = g.nbr_src.shape
+        x_dtype = x.dtype
         x = x.to(torch.float32)
-        xh2 = x @ self.lin_src                                # [N, HC]
+        xh2 = x.to(self.cd) @ self.lin_src.to(self.cd)        # [N, HC]
         if fold_dots:
             w3 = self.lin_src.reshape(x.shape[-1], h, c)
             a_src = x @ torch.einsum("fhc,hc->fh", w3,
@@ -270,7 +285,7 @@ class GATConvEllBanded(_EllGATParams):
             a_dst = x @ torch.einsum("fhc,hc->fh", w3,
                                      self.att_dst.reshape(h, c))
         else:
-            x3 = xh2.reshape(n, h, c)
+            x3 = xh2.reshape(n, h, c).to(torch.float32)
             a_src = (x3 * self.att_src).sum(-1)               # [N, H]
             a_dst = (x3 * self.att_dst).sum(-1)
         m_edge = None
@@ -279,20 +294,20 @@ class GATConvEllBanded(_EllGATParams):
                 "fac,ac->fa", self.lin_edge.reshape(self.edge_dim, h, c),
                 self.att_edge.reshape(h, c))
         if banded.negmask_t.shape[0] == k * h:
-            negmask_t = banded.negmask_t
+            negmask_t = banded.negmask_t.to(x_dtype)
         else:  # banded built for another head count: rebuild
             negmask_t = torch.where(
                 banded.loc_t < 0, torch.full_like(banded.loc_t, NEG_BIG,
                                                   dtype=torch.float32),
                 torch.zeros_like(banded.loc_t, dtype=torch.float32)
-            ).repeat_interleave(h, dim=0)
+            ).repeat_interleave(h, dim=0).to(x_dtype)
         if m_edge is not None:
             el_t = torch.einsum("kfn,fh->khn", banded.eattr_t, m_edge
                                 ).reshape(k * h, n) + negmask_t
             el_self_t = (m_edge.T @ banded.mean_attr_t
                          if self.add_self_loops else None)
         else:
-            el_t = negmask_t
+            el_t = negmask_t.to(torch.float32)
             el_self_t = (torch.zeros(h, n, device=x.device)
                          if self.add_self_loops else None)
         col_head = torch.arange(h * c, device=x.device)[:, None] // c
@@ -313,13 +328,14 @@ class GATConvEllBanded(_EllGATParams):
                 "sparse_kernel=banded* needs the BandedEll structure "
                 "(pass banded=band_ell(g))")
         route = self.route
-        if route == "E" and self._grad_wanted():
-            raise NotImplementedError(BANDED_E_NO_BACKWARD)
         h, c = self.heads, self.out_channels
         n, k = g.nbr_src.shape
         # serving on route D folds W into the attention dots, as JAX does
         kw = self.banded_inputs(g, banded, x,
                                 fold_dots=route == "D" and not self.training)
+        if route == "E" and self._grad_wanted():
+            return self._finish(self._xla_band_spill(g, banded, kw),
+                                g.node_mask.to(torch.bool))
         if route == "D":
             rng = self._dropout_rng(dropout_rng)
             masks = None if rng is None else make_banded_dropout_masks(
@@ -338,6 +354,29 @@ class GATConvEllBanded(_EllGATParams):
                 banded, heads=h, negative_slope=self.negative_slope)
         return self._finish(out2.reshape(n, h, c),
                             g.node_mask.to(torch.bool))
+
+    def _xla_band_spill(self, g, banded, kw) -> torch.Tensor:
+        """Route E when a gradient is wanted: the JAX XLA route
+        (``conv_ell.py:336-352``), the band part over the in-band slots
+        then the spill pass, in plain torch that autograd differentiates;
+        returns [N, heads, C] f32."""
+        n, k = g.nbr_src.shape
+        h = self.heads
+        m_edge = kw["m_edge"]
+        if m_edge is not None:
+            el_e = g.edge_attr @ m_edge                       # [N, K, H]
+            el_self = (banded.mean_attr_t.T @ m_edge
+                       if self.add_self_loops else None)
+        else:
+            el_e = torch.zeros(n, k, h, device=g.nbr_src.device)
+            el_self = (torch.zeros(n, h, device=g.nbr_src.device)
+                       if self.add_self_loops else None)
+        y, m, denom = banded_gat_band_part_xla(
+            kw["xh"], kw["a_src"], kw["a_dst"], el_e, el_self, banded,
+            negative_slope=self.negative_slope)
+        return banded_gat_spill_pass(
+            y, m, denom, kw["xh"], kw["a_src"], kw["a_dst"], m_edge, banded,
+            negative_slope=self.negative_slope)
 
     def _dropout_rng(self, dropout_rng):
         """The generator of the attention dropout, or None without it."""

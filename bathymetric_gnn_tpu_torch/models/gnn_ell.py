@@ -10,8 +10,10 @@ JAX model does: ``"xla"`` the plain ``GATConvELL`` (serving only);
 ``"banded_pallas"`` ``GATConvEllBanded(use_pallas=True)``, whose attention
 runs in kernel C and, when training, kernel C' (or, with ``wide_kernel``
 switched off on its layers, kernels D and D'); ``"banded"``
-``GATConvEllBanded(use_pallas=False)``, kernel E and the spill fold
-(serving only). The banded routes but C read the ``banded`` decomposition
+``GATConvEllBanded(use_pallas=False)``, kernel E and the spill fold when
+serving, the JAX XLA route's plain math when training (dropout 0, as
+JAX's layer refuses attention dropout there). The banded routes but C read
+the ``banded`` decomposition
 (``ops/ell_banded.band_ell`` of the graph) passed to ``forward``, and
 raise the JAX model's ValueError without it. In training mode the
 BatchNorms normalize with the masked moments of the batch's live nodes
@@ -19,7 +21,11 @@ and update their running statistics, and ``dropout`` applies to the
 extractor, the attention weights, the BatchNorm output of every layer but
 the last (fused with its ReLU) and the heads, drawing from the
 ``dropout_rng`` passed to ``forward``, as the port's grid model does.
-Only GAT is ported.
+``compute_dtype="bfloat16"`` (the JAX models' flag; no CLI or trainer sets
+it, in either package) runs the banded GAT layers in their bf16 forms: a
+bf16 layer output reaches its BatchNorm, which then computes in f32 and
+returns bf16, and a bf16 activation reaching the heads is cast to f32
+first, as jnp promotes bf16 @ f32. Only GAT is ported.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ class EllGNNBackbone(nn.Module):
                  num_layers: int, gnn_type: str = "GAT", heads: int = 4,
                  edge_dim: Optional[int] = None, sparse_kernel: str = "xla",
                  generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: str = "float32"):
         super().__init__()
         if gnn_type != "GAT":
             raise NotImplementedError(NON_GAT_NOT_PORTED.format(gnn_type))
@@ -58,7 +64,8 @@ class EllGNNBackbone(nn.Module):
             conv, kw = GATConvELL, {}
         else:
             conv = GATConvEllBanded
-            kw = dict(use_pallas=sparse_kernel == "banded_pallas")
+            kw = dict(use_pallas=sparse_kernel == "banded_pallas",
+                      compute_dtype=compute_dtype)
         self.num_layers = num_layers
         self.dropout = dropout
         width = in_channels
@@ -102,7 +109,7 @@ class EllBathymetricGNN(nn.Module):
                  feature_extractor_layers: int = 2,
                  edge_dim: Optional[int] = 3, sparse_kernel: str = "xla",
                  generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: str = "float32"):
         super().__init__()
         self.predict_correction = predict_correction
         self.MLPFeatureExtractor_0 = MLPFeatureExtractor(
@@ -111,7 +118,8 @@ class EllBathymetricGNN(nn.Module):
         self.GNNBackbone_0 = EllGNNBackbone(
             hidden_channels, hidden_channels, num_layers, gnn_type, heads,
             edge_dim=edge_dim, sparse_kernel=sparse_kernel,
-            generator=generator, dropout=dropout)
+            generator=generator, dropout=dropout,
+            compute_dtype=compute_dtype)
         self.ClassificationHead_0 = ClassificationHead(
             hidden_channels, num_classes, generator, dropout)
         self.ConfidenceHead_0 = ConfidenceHead(hidden_channels, generator,
@@ -127,7 +135,7 @@ class EllBathymetricGNN(nn.Module):
         (needed when ``dropout`` > 0); ``banded``: g's ``BandedEll`` of
         tensors, for the banded routes that read it."""
         x = self.MLPFeatureExtractor_0(g.x.to(torch.float32), dropout_rng)
-        x = self.GNNBackbone_0(g, x, dropout_rng, banded)
+        x = self.GNNBackbone_0(g, x, dropout_rng, banded).to(torch.float32)
         logits = self.ClassificationHead_0(x, dropout_rng)
         out = {
             "class_logits": logits,
@@ -142,10 +150,11 @@ class EllBathymetricGNN(nn.Module):
 
 def make_ell_model(model_cfg, in_channels: int, edge_dim: int = 3,
                    sparse_kernel: str = "xla", dropout: float = 0.0,
-                   generator: Optional[torch.Generator] = None
-                   ) -> EllBathymetricGNN:
+                   generator: Optional[torch.Generator] = None,
+                   compute_dtype: str = "float32") -> EllBathymetricGNN:
     """The ELL model of ``model_cfg``'s widths; ``dropout`` is the
-    training model's (the JAX config's ``model.dropout``), 0 to serve."""
+    training model's (the JAX config's ``model.dropout``), 0 to serve;
+    ``compute_dtype`` the JAX function's ("float32" or "bfloat16")."""
     return EllBathymetricGNN(
         in_channels=in_channels,
         hidden_channels=model_cfg.hidden_channels,
@@ -159,4 +168,5 @@ def make_ell_model(model_cfg, in_channels: int, edge_dim: int = 3,
         sparse_kernel=sparse_kernel,
         generator=generator,
         dropout=dropout,
+        compute_dtype=compute_dtype,
     )

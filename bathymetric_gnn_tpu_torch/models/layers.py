@@ -136,19 +136,29 @@ class MaskedBatchNorm(nn.Module):
         masked batch moments and updates the running stats; eval mode
         uses the running stats. ``fuse_relu`` and the feature-dropout keep
         mask ``keep`` [N, F] (with ``keep_prob`` < 1) apply the layer's
-        activation and dropout in the same pass. A bf16 ``x`` in training
-        mode takes ``_BnLowp`` and returns bf16; everything else computes
-        and returns f32."""
+        activation and dropout in the same pass. A bf16 ``x`` returns bf16:
+        in training mode through ``_BnLowp``, in eval mode through the JAX
+        module's affine-folded pass (x32 * g2 + b2, g2 = rsqrt(var + eps) *
+        scale, b2 = bias - mean * g2, computed in f32). An f32 ``x``
+        computes and returns f32."""
         if keep_prob < 1.0 and keep is None:
             raise ValueError("keep_prob < 1 needs a keep mask")
-        if self.training and x.dtype != torch.float32:
-            mask_f = mask.to(torch.float32)
-            y, mean, var = _BnLowp.apply(x, mask_f, self.scale, self.bias,
-                                         keep, self.eps, fuse_relu,
-                                         keep_prob)
-            self._update_running(mean, var, mask_f.sum().clamp_min(1.0))
-            return y
-        x = x.to(torch.float32)
+        if x.dtype != torch.float32:
+            if self.training:
+                mask_f = mask.to(torch.float32)
+                y, mean, var = _BnLowp.apply(x, mask_f, self.scale,
+                                             self.bias, keep, self.eps,
+                                             fuse_relu, keep_prob)
+                self._update_running(mean, var, mask_f.sum().clamp_min(1.0))
+                return y
+            g2 = torch.rsqrt(self.var + self.eps) * self.scale
+            y = x.to(torch.float32) * g2 + (self.bias - self.mean * g2)
+            if fuse_relu:
+                y = torch.relu(y)
+            if keep_prob < 1.0:
+                y = torch.where(keep, y / keep_prob, torch.zeros_like(y))
+            return torch.where(mask[:, None], y, torch.zeros_like(y)
+                               ).to(x.dtype)
         if self.training:
             m = mask.to(torch.float32)[:, None]
             n = m.sum().clamp_min(1.0)

@@ -32,7 +32,8 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
 # the dropout arguments of the layer entries: mode, dmask, seed pointer,
-# threshold, 1 / keep
+# threshold, 1 / keep. The ELL entries and kernel F's mode (a) take a dtype
+# code first (grid_gat_fused._DTYPE_CODE), as grid_gat_fwd does.
 _DROP = [_I, _VP, _VP, _U, _F]
 # name -> (source file, {C function: (restype, argtypes)})
 KERNELS: Dict[str, tuple] = {
@@ -48,34 +49,36 @@ KERNELS: Dict[str, tuple] = {
         "grid_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_fwd": ("ell_gat_fwd.cu", {
-        "ell_gat_fwd": (_I, [_VP] * 10 + [_LL, _I, _I, _I, _F, _I, _I]
-                        + _DROP + [_VP]),
+        "ell_gat_fwd": (_I, [_I] + [_VP] * 10
+                        + [_LL, _I, _I, _I, _F, _I, _I] + _DROP + [_VP]),
         "ell_gat_drop_mask": (_I, [_VP, _VP, _U, _F, _LL, _I, _I, _VP]),
         "ell_gat_fwd_warps_per_block": (_I, [_I, _I]),
         "ell_gat_fwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_bwd": ("ell_gat_bwd.cu", {
-        "ell_gat_bwd": (_I, [_VP] * 8 + _DROP + [_VP] * 8
+        "ell_gat_bwd": (_I, [_I] + [_VP] * 8 + _DROP + [_VP] * 10
                         + [_LL, _I, _I, _I, _F, _I, _I, _I, _VP]),
         "ell_gat_bwd_warps_per_block": (_I, [_I, _I, _I]),
         "ell_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_band": ("ell_gat_band.cu", {
-        "ell_gat_band": (_I, [_VP] * 9 + [_LL] + [_I] * 4 + [_F, _I, _VP]),
+        "ell_gat_band": (_I, [_I] + [_VP] * 9 + [_LL] + [_I] * 4
+                         + [_F, _I, _VP]),
         "ell_gat_band_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_v2_fwd": ("ell_gat_v2_fwd.cu", {
-        "ell_gat_v2_fwd": (_I, [_VP] * 12 + [_LL] + [_I] * 5
+        "ell_gat_v2_fwd": (_I, [_I] + [_VP] * 12 + [_LL] + [_I] * 5
                            + [_F, _I, _VP]),
         "ell_gat_v2_fwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_v2_bwd": ("ell_gat_v2_bwd.cu", {
-        "ell_gat_v2_bwd": (_I, [_VP] * 24 + [_LL] + [_I] * 5
+        "ell_gat_v2_bwd": (_I, [_I] + [_VP] * 24 + [_LL] + [_I] * 5
                            + [_F, _I, _I, _VP]),
         "ell_gat_v2_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "segment_reduce": ("segment_reduce.cu", {
-        "segment_reduce_sorted": (_I, [_VP] * 4 + [_LL, _I, _I, _VP]),
+        "segment_reduce_sorted": (_I, [_I] + [_VP] * 4
+                                  + [_LL, _I, _I, _VP]),
         "segment_reduce_gat_rows": (_I, [_VP] * 7 + [_LL, _I, _I, _I, _I,
                                                       _VP]),
         "segment_reduce_error_string": (ctypes.c_char_p, [_I]),

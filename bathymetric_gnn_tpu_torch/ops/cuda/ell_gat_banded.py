@@ -3,7 +3,8 @@
 and their plain versions.
 
 Counterpart of the older entries of
-``bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py``, f32:
+``bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py``, f32 and bf16 (the JAX
+``compute_dtype``, picked by the dtype of ``xh``):
 - ``ell_gat_band_part`` (``ell_gat_band_part_pallas``, the Pallas
   ``_kernel``): the softmax over each row's in-band slots and self loop,
   returning the UNNORMALIZED weighted sum y [N, HC] and the row statistics
@@ -18,6 +19,14 @@ Counterpart of the older entries of
   applied to the weights, the output normalized. The spill rows and their
   logits are gathered here in torch, through ``gather_rows_reduce_bwd``
   (kernel F mode (a) as their backward).
+
+In the bf16 form xh, a_cat_mat (rounded to bf16, the JAX wrappers'
+``a_cat_mat.astype(cd)``) and the spill rows (gathered from the bf16 xh)
+stream as bf16, every logit, softmax and sum runs in f32, E returns f32 as
+its TPU kernel does, D returns bf16 with each spill message rounded to
+bf16 before it is added (the TPU kernel's bf16 spill dot), and D' returns
+d xh in bf16 and the rest in f32 (d xh_spill cast to bf16 for its
+gather's backward, kernel F mode (a) on a bf16 cotangent).
 
 The layout is ``ops/ell_banded.band_ell``'s (``loc_t`` [K, N], ``el_t``
 [K * heads, N], ``el_self_t`` [heads, N], per-band spill tables). The
@@ -43,6 +52,7 @@ import torch
 
 from ..ell_banded import (NEG_BIG, gather_rows_reduce_bwd, leaky_relu,
                           window_sources)
+from .grid_gat_fused import _DTYPE_CODE
 
 # Launches in this process of kernel E, kernel D and kernel D'. Only
 # ``call_band_kernel``, ``call_v2_kernel`` and ``call_v2_bwd_kernel`` add to
@@ -63,13 +73,14 @@ def _band_softmax(xh_flat, a_cat_mat, loc_t, el_t, el_self_t, band_rows,
     f32, e = exp(l - m) [N, K, heads], e_self [N, heads] or None, m (held
     constant: no gradient) and the clamped denominator [N, heads], and the
     in-band source rows [N, K, heads, C] (0 where a slot has no source).
-    ``masked``: E's form, slots with no source left out of the softmax."""
+    ``masked``: E's form, slots with no source left out of the softmax.
+    a_cat_mat is rounded to xh's dtype (bf16 in the bf16 form) first."""
     f32 = torch.float32
     n, hc = xh_flat.shape
     heads = a_cat_mat.shape[1] // 2
     k = loc_t.shape[0]
     x = xh_flat.to(f32)
-    ac = x @ a_cat_mat.to(f32)                                # [N, 2H]
+    ac = x @ a_cat_mat.to(xh_flat.dtype).to(f32)              # [N, 2H]
     src, valid = (t.T for t in window_sources(loc_t, band_rows))
     a_src, a_dst = ac[:, :heads], ac[:, heads:]
     g = a_src[src.reshape(-1)].reshape(n, k, heads)
@@ -106,7 +117,7 @@ def band_part_reference(xh, a_cat_mat, el_t, el_self_t, banded,
     ([att_src | att_dst] as a block-diagonal matrix, or any); el_t
     [K * heads, N]; el_self_t [heads, N] or None (no self loop); banded a
     BandedEll of tensors. Returns (y [N, HC] unnormalized, m [N, heads],
-    denom [N, heads]), f32."""
+    denom [N, heads]), f32 (also for a bf16 xh)."""
     n, heads, c = xh.shape
     x, e, e_self, m, den, nbr = _band_softmax(
         xh.reshape(n, heads * c), a_cat_mat, banded.loc_t, el_t, el_self_t,
@@ -153,9 +164,12 @@ def _v2_plain(xh_flat, a_cat_mat, loc_t, el_t, el_self_t, l_spill_b,
     [K * heads, N], el_self_t [heads, N] or None, l_spill_b [T, heads, S],
     xh_spill_b [T, S, HC], dst_loc_b [T, 1, S] int (row in the band, -1
     dead), dmask_t [(K+1) * heads, N] and dmask_sp_b [T, heads, S] or
-    None. Returns out [N, HC] f32. As in D', m is a constant and the spill
-    exponent's clamp passes the gradient of the unclamped exp."""
+    None. Returns out [N, HC] in xh_flat's dtype (a bf16 form rounds each
+    spill message to bf16 before it is summed). As in D', m is a constant
+    and the spill exponent's clamp passes the gradient of the unclamped
+    exp."""
     f32 = torch.float32
+    cd = xh_flat.dtype
     n, hc = xh_flat.shape
     heads = a_cat_mat.shape[1] // 2
     k = loc_t.shape[0]
@@ -183,8 +197,10 @@ def _v2_plain(xh_flat, a_cat_mat, loc_t, el_t, el_self_t, l_spill_b,
     if w_self is not None:
         y = y + x.reshape(n, heads, -1) * w_self[..., None]
     msg = xh_spill_b.to(f32).reshape(-1, heads, hc // heads) * w_s[..., None]
+    if cd != f32:
+        msg = msg.to(cd).to(f32)
     y = y + torch.zeros_like(y).index_add_(0, rows, msg)
-    return (y / den[..., None]).reshape(n, hc)
+    return (y / den[..., None]).reshape(n, hc).to(cd)
 
 
 def fused_v2_reference(xh, a_src, a_dst, a_cat_mat, el_t, el_self_t,
@@ -192,8 +208,8 @@ def fused_v2_reference(xh, a_src, a_dst, a_cat_mat, el_t, el_self_t,
                        dropout_masks=None):
     """Plain PyTorch version of kernel D, with the signature of
     ``ell_gat_fused_v2`` (its spill gathers plain row gathers too);
-    through autograd, the plain version of kernel D'. Returns [N, HC]
-    f32."""
+    through autograd, the plain version of kernel D'. Returns [N, HC] in
+    xh's dtype."""
     n, heads, c = xh.shape
     xh_flat = xh.reshape(n, heads * c)
     l_spill_b, xh_spill_b = _spill_inputs(xh_flat, a_src, a_dst, m_edge,
@@ -222,8 +238,9 @@ def ell_gat_band_part(xh, a_cat_mat, el_t, el_self_t, banded,
     ``ell_gat_band_part_pallas``): xh [N, heads, C]; a_cat_mat [HC,
     2 * heads]; el_t [K * heads, N]; el_self_t [heads, N] or None;
     ``banded`` an ``ops/ell_banded.BandedEll`` of tensors. Returns (y
-    [N, HC] unnormalized, m [N, heads], denom [N, heads]), f32. A CUDA
-    ``xh`` launches kernel E, a CPU ``xh`` runs the plain version."""
+    [N, HC] unnormalized, m [N, heads], denom [N, heads]), f32 for a
+    float32 or a bf16 xh. A CUDA ``xh`` launches kernel E, a CPU ``xh`` runs
+    the plain version."""
     _no_grad_wanted((xh, a_cat_mat, el_t, el_self_t), "ell_gat_band_part")
     if xh.device.type == "cuda":
         n, heads, c = xh.shape
@@ -247,7 +264,8 @@ def ell_gat_fused_v2(xh, a_src, a_dst, a_cat_mat, el_t, el_self_t, m_edge,
     (NEG_BIG in dead and spilled slots); el_self_t [heads, N] or None;
     m_edge [Fe, heads] or None; ``banded`` a BandedEll of tensors;
     ``dropout_masks`` None or ([(K+1) * heads, N], [T, heads, S]) weight
-    multipliers. Returns the normalized output [N, HC] f32.
+    multipliers. Returns the normalized output [N, HC] in xh's dtype
+    (float32 or bfloat16; the spill rows are gathered in it).
 
     The spill rows and the spill logits are gathered here in torch, the
     gathers' backward kernel F mode (a) over the BandedEll's sorted tables
@@ -304,8 +322,9 @@ class _FusedV2(torch.autograd.Function):
             kw["dmask_sp"], band_perm.to(torch.int32).contiguous(),
             band_row_ptr.to(torch.int32).contiguous())
         ctx.kw = {name: kw[name] for name in (
-            "n", "k", "heads", "c", "r", "s_max", "negative_slope")}
+            "n", "k", "heads", "c", "r", "s_max", "negative_slope", "dtype")}
         ctx.has_self = el_self_t is not None
+        ctx.spill_dtype = xh_spill_b.dtype
         return out
 
     @staticmethod
@@ -315,11 +334,11 @@ class _FusedV2(torch.autograd.Function):
         dxh, dacat, del_t, del_self, dl_spill, dxh_spill = call_v2_bwd_kernel(
             xh=xh, acat=acat, loc=loc, el=el, el_self=el_self,
             l_spill=l_spill, xh_spill=xh_spill, dst_loc=dst_loc,
-            dmask=dmask, dmask_sp=dmask_sp, dout=g.to(torch.float32)
-            .contiguous(), perm=perm, row_ptr=row_ptr, **ctx.kw)
+            dmask=dmask, dmask_sp=dmask_sp, dout=g.to(xh.dtype).contiguous(),
+            perm=perm, row_ptr=row_ptr, **ctx.kw)
         return (dxh, dacat, del_t, del_self if ctx.has_self else None,
-                dl_spill, dxh_spill, None, None, None, None, None, None,
-                None)
+                dl_spill, dxh_spill.to(ctx.spill_dtype), None, None, None,
+                None, None, None, None)
 
 
 def _check(cond: bool, msg: str):
@@ -336,15 +355,17 @@ def kernel_args(xh_flat, a_cat_mat, loc_t, el_t, el_self_t=None,
                 dmask_t=None, dmask_sp_b=None, *, band_rows: int,
                 negative_slope: float = 0.2) -> dict:
     """Check a CUDA call and prepare the inputs of kernel E (without the
-    spill arguments) or kernels D and D' (with them): f32 and int32
-    contiguous tensors and the sizes. Raises ValueError on anything the
-    kernels do not take."""
+    spill arguments) or kernels D and D' (with them): contiguous tensors
+    (xh, a_cat_mat and the spill rows in xh's dtype, float32 or bfloat16;
+    the other floats f32; indices int32) and the sizes. Raises ValueError
+    on anything the kernels do not take."""
     f32 = torch.float32
     _check(xh_flat.dim() == 2, f"xh must be [N, HC], got "
            f"{tuple(xh_flat.shape)}")
     n, hc = xh_flat.shape
-    _check(xh_flat.dtype == f32, f"xh dtype {xh_flat.dtype}: the kernels "
-           "take float32 only (the bf16 forms are still to port)")
+    _check(xh_flat.dtype in _DTYPE_CODE, f"xh dtype {xh_flat.dtype}: the "
+           "kernels take float32 or bfloat16")
+    cd = xh_flat.dtype
     _check(a_cat_mat.dim() == 2 and a_cat_mat.shape[0] == hc
            and a_cat_mat.shape[1] % 2 == 0,
            f"a_cat_mat {tuple(a_cat_mat.shape)} vs HC={hc}")
@@ -370,17 +391,20 @@ def kernel_args(xh_flat, a_cat_mat, loc_t, el_t, el_self_t=None,
     _check(all(t.device == xh_flat.device for t in tensors),
            "all inputs must be on the device of xh")
     _check(all(t.dtype == f32 for t in (a_cat_mat, el_t, el_self_t,
-                                        l_spill_b, xh_spill_b, dmask_t,
-                                        dmask_sp_b) if t is not None),
-           "the float inputs must be float32")
+                                        l_spill_b, dmask_t, dmask_sp_b)
+               if t is not None), "a_cat_mat, el_t, el_self_t, l_spill_b "
+           "and the dropout masks must be float32")
+    _check(xh_spill_b is None or xh_spill_b.dtype == cd,
+           "xh_spill_b must have xh's dtype")
 
     def cf(t):
         return None if t is None else t.to(f32).contiguous()
 
-    kw = dict(xh=xh_flat.contiguous(), acat=cf(a_cat_mat),
+    kw = dict(xh=xh_flat.contiguous(), acat=a_cat_mat.to(cd).contiguous(),
               loc=loc_t.to(torch.int32).contiguous(), el=cf(el_t),
               el_self=cf(el_self_t), n=n, k=k, heads=heads, c=hc // heads,
-              r=r, negative_slope=float(negative_slope))
+              r=r, negative_slope=float(negative_slope),
+              dtype=_DTYPE_CODE[cd])
     vec_ts = [kw["xh"]]
     if l_spill_b is not None:
         t_count = n // r
@@ -400,7 +424,7 @@ def kernel_args(xh_flat, a_cat_mat, loc_t, el_t, el_self_t=None,
                    and tuple(dmask_sp_b.shape) == (t_count, heads, s_max),
                    f"dropout masks {tuple(dmask_t.shape)} / "
                    f"{tuple(dmask_sp_b.shape)}")
-        kw.update(l_spill=cf(l_spill_b), xh_spill=cf(xh_spill_b),
+        kw.update(l_spill=cf(l_spill_b), xh_spill=xh_spill_b.contiguous(),
                   dst_loc=dst_loc_b.to(torch.int32).reshape(
                       t_count, s_max).contiguous(),
                   dmask=cf(dmask_t), dmask_sp=cf(dmask_sp_b), s_max=s_max)
@@ -420,7 +444,7 @@ def _raise(lib, prefix: str, name: str, err: int):
 
 
 def call_band_kernel(*, xh, acat, loc, el, el_self, n, k, heads, c, r,
-                     negative_slope, vec):
+                     negative_slope, vec, dtype):
     """Launch kernel E (its dots and band kernels) on prepared inputs
     (``kernel_args`` without spill arguments) on the current stream;
     returns (y [N, HC], m [N, heads], denom [N, heads]) f32. The only
@@ -436,9 +460,10 @@ def call_band_kernel(*, xh, acat, loc, el, el_self, n, k, heads, c, r,
     lib = library("ell_gat_band")
     with torch.cuda.device(xh.device):
         err = lib.ell_gat_band(
-            xh.data_ptr(), acat.data_ptr(), loc.data_ptr(), el.data_ptr(),
-            _ptr(el_self), ac.data_ptr(), y.data_ptr(), m.data_ptr(),
-            den.data_ptr(), n, k, heads, c, r, negative_slope, vec,
+            dtype, xh.data_ptr(), acat.data_ptr(), loc.data_ptr(),
+            el.data_ptr(), _ptr(el_self), ac.data_ptr(), y.data_ptr(),
+            m.data_ptr(), den.data_ptr(), n, k, heads, c, r, negative_slope,
+            vec,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _raise(lib, "ell_gat_band", "kernel E (ell_gat_band)", err)
@@ -448,22 +473,23 @@ def call_band_kernel(*, xh, acat, loc, el, el_self, n, k, heads, c, r,
 
 def call_v2_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
                    dst_loc, dmask, dmask_sp, n, k, heads, c, r, s_max,
-                   negative_slope, vec):
+                   negative_slope, vec, dtype):
     """Launch kernel D (its dots and row kernels) on prepared inputs
-    (``kernel_args``) on the current stream; returns out [N, HC] f32. The
-    only place that counts ``v2_launches``."""
+    (``kernel_args``) on the current stream; returns out [N, HC] in xh's
+    dtype. The only place that counts ``v2_launches``."""
     global v2_launches
     from ._build import library
 
     ac = torch.empty(n, 2 * heads, device=xh.device, dtype=torch.float32)
-    out = torch.empty(n, heads * c, device=xh.device, dtype=torch.float32)
+    out = torch.empty(n, heads * c, device=xh.device, dtype=xh.dtype)
     lib = library("ell_gat_v2_fwd")
     with torch.cuda.device(xh.device):
         err = lib.ell_gat_v2_fwd(
-            xh.data_ptr(), acat.data_ptr(), loc.data_ptr(), el.data_ptr(),
-            _ptr(el_self), l_spill.data_ptr(), xh_spill.data_ptr(),
-            dst_loc.data_ptr(), _ptr(dmask), _ptr(dmask_sp), ac.data_ptr(),
-            out.data_ptr(), n, k, heads, c, r, s_max, negative_slope, vec,
+            dtype, xh.data_ptr(), acat.data_ptr(), loc.data_ptr(),
+            el.data_ptr(), _ptr(el_self), l_spill.data_ptr(),
+            xh_spill.data_ptr(), dst_loc.data_ptr(), _ptr(dmask),
+            _ptr(dmask_sp), ac.data_ptr(), out.data_ptr(), n, k, heads, c,
+            r, s_max, negative_slope, vec,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _raise(lib, "ell_gat_v2_fwd", "kernel D (ell_gat_v2_fwd)", err)
@@ -473,19 +499,19 @@ def call_v2_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
 
 def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
                        dst_loc, dmask, dmask_sp, dout, perm, row_ptr, n, k,
-                       heads, c, r, s_max, negative_slope):
+                       heads, c, r, s_max, negative_slope, dtype):
     """Launch kernel D' (dots, destination rows, source walk, d acat
     partials) on the inputs kernel D was given (``kernel_args``), the
-    cotangent ``dout`` [N, HC] f32 and the in-band slots' source-sorted
-    tables (int32). Returns (dxh [N, HC], d acat [HC, 2 * heads], d el_t
-    [K * heads, N], d el_self_t [heads, N] or None, d l_spill [T, heads,
-    S], d xh_spill [T, S, HC]), f32. The only place that counts
-    ``v2_bwd_launches``."""
+    cotangent ``dout`` [N, HC] in xh's dtype and the in-band slots'
+    source-sorted tables (int32). Returns (dxh [N, HC] in xh's dtype,
+    d acat [HC, 2 * heads], d el_t [K * heads, N], d el_self_t [heads, N]
+    or None, d l_spill [T, heads, S], d xh_spill [T, S, HC]), f32 but dxh.
+    The only place that counts ``v2_bwd_launches``."""
     global v2_bwd_launches
     from ._build import library
 
     hc = heads * c
-    _check(tuple(dout.shape) == (n, hc) and dout.dtype == torch.float32
+    _check(tuple(dout.shape) == (n, hc) and dout.dtype == xh.dtype
            and dout.is_contiguous(), f"cotangent {tuple(dout.shape)} "
            f"{dout.dtype}")
     t_count = n // r
@@ -496,7 +522,7 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
     dl = torch.empty(n * k, heads, **f32)
     cself = torch.empty(n, heads, **f32)
     dac = torch.empty(n, 2 * heads, **f32)
-    dxh = torch.empty(n, hc, **f32)
+    dxh = torch.empty(n, hc, device=xh.device, dtype=xh.dtype)
     del_t = torch.empty(k * heads, n, **f32)
     del_self = torch.empty(heads, n, **f32) if el_self is not None else None
     # only live spill entries are written
@@ -507,9 +533,10 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
     lib = library("ell_gat_v2_bwd")
     with torch.cuda.device(xh.device):
         err = lib.ell_gat_v2_bwd(
-            xh.data_ptr(), acat.data_ptr(), loc.data_ptr(), el.data_ptr(),
-            _ptr(el_self), l_spill.data_ptr(), xh_spill.data_ptr(),
-            dst_loc.data_ptr(), _ptr(dmask), _ptr(dmask_sp), dout.data_ptr(),
+            dtype, xh.data_ptr(), acat.data_ptr(), loc.data_ptr(),
+            el.data_ptr(), _ptr(el_self), l_spill.data_ptr(),
+            xh_spill.data_ptr(), dst_loc.data_ptr(), _ptr(dmask),
+            _ptr(dmask_sp), dout.data_ptr(),
             perm.data_ptr(), row_ptr.data_ptr(), ac.data_ptr(),
             alpha.data_ptr(), dl.data_ptr(), cself.data_ptr(),
             dac.data_ptr(), dxh.data_ptr(), del_t.data_ptr(),

@@ -3,7 +3,7 @@ and their plain versions.
 
 Counterpart of ``bathymetric_gnn_tpu/ops/pallas/ell_gat_fused.py``'s
 ``ell_gat_fused_wide_pallas`` (the Pallas ``_kernel_v3`` and, through its
-custom VJP ``_fused_v3``, ``_bwd_kernel_v3``), f32. One PyG-exact GAT
+custom VJP ``_fused_v3``, ``_bwd_kernel_v3``), f32 and bf16. One PyG-exact GAT
 layer on a destination-major ELL graph: the attention dots of xh, the
 per-slot logits a_src[nbr] + a_dst + el and the self-loop logit, LeakyReLU,
 the masked softmax over the live slots and the self loop, optional
@@ -11,6 +11,12 @@ post-softmax attention dropout, the weighted gather-sum, + bias and the
 node mask. The TPU kernel's band/spill layout exists because a TPU has no
 fast gather; the CUDA kernels read ``nbr_src`` directly, so they take the
 graph as ``ops/ell.coo_to_ell`` packs it.
+
+The dtype of ``xh`` picks the form (the JAX ``compute_dtype``): float32,
+or bfloat16, where xh and the attention vectors are read as bf16 (the JAX
+wrapper's ``a_cat_mat.astype(cd)``) and the output is bf16, while the
+logits, softmax and sums run in f32 and el, el_self, the dropout masks and
+every gradient but d xh stay f32.
 
 Two entries:
 - ``ell_gat_fused``: the serving entry (kernel C, inference form), with no
@@ -35,7 +41,7 @@ import torch
 
 from ..ell import ell_gather, ell_masked_softmax, src_sorted_slots
 from . import segment_reduce
-from .grid_gat_fused import drop_threshold
+from .grid_gat_fused import _DTYPE_CODE, drop_threshold
 
 # Launches in this process: kernel C in its inference form, kernel C in its
 # training form, and kernel C' (whose call also launches kernel F, counted
@@ -63,12 +69,16 @@ def ell_gat_reference(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
     ``self_loop`` turns on; bias [HC] or None; node_mask [N] bool or None;
     dmask [N, K+1, heads] post-softmax dropout multipliers (the self loop
     at slot K; the denominator stays the undropped one) or None.
-    Returns [N, HC] f32.
+    Returns [N, HC] in xh's dtype. For a bf16 xh the attention vectors
+    are rounded to bf16, everything is computed in f32 from the bf16
+    values, the sum is rounded to bf16 and the bias (rounded to bf16) is
+    added in bf16, as the JAX layer adds it to the kernel's bf16 output.
     """
     f32 = torch.float32
+    cd = xh.dtype
     n, hc = xh.shape
-    a_s = att_src.reshape(-1, att_src.shape[-1]).to(f32)
-    a_d = att_dst.reshape(-1, att_dst.shape[-1]).to(f32)
+    a_s = att_src.reshape(-1, att_src.shape[-1]).to(cd).to(f32)
+    a_d = att_dst.reshape(-1, att_dst.shape[-1]).to(cd).to(f32)
     heads, c = a_s.shape
     x3 = xh.to(f32).reshape(n, heads, c)
     a_src = (x3 * a_s).sum(-1)                              # [N, heads]
@@ -100,9 +110,9 @@ def ell_gat_reference(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
     out = (nbr_x * wts[..., None]).sum(1)
     if w_self is not None:
         out = out + x3 * w_self[..., None]
-    out = out.reshape(n, hc)
+    out = out.reshape(n, hc).to(cd)
     if bias is not None:
-        out = out + bias.to(f32)
+        out = out + bias.to(cd)
     if node_mask is not None:
         out = torch.where(node_mask.to(torch.bool)[:, None], out,
                           torch.zeros_like(out))
@@ -113,8 +123,9 @@ def ell_gat_fused(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
                   el_self=None, *, self_loop: bool = True, bias=None,
                   node_mask=None, negative_slope: float = 0.2):
     """Inference GAT layer on an ELL graph (arguments as
-    ``ell_gat_reference``); returns [N, HC] f32. A CUDA ``xh`` launches
-    kernel C, a CPU ``xh`` runs the plain version.
+    ``ell_gat_reference``); returns [N, HC] in xh's dtype (float32 or
+    bfloat16). A CUDA ``xh`` launches kernel C, a CPU ``xh`` runs the plain
+    version.
 
     It has no backward: with grad mode on and an input that requires grad
     it raises (``ell_gat_fused_train`` is the differentiable layer)."""
@@ -142,7 +153,8 @@ def ell_gat_fused_train(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
                         slot_tables=None):
     """Training GAT layer on an ELL graph (arguments as
     ``ell_gat_reference``), differentiable in xh, att_src, att_dst, el,
-    el_self and bias; returns [N, HC] f32.
+    el_self and bias; returns [N, HC] in xh's dtype (float32 or
+    bfloat16).
 
     Attention dropout comes from one of
     - ``dmask`` [N, K+1, heads]: multipliers of the post-softmax weights
@@ -153,7 +165,8 @@ def ell_gat_fused_train(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
       ``dmask``).
 
     CUDA: kernel C (training form) forward and kernel C' backward
-    (``_EllGATFused``), keeping only the layer's inputs between them.
+    (``_EllGATFused``), keeping only the layer's inputs between them; the
+    cotangent streams into C' in xh's dtype and d xh comes back in it.
     ``slot_tables`` = (perm, row_ptr) of ``ops/ell.src_sorted_slots`` on
     the card, over which C' reduces the source side of the gradient; when
     None they are built on the host from ``nbr_src``/``nbr_mask``. CPU:
@@ -213,7 +226,7 @@ class _EllGATFused(torch.autograd.Function):
             row_ptr.to(torch.int32).contiguous())
         ctx.kw = {name: kw[name] for name in (
             "n", "k", "heads", "c", "negative_slope", "has_self",
-            "drop_mode", "thresh", "keep_inv")}
+            "drop_mode", "thresh", "keep_inv", "dtype")}
         ctx.shapes = (att_src.shape, att_dst.shape)
         ctx.has = (el is not None, el_self is not None, bias is not None)
         return out
@@ -225,7 +238,7 @@ class _EllGATFused(torch.autograd.Function):
         dxh, _, dl, del_self, part = call_bwd_kernel(
             xh=xh, att=att, nbr=nbr, nmask=nmask, el=el, el_self=el_self,
             node_mask=node_mask, dmask=dmask, seed=seed, perm=perm,
-            row_ptr=row_ptr, g=g.to(torch.float32).contiguous(), **ctx.kw)
+            row_ptr=row_ptr, g=g.to(xh.dtype).contiguous(), **ctx.kw)
         sums = part.sum(0)                                  # [3, HC]
         has_el, has_self, has_bias = ctx.has
         n, k, heads = ctx.kw["n"], ctx.kw["k"], ctx.kw["heads"]
@@ -274,17 +287,19 @@ def kernel_args(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
                 node_mask=None, negative_slope: float = 0.2, dmask=None,
                 drop_seed=None, keep_prob: float = 1.0,
                 train: bool = False) -> dict:
-    """Check a CUDA call and prepare kernel C's inputs (f32 and int32
-    contiguous tensors, uint8 masks, the attention vectors as one [2, HC]
-    tensor, the dropout arguments). ``train`` marks the training form (it
+    """Check a CUDA call and prepare kernel C's inputs (contiguous
+    tensors: xh, the attention vectors as one [2, HC] tensor and the bias
+    in xh's dtype, el, el_self and the mask f32, indices int32, uint8
+    masks; the dropout arguments). ``train`` marks the training form (it
     counts in ``train_launches``). Raises ValueError on anything the
     kernel does not take."""
     f32 = torch.float32
     _check(xh.dim() == 2, f"xh must be [N, HC], got {tuple(xh.shape)}")
     n, hc = xh.shape
     heads, c = att_src.shape[-2], att_src.shape[-1]
-    _check(xh.dtype == f32, f"xh dtype {xh.dtype}: the kernel takes float32 "
-           "only (the bf16 form is still to port)")
+    _check(xh.dtype in _DTYPE_CODE, f"xh dtype {xh.dtype}: the kernel takes "
+           "float32 or bfloat16")
+    cd = xh.dtype
     _check(1 <= heads <= _MAX_HEADS, f"heads={heads} not in 1..{_MAX_HEADS}")
     _check(heads * c == hc, f"att {tuple(att_src.shape)} vs HC={hc}")
     _check(att_dst.numel() == hc, f"att_dst {tuple(att_dst.shape)}")
@@ -341,14 +356,15 @@ def kernel_args(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
     kw = dict(
         xh=xh.contiguous(),
         att=torch.cat([att_src.reshape(1, hc), att_dst.reshape(1, hc)]
-                      ).to(f32).contiguous(),
+                      ).to(cd).contiguous(),
         nbr=nbr_src.to(torch.int32).contiguous(), nmask=u8(nbr_mask),
         el=cf(el), el_self=cf(el_self),
-        bias=None if bias is None else cf(bias.reshape(hc)),
+        bias=None if bias is None else bias.reshape(hc).to(cd).contiguous(),
         node_mask=u8(node_mask),
         n=n, k=k, heads=heads, c=c, negative_slope=float(negative_slope),
         has_self=bool(self_loop), drop_mode=drop_mode, dmask=dmask,
-        seed=drop_seed, thresh=thresh, keep_inv=keep_inv, train=train)
+        seed=drop_seed, thresh=thresh, keep_inv=keep_inv, train=train,
+        dtype=_DTYPE_CODE[cd])
     vec4 = c % 4 == 0 and all(_aligned(t) for t in (kw["xh"],) + (
         (kw["bias"],) if kw["bias"] is not None else ()))
     kw["vec"] = 4 if vec4 else 1
@@ -360,27 +376,27 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def call_kernel(*, xh, att, nbr, nmask, el, el_self, bias, node_mask, n, k,
-                heads, c, negative_slope, has_self, vec, drop_mode=0,
+                heads, c, negative_slope, has_self, vec, dtype, drop_mode=0,
                 dmask=None, seed=None, thresh=0, keep_inv=1.0, train=False):
     """Launch kernel C (its dots and aggregate kernels) on prepared inputs
-    (``kernel_args``) on the current stream; returns out [N, HC] f32. The
-    only place that counts ``launches`` (inference form) and
+    (``kernel_args``) on the current stream; returns out [N, HC] in xh's
+    dtype. The only place that counts ``launches`` (inference form) and
     ``train_launches`` (training form)."""
     global launches, train_launches
     from ._build import library
 
     # torch's allocator aligns both to 256 bytes (16 needed for float4)
-    out = torch.empty(n, heads * c, device=xh.device, dtype=torch.float32)
+    out = torch.empty(n, heads * c, device=xh.device, dtype=xh.dtype)
     dots = torch.empty(n, 2 * heads, device=xh.device, dtype=torch.float32)
     lib = library("ell_gat_fwd")
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ell_gat_fwd(
-            xh.data_ptr(), att.data_ptr(), nbr.data_ptr(), nmask.data_ptr(),
-            _ptr(el), _ptr(el_self), _ptr(bias), _ptr(node_mask),
-            dots.data_ptr(), out.data_ptr(), n, k, heads, c, negative_slope,
-            int(has_self), vec, drop_mode, _ptr(dmask), _ptr(seed), thresh,
-            keep_inv, stream)
+            dtype, xh.data_ptr(), att.data_ptr(), nbr.data_ptr(),
+            nmask.data_ptr(), _ptr(el), _ptr(el_self), _ptr(bias),
+            _ptr(node_mask), dots.data_ptr(), out.data_ptr(), n, k, heads, c,
+            negative_slope, int(has_self), vec, drop_mode, _ptr(dmask),
+            _ptr(seed), thresh, keep_inv, stream)
     if err != 0:
         msg = lib.ell_gat_fwd_error_string(err).decode()
         raise RuntimeError(f"ell_gat_fwd kernels failed to launch: CUDA "
@@ -399,24 +415,26 @@ BWD_MAX_BLOCKS = 1024
 
 def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
                     seed, perm, row_ptr, g, n, k, heads, c, negative_slope,
-                    has_self, drop_mode, thresh, keep_inv,
+                    has_self, drop_mode, thresh, keep_inv, dtype,
                     source_side: bool = True):
     """Launch kernel C' (the attention dots, C' proper, then kernel F in
     its mode (b)) on the inputs kernel C was given (``kernel_args``), the
-    cotangent ``g`` [N, HC] f32 and the source-sorted slot tables.
-    Returns (dxh [N, HC], alpha and dl [N * K, heads] (the dropped softmax
-    weights and the logit cotangents, i.e. d el), d el_self [N, heads],
-    partials [blocks, 3, HC] of d att_src, d att_dst and d bias), all f32.
+    cotangent ``g`` [N, HC] in xh's dtype and the source-sorted slot
+    tables. Returns (dxh [N, HC] in xh's dtype, alpha and dl [N * K,
+    heads] (the dropped softmax weights, unnormalized in the bf16 form, and
+    the logit cotangents, i.e. d el), d el_self [N, heads], partials
+    [blocks, 3, HC] of d att_src, d att_dst and d bias), f32 but dxh.
     ``source_side=False`` leaves kernel F out (dxh is then the destination
-    side only: for timing C' on its own). The only place that counts
+    side only, f32: for timing C' on its own). The only place that counts
     ``bwd_launches``, and kernel F's launches (``segment_reduce.launches``)
     of mode (b) within C'."""
     global bwd_launches
     from ._build import library
 
     hc = heads * c
-    _check(tuple(g.shape) == (n, hc) and g.dtype == torch.float32
+    _check(tuple(g.shape) == (n, hc) and g.dtype == xh.dtype
            and g.is_contiguous(), f"cotangent {tuple(g.shape)} {g.dtype}")
+    lowp = xh.dtype != torch.float32
     lib = library("ell_gat_bwd")
     wpb = lib.ell_gat_bwd_warps_per_block(k, heads, hc)
     _check(wpb >= 1, f"K={k} x heads={heads}, HC={hc}: one warp's "
@@ -427,26 +445,30 @@ def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
     dots = torch.empty(n, 2 * heads, **f32)
     alpha = torch.empty(n * k, heads, **f32)
     dl = torch.empty(n * k, heads, **f32)
-    dxh = torch.empty(n, hc, **f32)
+    dxh32 = torch.empty(n, hc, **f32)     # the destination side
+    # float32: kernel F adds the source side in place
+    dxh = torch.empty(n, hc, device=dev, dtype=xh.dtype) if lowp else dxh32
+    inv = torch.empty(n, heads, **f32) if lowp else None
     del_self = torch.empty(n, heads, **f32)
     part = torch.empty(blocks, 3, hc, **f32)
     vec = 4 if c % 4 == 0 and all(_aligned(t) for t in (g, att)) else 1
     with torch.cuda.device(dev):
         err = lib.ell_gat_bwd(
-            xh.data_ptr(), att.data_ptr(), nbr.data_ptr(), nmask.data_ptr(),
-            _ptr(el), _ptr(el_self), _ptr(node_mask), g.data_ptr(),
-            drop_mode, _ptr(dmask), _ptr(seed), thresh, keep_inv,
-            _ptr(perm if source_side else None),
+            dtype, xh.data_ptr(), att.data_ptr(), nbr.data_ptr(),
+            nmask.data_ptr(), _ptr(el), _ptr(el_self), _ptr(node_mask),
+            g.data_ptr(), drop_mode, _ptr(dmask), _ptr(seed), thresh,
+            keep_inv, _ptr(perm if source_side else None),
             _ptr(row_ptr if source_side else None), dots.data_ptr(),
-            alpha.data_ptr(), dl.data_ptr(), dxh.data_ptr(),
-            del_self.data_ptr(), part.data_ptr(), n, k, heads, c,
-            negative_slope, int(has_self), vec, blocks,
+            alpha.data_ptr(), dl.data_ptr(), _ptr(inv), dxh32.data_ptr(),
+            dxh.data_ptr(), del_self.data_ptr(), part.data_ptr(), n, k,
+            heads, c, negative_slope, int(has_self), vec, blocks,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.ell_gat_bwd_error_string(err).decode()
         raise RuntimeError(f"ell_gat_bwd kernels failed to launch: CUDA "
                            f"error {err} ({msg})")
     bwd_launches += 1
-    if source_side:
-        segment_reduce.launches += 1
+    if not source_side:
+        return dxh32, alpha, dl, del_self, part
+    segment_reduce.launches += 1
     return dxh, alpha, dl, del_self, part

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from .grid_gat_fused import _DTYPE_CODE
+
 # Launches of kernel F in this process, both modes: mode (a) here, mode (b)
 # where kernel C''s call launches it (``ell_gat_fused.call_bwd_kernel``).
 # Callers reset it to 0 to count the launches of one run.
@@ -40,8 +42,9 @@ def _segment_of_sorted(row_ptr: torch.Tensor, n: int) -> torch.Tensor:
 def segment_reduce_reference(ct: torch.Tensor, perm: torch.Tensor,
                              row_ptr: torch.Tensor, n: int) -> torch.Tensor:
     """Plain version of kernel F, mode (a): ``index_add_`` of the slots'
-    rows into their segments. ct [S, F]; perm [>= row_ptr[n]] int;
-    row_ptr [n + 1] int. Returns [n, F] f32."""
+    rows into their segments. ct [S, F] float32 or bfloat16 (summed in
+    f32); perm [>= row_ptr[n]] int; row_ptr [n + 1] int. Returns [n, F]
+    f32."""
     live = perm[:int(row_ptr[n])].long()
     out = torch.zeros(n, ct.shape[1], device=ct.device, dtype=torch.float32)
     return out.index_add_(0, _segment_of_sorted(row_ptr, n),
@@ -105,12 +108,14 @@ def _check(cond: bool, msg: str):
 def call_kernel(ct: torch.Tensor, perm: torch.Tensor, row_ptr: torch.Tensor,
                 n: int) -> torch.Tensor:
     """Check a CUDA call and launch kernel F (mode (a)) on the current
-    stream; the only place that counts mode (a)'s ``launches``."""
+    stream (ct float32 or bfloat16, out f32); the only place that counts
+    mode (a)'s ``launches``."""
     global launches
     from ._build import library
 
-    _check(ct.dim() == 2 and ct.dtype == torch.float32,
-           f"ct must be [S, F] float32, got {tuple(ct.shape)} {ct.dtype}")
+    _check(ct.dim() == 2 and ct.dtype in _DTYPE_CODE,
+           f"ct must be [S, F] float32 or bfloat16, got {tuple(ct.shape)} "
+           f"{ct.dtype}")
     _check(n >= 1 and ct.shape[1] >= 1, f"n={n}, F={ct.shape[1]}")
     _check(tuple(row_ptr.shape) == (n + 1,), f"row_ptr {tuple(row_ptr.shape)}"
            f" != {(n + 1,)}")
@@ -126,8 +131,8 @@ def call_kernel(ct: torch.Tensor, perm: torch.Tensor, row_ptr: torch.Tensor,
     lib = library("segment_reduce")
     with torch.cuda.device(ct.device):
         err = lib.segment_reduce_sorted(
-            ct.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(),
-            out.data_ptr(), n, f, vec,
+            _DTYPE_CODE[ct.dtype], ct.data_ptr(), perm.data_ptr(),
+            row_ptr.data_ptr(), out.data_ptr(), n, f, vec,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.segment_reduce_error_string(err).decode()

@@ -317,8 +317,10 @@ class _GatherRowsReduceBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         perm, row_ptr = ctx.saved_tensors
+        # ct keeps its dtype (bf16 for a bf16 table): kernel F reads it
+        # and sums in f32; the result takes the table's dtype, as JAX's
         d_table = segment_reduce.segment_reduce_sorted(
-            ct.to(torch.float32).contiguous(), perm, row_ptr, ctx.n)
+            ct.contiguous(), perm, row_ptr, ctx.n)
         return d_table.to(ctx.dtype), None, None, None
 
 

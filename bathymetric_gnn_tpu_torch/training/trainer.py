@@ -1,16 +1,22 @@
 """Training loop on k-NN graphs (port of ``bathymetric_gnn_tpu/training/trainer.py``):
 the per-epoch learning-rate schedules, the train state and the dropout
 generator that the grid trainer shares, and the graph ``Trainer`` on its
-k-NN path (``knn_k > 0``, GAT: the JAX trainer's ``banded_pallas`` route).
+k-NN path (``knn_k > 0``, GAT: the JAX trainer's ``banded_pallas`` route,
+or its ``banded`` route).
 
 Each batch of k-NN tile graphs is merged on the host (``merge_stacked``),
 packed into the ELL layout with its source-sorted slot tables
-(``coo_to_ell``, ``src_sorted_slots``) in a prefetch thread, and moved to
-the device once. On the card every GAT layer of a train step runs kernel
-C's dropout form forward and kernel C' (with kernel F's source-side
-reduction) backward; the losses, clipping and AdamW follow the JAX
-trainer. After training, the confidence head is Platt-calibrated through
-the ELL model and ``calibration.json`` is written beside every checkpoint.
+(``coo_to_ell``, ``src_sorted_slots``), and on the ``"banded"`` route
+split into 128-row bands (``ops/ell_banded.band_ell``, as the JAX trainer
+does), in a prefetch thread, and moved to the device once. On the card
+every GAT layer of a train step runs kernel C's dropout form forward and
+kernel C' (with kernel F's source-side reduction) backward; on the
+``"banded"`` route (dropout 0: the JAX layer refuses attention dropout
+there) the JAX XLA route's band part and spill pass, differentiated by
+autograd, as JAX differentiates them. The losses, clipping and AdamW
+follow the JAX trainer. After training, the confidence head is
+Platt-calibrated through the ELL model and ``calibration.json`` is written
+beside every checkpoint.
 
 Checkpoints are port checkpoints (``utils/weights.save_checkpoint``, the
 weights grid-named, ``meta["param_layout"] = "coo"``) under ``best/``,
@@ -18,10 +24,10 @@ weights grid-named, ``meta["param_layout"] = "coo"``) under ``best/``,
 epochs), each with ``train_state.pt`` for ``--resume``;
 ``cli/inference_native --knn-k K`` serves them. Not ported: the COO graph
 trainer (``knn_k == 0`` or ``sparse_kernel="xla"``, ROADMAP queue 1 item
-11), training on the ``sparse_kernel="banded"`` route (it raises: with
-dropout the JAX layer's own refusal, without it because kernel E has no
-backward; ROADMAP queue 3) and the worker-process loader (``num_workers >
-0`` loads in a prefetch thread).
+11) and the worker-process loader (``num_workers > 0`` loads in a
+prefetch thread). With dropout the ``"banded"`` route raises the JAX
+layer's own refusal when the trainer is built (JAX raises it at the first
+step).
 """
 
 from __future__ import annotations
@@ -131,15 +137,12 @@ class Trainer:
             sk = "banded_pallas"
         if self.knn_k <= 0 or sk == "xla":
             raise NotImplementedError(COO_TRAINER_NOT_PORTED)
-        if sk == "banded":
-            # the JAX trainer runs this route with use_pallas=False: its
-            # layer refuses attention dropout, and kernel E has no backward
-            from ..models.conv_ell import (BANDED_DROPOUT_NEEDS_FUSED,
-                                           BANDED_E_NO_BACKWARD)
+        if sk == "banded" and mc.dropout > 0:
+            # the JAX trainer runs this route with use_pallas=False, whose
+            # layer refuses attention dropout
+            from ..models.conv_ell import BANDED_DROPOUT_NEEDS_FUSED
 
-            raise NotImplementedError(BANDED_DROPOUT_NEEDS_FUSED
-                                      if mc.dropout > 0
-                                      else BANDED_E_NO_BACKWARD)
+            raise NotImplementedError(BANDED_DROPOUT_NEEDS_FUSED)
         if mc.gnn_type != "GAT":
             raise NotImplementedError(
                 f"gnn_type {mc.gnn_type!r} on k-NN graphs: only GAT is "
@@ -212,19 +215,35 @@ class Trainer:
         return coo_to_ell(merged, max_degree=self.knn_k
                           ).with_src_sorted_slots()
 
+    def banded_batch(self, g):
+        """The band/spill decomposition of a merged ELL graph (NumPy) on
+        the ``"banded"`` route, as the JAX trainer's ``_sparse_batch``
+        builds it (128-row bands: merged graphs keep each sample's node
+        bucket, a multiple of 128, so bands never span samples); None on
+        the kernel route, whose layers need none."""
+        if self.sparse_kernel != "banded":
+            return None
+        from ..ops.ell_banded import band_ell
+
+        return band_ell(g, band_rows=128)
+
     def _host_batches(self, dataset, shuffle: bool):
-        """(ELL graph, stacked targets, live edges, live nodes, tiles) per
-        batch, all built on the host."""
+        """(ELL graph, stacked targets, live edges, live nodes, tiles,
+        BandedEll or None) per batch, all built on the host."""
         from .datasets import epoch_batches
 
         rng = self.rng if shuffle else np.random.default_rng(0)
         for graph, targets in epoch_batches(
                 dataset, self.config.training.batch_size, rng,
                 shuffle=shuffle):
-            yield (self.sparse_batch(graph), targets,
+            g = self.sparse_batch(graph)
+            yield (g, targets,
                    int(np.asarray(graph.edge_mask).sum()),
                    int(np.asarray(graph.node_mask).sum()),
-                   int(graph.node_mask.shape[0]))
+                   int(graph.node_mask.shape[0]), self.banded_batch(g))
+
+    def _device_banded(self, banded):
+        return None if banded is None else banded.to(self.device)
 
     def init_state(self, sample_graph) -> TrainState:
         """A new model (random weights from ``training.seed``) and its
@@ -250,15 +269,16 @@ class Trainer:
     # -- steps -------------------------------------------------------------
 
     def loss_fn(self, model, g, targets: Dict[str, torch.Tensor],
-                train: bool):
+                train: bool, banded=None):
         """Forward + the 5-component loss of one merged batch (``g`` an
-        ELL graph on the device); returns (losses, accuracy over live
+        ELL graph on the device, ``banded`` its BandedEll on the device on
+        the ``"banded"`` route); returns (losses, accuracy over live
         nodes)."""
         from . import losses as L
 
         tc = self.config.training
         model.train(train)
-        out = model(g, self.dropout_rng if train else None)
+        out = model(g, self.dropout_rng if train else None, banded=banded)
         node_mask = g.node_mask.to(torch.bool)
         terms = L.combined_loss_terms(
             out, targets, node_mask, class_weights=self.class_weights,
@@ -275,17 +295,20 @@ class Trainer:
                         ) / m.sum().clamp_min(1.0)
         return losses, acc
 
-    def train_step(self, state: TrainState, g, targets, lr: float):
+    def train_step(self, state: TrainState, g, targets, lr: float,
+                   banded=None):
         """One step: forward (kernel C's dropout form on the card),
-        backward (kernels C' and F), clip, AdamW. ``g``/``targets`` on the
-        device. Returns (losses, accuracy) as device tensors."""
+        backward (kernels C' and F), clip, AdamW. ``g``/``targets`` (and
+        ``banded`` on the ``"banded"`` route) on the device. Returns
+        (losses, accuracy) as device tensors."""
         from .optim import clip_by_global_norm_
 
         model = state.model
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        losses, acc = self.loss_fn(model, g, targets, train=True)
+        losses, acc = self.loss_fn(model, g, targets, train=True,
+                                   banded=banded)
         losses["total"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
@@ -295,8 +318,9 @@ class Trainer:
         return {k: t.detach() for k, t in losses.items()}, acc.detach()
 
     @torch.no_grad()
-    def eval_step(self, state: TrainState, g, targets):
-        return self.loss_fn(state.model, g, targets, train=False)
+    def eval_step(self, state: TrainState, g, targets, banded=None):
+        return self.loss_fn(state.model, g, targets, train=False,
+                            banded=banded)
 
     # -- loop --------------------------------------------------------------
 
@@ -325,11 +349,12 @@ class Trainer:
                 lr = tc.learning_rate
             tl = ta = 0.0
             nb = 0
-            for g, targets, edges, nodes, tiles in prefetch_iterator(
+            for g, targets, edges, nodes, tiles, banded in prefetch_iterator(
                     self._host_batches(self.train_dataset, shuffle=True)):
                 losses, acc = self.train_step(
                     state, g.to(self.device),
-                    _to_device_targets(targets, self.device), lr)
+                    _to_device_targets(targets, self.device), lr,
+                    self._device_banded(banded))
                 self.meter.add(edges=edges, nodes=nodes, tiles=tiles)
                 tl += float(losses["total"])
                 ta += float(acc)
@@ -379,10 +404,11 @@ class Trainer:
             else self.train_dataset
         tot = acc = 0.0
         nb = 0
-        for g, targets, *_ in self._host_batches(ds, shuffle=False):
+        for g, targets, *_, banded in self._host_batches(ds, shuffle=False):
             losses, a = self.eval_step(
                 state, g.to(self.device),
-                _to_device_targets(targets, self.device))
+                _to_device_targets(targets, self.device),
+                self._device_banded(banded))
             tot += float(losses["total"])
             acc += float(a)
             nb += 1
@@ -441,9 +467,10 @@ class Trainer:
             else self.train_dataset
         model = state.model.eval()
         confs, ys, sws, noise_sel = [], [], [], []
-        for g, targets, *_ in self._host_batches(ds, shuffle=False):
+        for g, targets, *_, banded in self._host_batches(ds, shuffle=False):
             with torch.no_grad():
-                out = model(g.to(self.device))
+                out = model(g.to(self.device),
+                            banded=self._device_banded(banded))
             m = np.asarray(g.node_mask).astype(bool).reshape(-1)
             c = out["confidence"].cpu().numpy().astype(np.float64)
             pc = out["predicted_class"].cpu().numpy().reshape(-1)[m]

@@ -58,7 +58,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    plain version called; losses finite, every parameter has a gradient,
    ``best/calibration.json`` written, and ``NativeVRProcessor`` serves the
    checkpoint; one step through the kernels against the same step on the
-   plain functions (dropout 0);
+   plain functions (dropout 0); the ``"banded"`` route trains too (at
+   dropout 0, phase 3f);
 4. timings with CUDA events after warm-up: kernel A per inference shape,
    kernels A (training form) and B per training shape, the whole train
    step in f32 and bf16, kernel C per shape with the model forward of
@@ -78,7 +79,26 @@ Run from the root of a checkout. Phases, each printing its own lines:
 4e. (run after 4d) CUDA-event times of E, D and D' against their bounds and
    plain versions, the D + D' layer beside C + C' on the same batch, and
    one k-NN train step with every layer on route D (``wide_kernel=False``):
-   its launches, ms and busy share.
+   its launches, ms and busy share;
+2f. (run after 2e) the bf16 forms (``compute_dtype="bfloat16"``) against
+   their plain versions on the same bf16 inputs: kernels C and E on phase
+   2c's graph (HC 256 / 4 heads and HC 64 / 1 head), C's training form
+   (no dropout, a streamed mask, the Philox draw) with C' and F (b), F (a)
+   on a bf16 cotangent, and D and D' (F (a) on the bf16 spill rows) on
+   phase 2d's batch; tolerances TOL / GRAD_TOL bf16 (E's f32 outputs:
+   BAND_FWD_TOL);
+3f. (run after 3e) the bf16 model at full width serving the 65,536-node
+   flush on routes C, D and E: 4 launches of the route's kernel, no other
+   kernel and no plain version, classes against the f32 model of the same
+   weights (>= 99 %); and one ``Trainer`` step on the ``"banded"`` route at
+   dropout 0 (the route trains since this slice: the JAX XLA route's plain
+   math under autograd, no kernel) on the card against the same step on
+   the CPU;
+4f. (run after 4e) CUDA-event times of every bf16 form against its bound
+   (bf16 streams at 2 bytes) and its plain version, the bf16 flush forward
+   beside 4c's f32 one, and one bf16 train step on routes C and D (dropout
+   0.1, f32 master weights) beside the f32 steps of 4d and 4e: launches,
+   ms and the device's busy share.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -1229,7 +1249,7 @@ def vr_cli(np, work, ckpt, grids):
 
 # -- phase 4c ------------------------------------------------------------------
 
-def ell_bound(dims):
+def ell_bound(dims, dtype="float32"):
     """Least time of one kernel C call on this graph's data, over HBM
     bandwidth: the rows of xh and el_self of the live nodes, el and nbr_src
     of the live slots, nbr_mask of the live nodes' slots read once,
@@ -1237,14 +1257,16 @@ def ell_bound(dims):
     once; vs its operations for the live nodes and edges (attention dots
     4 * HC per node; ~8 per live slot and head for logit, max, exp, sum and
     divide; 2 * HC per live slot and self loop for the weighted sum) over
-    the FP32 peak."""
+    the peak of ``dtype``. xh, att, bias and out take 2 bytes an element
+    in bfloat16, the rest 4."""
     n, k, h, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
     ln, le = dims["live_nodes"], dims["live_edges"]
-    nbytes = (4 * (ln * hc + ln * h + le * h + le + 3 * hc + n * hc)
+    s = 4 if dtype == "float32" else 2
+    nbytes = (s * (ln * hc + 3 * hc + n * hc) + 4 * (ln * h + le * h + le)
               + ln * k + n)
     flops = 4 * ln * hc + 8 * (le + ln) * h + 2 * (le + ln) * hc
     t_b = nbytes / PEAK_BYTES * 1e3
-    t_o = flops / PEAK_FLOPS["float32"] * 1e3
+    t_o = flops / PEAK_FLOPS[dtype] * 1e3
     return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes,
             flops)
 
@@ -1386,7 +1408,7 @@ def ell_train_run(torch, fn, kw, g=None, **extra):
     out = fn(**{**kw, **leaves}, **extra)
     if g is None:
         g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
-            SEED + 62)).to(out.device)
+            SEED + 62)).to(out.device, out.dtype)
     grads = torch.autograd.grad(out, list(leaves.values()), g)
     return out.detach(), dict(zip(leaves, grads)), g
 
@@ -1461,7 +1483,7 @@ def phase_knn_train_kernels_vs_plain(torch, cases):
         bkw = {nm: args[nm] for nm in (
             "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask",
             "dmask", "seed", "n", "k", "heads", "c", "negative_slope",
-            "has_self", "drop_mode", "thresh", "keep_inv")}
+            "has_self", "drop_mode", "thresh", "keep_inv", "dtype")}
         p32, r32 = perm.int(), row_ptr.int()
         _, alpha, dl, _, _ = ef.call_bwd_kernel(**bkw, perm=p32, row_ptr=r32,
                                                 g=g, source_side=False)
@@ -1709,7 +1731,7 @@ def phase_knn_step_kernel_vs_plain(torch, np, work, samples):
 
 # -- phase 4d: k-NN training timings ----------------------------------------------
 
-def knn_train_bounds(dims):
+def knn_train_bounds(dims, dtype="float32"):
     """Least time of one call (bytes over 3.35 TB/s vs operations over the
     FP32 peak), counting this graph's live data: ln live nodes, le live
     slots. C (training form): as ``ell_bound``, the draw made in the
@@ -1723,22 +1745,25 @@ def knn_train_bounds(dims):
     the live slots, row_ptr, the dy rows once and att_src, writes out
     [N, HC]; 4 operations per live slot and column. F mode (a): reads the
     [S, HC] cotangent (S = live slots), perm and row_ptr, writes out; one
-    add per element read."""
+    add per element read. In bfloat16 the xh, dy, att, dxh and cotangent
+    streams take 2 bytes an element (F (b) alone is f32 only)."""
     n, k, h, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
     ln, le = dims["live_nodes"], dims["live_edges"]
-    out = {"C": ell_bound(dims)}
+    s = 4 if dtype == "float32" else 2
+    out = {"C": ell_bound(dims, dtype)}
     parts = {
-        "Cp": (4 * (2 * ln * hc + ln * h + le * h + le + 2 * hc
-                    + 2 * ln * k * h + n * hc + n * h) + ln * k + n,
+        "Cp": (s * (2 * ln * hc + 2 * hc + n * hc)
+               + 4 * (ln * h + le * h + le + 2 * ln * k * h + n * h)
+               + ln * k + n,
                4 * ln * hc + 8 * (le + ln) * h + 4 * (le + ln) * hc
                + 6 * ln * hc),
         "Fb": (4 * (2 * le * h + le + n + 1 + ln * hc + hc + n * hc),
                4 * le * hc),
-        "Fa": (4 * (le * hc + le + n + 1 + n * hc), le * hc),
+        "Fa": (s * le * hc + 4 * (le + n + 1 + n * hc), le * hc),
     }
     for name, (nbytes, flops) in parts.items():
         t_b = nbytes / PEAK_BYTES * 1e3
-        t_o = flops / PEAK_FLOPS["float32"] * 1e3
+        t_o = flops / PEAK_FLOPS[dtype] * 1e3
         out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
                      nbytes, flops)
     return out
@@ -1763,7 +1788,7 @@ def phase_knn_train_timings(torch, np, cases, work, samples):
         bkw = {nm: args[nm] for nm in (
             "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask",
             "dmask", "seed", "n", "k", "heads", "c", "negative_slope",
-            "has_self", "drop_mode", "thresh", "keep_inv")}
+            "has_self", "drop_mode", "thresh", "keep_inv", "dtype")}
         p32, r32 = perm.int().contiguous(), row_ptr.int().contiguous()
         g = torch.randn(n, hc, generator=torch.Generator().manual_seed(
             SEED + 81)).to(dev)
@@ -1904,7 +1929,7 @@ def v2_run(torch, fn, kw, banded, g=None, masks=None):
     out = fn(**{**kw, **leaves}, banded=banded, dropout_masks=masks)
     if g is None:
         g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
-            SEED + 92)).to(out.device)
+            SEED + 92)).to(out.device, out.dtype)
     grads = torch.autograd.grad(out, list(leaves.values()), g)
     return out.detach(), dict(zip(leaves, grads)), g
 
@@ -2084,7 +2109,7 @@ def phase_vr_banded(torch, np, work, vr):
 
 # -- phase 4e: timings of kernels E, D and D' -------------------------------------
 
-def band_bounds(dims, drop=False):
+def band_bounds(dims, drop=False, dtype="float32"):
     """Least time of one call (bytes over 3.35 TB/s vs operations over the
     FP32 peak), counting this graph's live data: ln live nodes, lb live
     in-band slots, ls live spill entries. E reads xh and el_self of the live
@@ -2099,27 +2124,30 @@ def band_bounds(dims, drop=False):
     their full tables and d acat; operations: the dots, the softmax
     recompute, a dot product and an axpy of C per slot, self loop and
     spill and head, and the acat products of dxh and d acat (8 HC H a
-    node)."""
+    node). In bfloat16 xh, acat, the spill rows, dout, out and dxh take 2
+    bytes an element (E's outputs and the spill cotangents of D' stay f32)."""
     n, k, h, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
     ln, lb, ls = dims["live_nodes"], dims["in_band"], dims["spills"]
     ts = dims["t"] * dims["s_max"]
-    e_in = 4 * (ln * hc + lb * h + ln * k + ln * h + 2 * hc * h)
+    s = 4 if dtype == "float32" else 2
+    e_in = s * (ln * hc + 2 * hc * h) + 4 * (lb * h + ln * k + ln * h)
     e_ops = 4 * ln * hc + 8 * (lb + ln) * h + 2 * (lb + ln) * hc
     masks = 4 * ((lb + ln) * h + ls * h) if drop else 0
+    spill_in = ls * (s * hc + 4 * (h + 1))
     parts = {
         "E": (e_in + 4 * (n * hc + 2 * n * h), e_ops),
-        "D": (e_in + 4 * ls * (h + hc + 1) + masks + 4 * n * hc,
+        "D": (e_in + spill_in + masks + s * n * hc,
               e_ops + ls * (8 * h + 2 * hc) + n * hc),
-        "Dp": (e_in + 4 * (n * hc + ls * (h + hc + 1) + lb + n + 1)
-               + masks + 4 * (n * hc + k * h * n + n * h + ts * (h + hc)
-                              + 2 * hc * h),
+        "Dp": (e_in + s * n * hc + spill_in + 4 * (lb + n + 1) + masks
+               + s * n * hc + 4 * (k * h * n + n * h + ts * (h + hc)
+                                   + 2 * hc * h),
                4 * ln * hc + 8 * (lb + ln + ls) * h
                + 4 * (lb + ln + ls) * hc + 8 * ln * hc * h),
     }
     out = {}
     for name, (nbytes, flops) in parts.items():
         t_b = nbytes / PEAK_BYTES * 1e3
-        t_o = flops / PEAK_FLOPS["float32"] * 1e3
+        t_o = flops / PEAK_FLOPS[dtype] * 1e3
         out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
                      nbytes, flops)
     return out
@@ -2132,8 +2160,6 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
     then one k-NN train step of the full-width model with every layer on
     route D (``wide_kernel=False``, dropout 0.1): its launches, ms and the
     device's busy share."""
-    import functools
-
     from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
     from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
     from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
@@ -2175,7 +2201,7 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
             bkw = {nm: kargs[nm] for nm in (
                 "xh", "acat", "loc", "el", "el_self", "l_spill", "xh_spill",
                 "dst_loc", "dmask", "dmask_sp", "n", "k", "heads", "c", "r",
-                "s_max", "negative_slope")}
+                "s_max", "negative_slope", "dtype")}
             perm = banded.band_perm.int().contiguous()
             row_ptr = banded.band_row_ptr.int().contiguous()
             d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs), 10)
@@ -2227,8 +2253,8 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
     model = state.model
     for i in range(MODEL_LAYERS):
         getattr(model.GNNBackbone_0, f"GATConv_{i}").wide_kernel = False
-    model.forward = functools.partial(model.forward, banded=banded)
-    fn = lambda: trainer.train_step(state, g, targets, LR)  # noqa: E731
+    fn = lambda: trainer.train_step(state, g, targets, LR,  # noqa: E731
+                                    banded)
     eb.v2_launches = eb.v2_bwd_launches = sr.launches = 0  # the main path
     ef.train_launches = ef.bwd_launches = 0
     losses, _ = fn()
@@ -2260,6 +2286,656 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
     return erows, drows, dict(ms=ms, busy_share=busy, counts=counts,
                               kernels_ms=mine / 3,
                               device_ms=sum(r[0] for r in prows) / 3)
+
+
+# -- phase 2f: the bf16 forms of C, C', D, D', E and F ------------------------
+
+def bf16_label(label):
+    return label.replace(" f32", " bf16")
+
+
+def bf16_kw(kw):
+    """Layer inputs with xh in bf16 (the bf16 layer's x @ W)."""
+    return dict(kw, xh=kw["xh"].bfloat16())
+
+
+def grad_errs(torch, grads, rgrads, tol):
+    """(ok, worst |d| per leaf, 'name err/scale' parts) of kernel against
+    plain gradients, each against its leaf's largest |entry|."""
+    ok, worst, parts = True, {}, []
+    for name, a in grads.items():
+        r = rgrads[name].float()
+        scale = r.abs().max().item() + 1e-12
+        e = (a.float() - r).abs().max().item()
+        worst[name] = e
+        parts.append(f"{name} {e / scale:.2e}")
+        ok = ok and e <= tol * scale and bool(torch.isfinite(a).all())
+    return ok, worst, parts
+
+
+def phase_bf16_kernels_vs_plain(torch, ecases, kcases, becases, bdcases):
+    """The bf16 forms against their plain versions on the same bf16
+    inputs: kernel C (serving) and kernel E at the 65,536-node flush's
+    shapes; kernel C's training form with no dropout, a streamed mask and
+    the Philox draw, with C' (+ F (b)), and kernels D and D' (with F (a) on
+    the bf16 spill-row cotangent) with no dropout and a streamed mask, on
+    the k-NN training batch (N = 262,144). Outputs within TOL[bf16] of
+    (1 + |ref|), gradients within GRAD_TOL[bf16] of each leaf's scale;
+    kernel E's f32 outputs from the same bf16 inputs within BAND_FWD_TOL."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    tol, gtol = TOL["bfloat16"], GRAD_TOL["bfloat16"]
+    errs = {}
+    with torch.no_grad():
+        for label, kw, dims in ecases[:2]:
+            kb = bf16_kw(kw)
+            out = ef.ell_gat_fused(**kb)
+            torch.cuda.synchronize()
+            ref = ef.ell_gat_reference(**kb)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            rel = (d / (1 + ref.float().abs())).max().item()
+            ok = (out.dtype == torch.bfloat16 and rel <= tol
+                  and bool(torch.isfinite(out).all())
+                  and not bool(out[~kw["node_mask"]].float().any()))
+            log(f"[2f] C {bf16_label(label)}: max_abs {d.max().item():.3e} "
+                f"max_rel(1+|ref|) {rel:.3e} tol {tol:.1e} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel C (bf16) disagrees: {label}")
+            errs[("C", bf16_label(label))] = d.max().item()
+            del out, ref
+        for label, kw, banded, dims in becases:
+            args = (kw["xh"].bfloat16(), kw["a_cat_mat"], kw["el_t"],
+                    kw["el_self_t"], banded)
+            got = eb.ell_gat_band_part(*args)
+            torch.cuda.synchronize()
+            ref = eb.band_part_reference(*args)
+            torch.cuda.synchronize()
+            ok, parts = True, []
+            for name, a, b in zip(("y", "m", "denom"), got, ref):
+                scale = b.abs().max().item() + 1e-12
+                e = (a - b).abs().max().item()
+                if name == "y":
+                    errs[("E", bf16_label(label))] = e
+                parts.append(f"{name} {e / scale:.2e}")
+                ok = ok and a.dtype == torch.float32 and e <= (
+                    BAND_FWD_TOL * scale) and bool(torch.isfinite(a).all())
+            log(f"[2f] E {bf16_label(label)}: err/scale {', '.join(parts)} "
+                f"(f32 outputs of the same bf16 inputs, tol "
+                f"{BAND_FWD_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel E (bf16) disagrees: {label}")
+            del got, ref
+    for i, (label, kw, (perm, row_ptr), dims) in enumerate(kcases[:2]):
+        kb = bf16_kw(kw)
+        dev = kb["xh"].device
+        n, k, heads = dims["n"], dims["k"], dims["heads"]
+        seed = torch.tensor([0x5EED100 + i], dtype=torch.int64, device=dev)
+        drawn = ef.drop_mask(seed, KEEP, n, k, heads)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 65 + i)
+        streamed = (torch.rand(n, k + 1, heads, generator=gen, device=dev)
+                    < KEEP).float() / KEEP
+        tables = dict(slot_tables=(perm, row_ptr))
+        lbl = bf16_label(label)
+        worst_out, worst_g, g = 0.0, {}, None
+        for mode, extra, mult in (
+                ("no dropout", {}, None),
+                ("streamed mask", dict(dmask=streamed), streamed),
+                ("Philox", dict(drop_seed=seed, keep_prob=KEEP), drawn)):
+            out, grads, g = ell_train_run(torch, ef.ell_gat_fused_train, kb,
+                                          g, **extra, **tables)
+            torch.cuda.synchronize()
+            ref, rgrads, _ = ell_train_run(torch, ef.ell_gat_reference, kb,
+                                           g, dmask=mult)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            rel = (d / (1 + ref.float().abs())).max().item()
+            ok, worst, parts = grad_errs(torch, grads, rgrads, gtol)
+            ok = (ok and rel <= tol and out.dtype == torch.bfloat16
+                  and grads["xh"].dtype == torch.bfloat16)
+            worst_out = max(worst_out, d.max().item())
+            for nm, e in worst.items():
+                worst_g[nm] = max(worst_g.get(nm, 0.0), e)
+            same = True
+            if mode == "Philox":
+                out_m, gr_m, _ = ell_train_run(torch, ef.ell_gat_fused_train,
+                                               kb, g, dmask=drawn, **tables)
+                same = torch.equal(out, out_m) and all(
+                    torch.equal(grads[nm], gr_m[nm]) for nm in ELL_LEAVES)
+            log(f"[2f] C/C' {lbl}, {mode}: C max_rel(1+|ref|) {rel:.3e} (tol "
+                f"{tol:.1e}); C' err/scale: {', '.join(parts)} (tol "
+                f"{gtol:.1e})"
+                + ("; with the in-kernel draw "
+                   + ("equal to" if same else "DIFFERENT FROM")
+                   + " the same draw streamed" if mode == "Philox" else "")
+                + f" {'ok' if ok and same else 'FAIL'}")
+            check(ok and same, f"C / C' (bf16) disagree: {label}, {mode}")
+            del out, grads, ref, rgrads
+        errs[("Ct", lbl)] = worst_out
+        errs[("Cp", lbl)] = max(worst_g.values())
+        # kernel F, mode (a), on a bf16 cotangent of the live slots' rows
+        src, _ = fa_inputs(torch, kw)
+        ct = torch.randn(src.numel(), dims["hc"], generator=torch.Generator(
+            ).manual_seed(SEED + 66)).to(dev).bfloat16()
+        pa, ra = fa_tables(torch, src, n)
+        fa = sr.segment_reduce_sorted(ct, pa, ra, n)
+        fa_ref = torch.zeros(n, dims["hc"], device=dev).index_add_(
+            0, src.long(), ct.float())
+        d_a = (fa - fa_ref).abs()
+        rel_a = (d_a / (1 + fa_ref.abs())).max().item()
+        ok = fa.dtype == torch.float32 and rel_a <= TOL["float32"]
+        log(f"[2f] {lbl}: F mode (a) on a bf16 {src.numel()} x {dims['hc']}"
+            f" cotangent vs index_add_ of its f32 values max_rel(1+|ref|) "
+            f"{rel_a:.3e} (tol {TOL['float32']:.1e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"kernel F (bf16 rows) disagrees: {label}")
+        errs[("Fa", lbl)] = d_a.max().item()
+        del drawn, streamed, ct, fa, fa_ref
+    for i, (label, kw, banded, dims) in enumerate(bdcases):
+        kb = bf16_kw(kw)
+        lbl = bf16_label(label)
+        g = None
+        worst = {"out": 0.0}
+        for mode, masks in (("no dropout", None),
+                            ("streamed mask", v2_masks(torch, dims,
+                                                       kb["xh"].device,
+                                                       SEED + 96 + i))):
+            n0 = sr.launches
+            out, grads, g = v2_run(torch, eb.ell_gat_fused_v2, kb, banded, g,
+                                   masks)
+            torch.cuda.synchronize()
+            f_a = sr.launches - n0
+            ref, rgrads, _ = v2_run(torch, eb.fused_v2_reference, kb, banded,
+                                    g, masks)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            rel = (d / (1 + ref.float().abs())).max().item()
+            ok, gw, parts = grad_errs(torch, grads, rgrads, gtol)
+            ok = (ok and rel <= tol and f_a == 3
+                  and out.dtype == grads["xh"].dtype == torch.bfloat16)
+            worst["out"] = max(worst["out"], d.max().item())
+            for nm, e in gw.items():
+                worst[nm] = max(worst.get(nm, 0.0), e)
+            log(f"[2f] D/D' {lbl}, {mode}: D max_rel(1+|ref|) {rel:.3e} (tol "
+                f"{tol:.1e}); D' err/scale: {', '.join(parts)} (tol "
+                f"{gtol:.1e}); F (a) launches in the backward {f_a} (want 3, "
+                f"one on the bf16 spill rows) {'ok' if ok else 'FAIL'}")
+            check(ok, f"D / D' (bf16) disagree: {label}, {mode}")
+            del out, grads, ref, rgrads
+        errs[("D", lbl)] = worst["out"]
+        errs[("Dp", lbl)] = max(v for nm, v in worst.items() if nm != "out")
+    return errs
+
+
+# -- phase 3f: the bf16 model -------------------------------------------------
+
+BF16_ROUTES = (("C", "banded_pallas", True), ("D", "banded_pallas", False),
+               ("E", "banded", True))
+
+
+def routed_model(torch, kmodel, sparse_kernel, wide, dtype):
+    """The k-NN serving model's weights in an EllBathymetricGNN on one
+    route (``wide_kernel`` set on every layer) and compute dtype, eval."""
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import EllBathymetricGNN
+
+    m = EllBathymetricGNN(8, 64, MODEL_LAYERS, heads=4,
+                          sparse_kernel=sparse_kernel, compute_dtype=dtype)
+    m.load_state_dict(kmodel.state_dict())
+    for i in range(MODEL_LAYERS):
+        getattr(m.GNNBackbone_0, f"GATConv_{i}").wide_kernel = wide
+    return m.to(next(kmodel.parameters()).device).eval()
+
+
+def phase_bf16_model(torch, np, kmodel, kgraph, kbanded, work, samples):
+    """The bf16 model (compute_dtype "bfloat16", full width) serving the
+    65,536-node flush on routes C, D and E: the launch counts of that run
+    (4 of the route's kernel, no other kernel, no plain version) and its
+    classes against the f32 model of the same weights on the same route;
+    then one Trainer step on the "banded" route at dropout 0 (the JAX XLA
+    route's plain math under autograd: no kernel, as in JAX) on the card,
+    against the same step on the CPU."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    def zero():
+        ef.launches = ef.train_launches = ef.bwd_launches = 0
+        eb.band_launches = eb.v2_launches = eb.v2_bwd_launches = 0
+        sr.launches = 0
+
+    def counts():
+        return dict(C=ef.launches, E=eb.band_launches, D=eb.v2_launches,
+                    other=ef.train_launches + ef.bwd_launches
+                    + eb.v2_bwd_launches + sr.launches)
+
+    plain_calls = []
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            plain_calls.append(name)
+            return fn(*a, **k)
+        return mock.patch.object(mod, name, wrapped)
+
+    live = kgraph.node_mask
+    flush = {}
+    for route, sk, wide in BF16_ROUTES:
+        mb = routed_model(torch, kmodel, sk, wide, "bfloat16")
+        m32 = routed_model(torch, kmodel, sk, wide, "float32")
+        with torch.no_grad():
+            mb(kgraph, banded=kbanded)            # warm-up
+            torch.cuda.synchronize()
+            zero()                                # the main path's run
+            with counted(ef, "ell_gat_reference"), \
+                    counted(eb, "band_part_reference"), \
+                    counted(eb, "fused_v2_reference"), \
+                    counted(eb, "_v2_plain"):
+                out = mb(kgraph, banded=kbanded)
+                torch.cuda.synchronize()
+            c = counts()
+            ref = m32(kgraph, banded=kbanded)
+        want = {key: (MODEL_LAYERS if key == route else 0) for key in c}
+        check(c == want, f"bf16 flush on route {route}: launches {c}")
+        check(not plain_calls, f"plain versions ran: {sorted(plain_calls)}")
+        agree = (out["predicted_class"] == ref["predicted_class"])[live]
+        agree = agree.float().mean().item()
+        dconf = (out["confidence"] - ref["confidence"])[live].abs().max(
+            ).item()
+        finite = all(bool(torch.isfinite(out[key]).all())
+                     for key in ("class_logits", "confidence", "correction"))
+        log(f"[3f] bf16 model, route {route} ({sk}, wide_kernel {wide}), "
+            f"one {kgraph.x.shape[0]}-node flush: launches {c} (want "
+            f"{MODEL_LAYERS} of route {route}'s kernel), plain versions 0; "
+            f"vs the f32 model: class agreement {agree:.6f}, max |d "
+            f"confidence| {dconf:.3e}")
+        check(finite and agree >= 0.99, f"bf16 route {route} outputs")
+        flush[route] = dict(launches=c[route], agreement=agree,
+                            max_dconf=dconf)
+        del mb, m32, out, ref
+
+    # one "banded"-route Trainer step at dropout 0, card vs CPU
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.training.datasets import collate_samples
+    from bathymetric_gnn_tpu_torch.training.trainer import (
+        Trainer, _to_device_targets)
+
+    one = FixedSamples(samples.samples[:1])
+    cfg = Config()
+    cfg.graph.knn_k = KNN_K
+    cfg.model.dropout = 0.0
+    cfg.model.sparse_kernel = "banded"
+    cfg.training.class_weights = (1.0, 1.0, 1.0)
+    graph, targets = collate_samples(one.samples)
+    steps = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(cfg, one, output_dir=str(work / "banded_step"),
+                          device=device)
+        state = trainer.init_state(one[0].graph)
+        ell = trainer.sparse_batch(graph)
+        banded = trainer.banded_batch(ell)
+        zero()
+        t0 = time.perf_counter()
+        losses, _ = trainer.train_step(
+            state, ell.to(trainer.device),
+            _to_device_targets(targets, trainer.device), LR,
+            banded.to(trainer.device))
+        loss = float(losses["total"])
+        wall = time.perf_counter() - t0
+        steps[device] = (loss, {n: p.grad.detach().cpu() for n, p in
+                                state.model.named_parameters()
+                                if p.grad is not None}, counts(), wall,
+                         len(list(state.model.parameters())))
+    lk, gk, ck, wk, n_par = steps["cuda"]
+    lc, gc, _, wc, _ = steps["cpu"]
+    check(np.isfinite(lk) and len(gk) == n_par and all(
+        bool(torch.isfinite(v).all()) for v in gk.values()),
+        "banded step: loss or gradients")
+    check(ck == dict(C=0, E=0, D=0, other=0), f"banded step launches {ck}")
+    # card vs CPU: other summation orders (cuBLAS, atomic index_add_) through
+    # four batch-statistics BatchNorms move the gradients of the leaves
+    # that sum over all nodes (biases, att_edge) by up to ~1e-3 of their
+    # scale, in the worst entry and in relative L2 alike (measured on an
+    # H100: 9.9e-4 to 1.004e-3 and 9.4e-4 to 9.6e-4; 3d's kernels vs plain
+    # on one card: ~9e-4), so each leaf is held within 5e-3 in both; a
+    # wrong gradient is off by O(1). The GAT biases, whose gradient is ~0
+    # under BatchNorm, are measured against the largest gradient of all,
+    # and in L2 against a leaf of their size at that gradient.
+    big = max(r.abs().max().item() for r in gc.values())
+    worst, worst_l2 = (0.0, ""), (0.0, "")
+    for name, r in gc.items():
+        d = gk[name] - r
+        if "GATConv" in name and name.endswith(".bias"):
+            scale, norm = big, big * r.numel() ** 0.5
+        else:
+            scale, norm = r.abs().max().item() + 1e-12, r.norm().item()
+        worst = max(worst, (d.abs().max().item() / scale, name))
+        worst_l2 = max(worst_l2, (d.norm().item() / (norm + 1e-12), name))
+    rel = abs(lk - lc) / abs(lc)
+    log(f"[3f] one Trainer step on sparse_kernel \"banded\" (dropout 0, full "
+        f"width, one 256^2 tile, N={ell.x.shape[0]}): loss {lk:.6f} on the "
+        f"card vs {lc:.6f} on the CPU (rel {rel:.2e}, tol 1e-4); {len(gk)} "
+        f"of {n_par} parameters with a finite gradient; worst entry "
+        f"{worst[0]:.3e} of scale ({worst[1]}, tol 5e-3), worst relative L2 "
+        f"{worst_l2[0]:.3e} ({worst_l2[1]}, tol 5e-3); kernel launches {ck} "
+        f"(the JAX route runs no kernel either); {wk:.3f} s card, {wc:.3f} s "
+        f"CPU (host clock)")
+    check(rel <= 1e-4 and worst[0] <= 5e-3 and worst_l2[0] <= 5e-3,
+          "banded step: card vs CPU")
+    return dict(flush=flush, banded_step=dict(
+        loss_card=lk, loss_cpu=lc, worst_grad=worst[0],
+        worst_grad_l2=worst_l2[0]))
+
+
+# -- phase 4f: timings of the bf16 forms --------------------------------------
+
+def bf16_step(torch, np, work, samples, route, dstep32):
+    """One k-NN train step of the bf16 model (full width, dropout 0.1, f32
+    master weights, the trainer's losses, clip and AdamW) on route C or D
+    on the merged batch: launch counts of its first run, ms (CUDA events)
+    and the device's busy share."""
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import make_ell_model
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
+    from bathymetric_gnn_tpu_torch.training.optim import AdamW
+    from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+
+    trainer, state, g, targets = knn_step_setup(torch, np, work, samples,
+                                                dropout=1.0 - KEEP)
+    s0 = samples[0].graph
+    model = make_ell_model(trainer.config.model, int(s0.x.shape[-1]),
+                           edge_dim=int(s0.edge_attr.shape[-1]),
+                           sparse_kernel="banded_pallas",
+                           dropout=1.0 - KEEP, compute_dtype="bfloat16")
+    model.load_state_dict(state.model.state_dict())
+    model.to(g.x.device)
+    banded = None
+    if route == "D":
+        for i in range(MODEL_LAYERS):
+            getattr(model.GNNBackbone_0, f"GATConv_{i}").wide_kernel = False
+        banded = band_ell(g.to("cpu"), band_rows=BAND_ROWS).to(g.x.device)
+    state = TrainState(model, AdamW(model.parameters(),
+                                    trainer.config.training.weight_decay), 0)
+    fn = lambda: trainer.train_step(state, g, targets, LR,  # noqa: E731
+                                    banded)
+    ef.train_launches = ef.bwd_launches = ef.launches = 0   # the main path
+    eb.v2_launches = eb.v2_bwd_launches = eb.band_launches = 0
+    sr.launches = 0
+    fa_dtypes = []
+    call_fa = sr.call_kernel
+
+    def seen(ct, *a, **k):
+        fa_dtypes.append(ct.dtype)
+        return call_fa(ct, *a, **k)
+
+    with mock.patch.object(sr, "call_kernel", seen):
+        losses, _ = fn()
+        torch.cuda.synchronize()
+    counts = dict(c=ef.train_launches, cp=ef.bwd_launches, d=eb.v2_launches,
+                  dp=eb.v2_bwd_launches, f=sr.launches,
+                  f_a_bf16=sum(dt == torch.bfloat16 for dt in fa_dtypes),
+                  other=ef.launches + eb.band_launches)
+    L = MODEL_LAYERS
+    want = (dict(c=L, cp=L, d=0, dp=0, f=L, f_a_bf16=0, other=0)
+            if route == "C" else
+            dict(c=0, cp=0, d=L, dp=L, f=3 * L, f_a_bf16=L, other=0))
+    check(counts == want, f"bf16 route {route} step launches {counts}")
+    check(bool(torch.isfinite(losses["total"])), "bf16 step loss")
+    missing = [nm for nm, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not missing, f"no finite gradient for {missing}")
+    ms = cuda_ms(torch, fn, 5, warmup=1)
+    wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
+    busy = log_profile("4f", f"3 bf16 route-{route} k-NN train steps", wall,
+                       prows, top=8)
+    log(f"[4f] bf16 k-NN train step on route {route} (merged batch N="
+        f"{g.x.shape[0]}, full width, dropout {1 - KEEP:.1f}, f32 master "
+        f"weights): launches {counts}; {ms:.3f} ms (CUDA events) vs the f32 "
+        f"step on route {route} {dstep32:.3f} ms: {ms / dstep32:.3f} x")
+    return dict(ms=ms, busy_share=busy, counts=counts,
+                device_ms=sum(r[0] for r in prows) / 3)
+
+
+def phase_bf16_timings(torch, np, ecases, kcases, becases, bdcases, kmodel,
+                       kgraph, work, samples, f32):
+    """CUDA-event times of each bf16 form against its bound (bf16 streams
+    at 2 bytes) and its plain version: C (serving) and E at the flush's
+    shapes; C's training form (Philox), C' (without F, and with F (b) in
+    the same call), F (a) on a bf16 cotangent, D and D' at the training
+    batch's; the bf16 flush forward on route C; one bf16 train step on
+    routes C and D beside the f32 steps of phases 4d and 4e."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    bf = "bfloat16"
+    rows = dict(C=[], E=[], Ct=[], D=[])
+    with torch.no_grad():
+        for label, kw, dims in ecases[:2]:
+            kb = bf16_kw(kw)
+            kargs = ef.kernel_args(**kb)
+            ms = cuda_ms(torch, lambda: ef.call_kernel(**kargs), 20)
+            plain_ms = cuda_ms(torch, lambda: ef.ell_gat_reference(**kb), 5,
+                               warmup=1)
+            b = ell_bound(dims, bf)
+            rows["C"].append(dict(shape=bf16_label(label), ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b[0],
+                                  bound_by=b[1], bytes=b[2], flops=b[3]))
+            log(f"[4f] C {bf16_label(label)}: {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms by {b[1]} "
+                f"({b[2] / 1e6:.1f} MB), {b[0] / ms:.3f} of bound")
+            del kargs
+        for label, kw, banded, dims in becases:
+            xh = kw["xh"].bfloat16()
+            n, heads, c = xh.shape
+            args = (xh, kw["a_cat_mat"], kw["el_t"], kw["el_self_t"], banded)
+            kargs = eb.kernel_args(xh.reshape(n, heads * c), kw["a_cat_mat"],
+                                   banded.loc_t, kw["el_t"], kw["el_self_t"],
+                                   band_rows=banded.band_rows)
+            ms = cuda_ms(torch, lambda: eb.call_band_kernel(**kargs), 20)
+            plain_ms = cuda_ms(torch, lambda: eb.band_part_reference(*args),
+                               5, warmup=1)
+            b = band_bounds(dims, dtype=bf)["E"]
+            rows["E"].append(dict(shape=bf16_label(label), ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b[0],
+                                  bound_by=b[1], bytes=b[2], flops=b[3]))
+            log(f"[4f] E {bf16_label(label)}: {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms by {b[1]} "
+                f"({b[2] / 1e6:.1f} MB), {b[0] / ms:.3f} of bound")
+            del kargs
+    for i, (label, kw, (perm, row_ptr), dims) in enumerate(kcases[:2]):
+        kb = bf16_kw(kw)
+        dev = kb["xh"].device
+        n, k, heads, hc = dims["n"], dims["k"], dims["heads"], dims["hc"]
+        seed = torch.tensor([SEED + 85 + i], dtype=torch.int64, device=dev)
+        args = ef.kernel_args(**kb, drop_seed=seed, keep_prob=KEEP,
+                              train=True)
+        bkw = {nm: args[nm] for nm in (
+            "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask",
+            "dmask", "seed", "n", "k", "heads", "c", "negative_slope",
+            "has_self", "drop_mode", "thresh", "keep_inv", "dtype")}
+        p32, r32 = perm.int().contiguous(), row_ptr.int().contiguous()
+        g = torch.randn(n, hc, generator=torch.Generator().manual_seed(
+            SEED + 86)).to(dev).bfloat16()
+        c_ms = cuda_ms(torch, lambda: ef.call_kernel(**args), 10)
+        cp_ms = cuda_ms(torch, lambda: ef.call_bwd_kernel(
+            **bkw, perm=p32, row_ptr=r32, g=g, source_side=False), 10)
+        call_ms = cuda_ms(torch, lambda: ef.call_bwd_kernel(
+            **bkw, perm=p32, row_ptr=r32, g=g), 10)
+        mask = ef.drop_mask(seed, KEEP, n, k, heads)
+        with torch.no_grad():
+            pc_ms = cuda_ms(torch, lambda: ef.ell_gat_reference(
+                **kb, dmask=mask), 3, warmup=1)
+        leaves = {nm: kb[nm].detach().clone().requires_grad_()
+                  for nm in ELL_LEAVES}
+        ref = ef.ell_gat_reference(**{**kb, **leaves}, dmask=mask)
+        pcp_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, list(leaves.values()), g, retain_graph=True), 3, warmup=1)
+        del ref, leaves
+        src, _ = fa_inputs(torch, kw)
+        ct = torch.randn(src.numel(), hc, generator=torch.Generator(
+            ).manual_seed(SEED + 87)).to(dev).bfloat16()
+        pa, ra = fa_tables(torch, src, n)
+        fa_ms = cuda_ms(torch, lambda: sr.call_kernel(ct, pa, ra, n), 10)
+        pfa_ms = cuda_ms(torch, lambda: sr.segment_reduce_reference(
+            ct, pa, ra, n), 3, warmup=1)
+        bd = knn_train_bounds(dims, bf)
+        rows["Ct"].append(dict(
+            shape=bf16_label(label), c_ms=c_ms, c_plain_ms=pc_ms,
+            c_bound_ms=bd["C"][0], c_bound_by=bd["C"][1], cp_ms=cp_ms,
+            cp_call_with_f_ms=call_ms, cp_plain_ms=pcp_ms,
+            cp_bound_ms=bd["Cp"][0], cp_bound_by=bd["Cp"][1], fa_ms=fa_ms,
+            fa_plain_ms=pfa_ms, fa_bound_ms=bd["Fa"][0],
+            fa_bound_by=bd["Fa"][1],
+            **{f"{nm}_bytes": bd[nm][2] for nm in ("C", "Cp", "Fa")}))
+        log(f"[4f] {bf16_label(label)}: C training {c_ms:.4f} ms (plain "
+            f"{pc_ms:.4f}, bound {bd['C'][0]:.4f} by {bd['C'][1]}, "
+            f"{bd['C'][0] / c_ms:.3f} of bound); C' {cp_ms:.4f} ms (with F (b)"
+            f" in the same call {call_ms:.4f}; plain autograd backward "
+            f"{pcp_ms:.4f}; bound {bd['Cp'][0]:.4f} by {bd['Cp'][1]}, "
+            f"{bd['Cp'][0] / cp_ms:.3f} of bound); F (a) on a bf16 "
+            f"{src.numel()} x {hc} cotangent {fa_ms:.4f} ms (plain "
+            f"{pfa_ms:.4f}, bound {bd['Fa'][0]:.4f} by {bd['Fa'][1]})")
+        del args, bkw, g, mask, ct, pa, ra, src
+    for label, kw, banded, dims in bdcases:
+        xh = kw["xh"].bfloat16()
+        kb = bf16_kw(kw)
+        n, heads, c = xh.shape
+        with torch.no_grad():
+            l_spill, xh_spill = eb._spill_inputs(
+                xh.reshape(n, heads * c), kw["a_src"], kw["a_dst"],
+                kw["m_edge"], banded, 0.2, eb._plain_gather)
+            kargs = eb.kernel_args(
+                xh.reshape(n, heads * c), kw["a_cat_mat"], banded.loc_t,
+                kw["el_t"], kw["el_self_t"], l_spill, xh_spill,
+                banded.spill_dst_local_b, band_rows=banded.band_rows)
+            g = torch.randn(n, heads * c, generator=torch.Generator(
+                ).manual_seed(SEED + 97)).to(xh.device).bfloat16()
+            bkw = {nm: kargs[nm] for nm in (
+                "xh", "acat", "loc", "el", "el_self", "l_spill", "xh_spill",
+                "dst_loc", "dmask", "dmask_sp", "n", "k", "heads", "c", "r",
+                "s_max", "negative_slope", "dtype")}
+            perm = banded.band_perm.int().contiguous()
+            row_ptr = banded.band_row_ptr.int().contiguous()
+            d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs), 10)
+            dp_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
+                **bkw, dout=g, perm=perm, row_ptr=row_ptr), 10)
+            pd_ms = cuda_ms(torch, lambda: eb.fused_v2_reference(
+                **kb, banded=banded), 3, warmup=1)
+        leaves = {nm: kb[nm].detach().clone().requires_grad_()
+                  for nm in V2_LEAVES if kb.get(nm) is not None}
+        ref = eb.fused_v2_reference(**{**kb, **leaves}, banded=banded)
+        pdp_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, list(leaves.values()), g, retain_graph=True), 3, warmup=1)
+        del ref, leaves
+        bd = band_bounds(dims, dtype=bf)
+        rows["D"].append(dict(
+            shape=bf16_label(label), d_ms=d_ms, d_plain_ms=pd_ms,
+            d_bound_ms=bd["D"][0], d_bound_by=bd["D"][1], dp_ms=dp_ms,
+            dp_plain_ms=pdp_ms, dp_bound_ms=bd["Dp"][0],
+            dp_bound_by=bd["Dp"][1],
+            **{f"{nm}_bytes": bd[nm][2] for nm in ("D", "Dp")}))
+        log(f"[4f] D {bf16_label(label)}: {d_ms:.4f} ms (plain {pd_ms:.4f}, "
+            f"bound {bd['D'][0]:.4f} by {bd['D'][1]}, {bd['D'][0] / d_ms:.3f}"
+            f" of bound); D' {dp_ms:.4f} ms (plain autograd backward "
+            f"{pdp_ms:.4f}, bound {bd['Dp'][0]:.4f} by {bd['Dp'][1]}, "
+            f"{bd['Dp'][0] / dp_ms:.3f} of bound)")
+        del kargs, bkw, g, l_spill, xh_spill
+
+    mb = routed_model(torch, kmodel, "banded_pallas", True, bf)
+    m32 = routed_model(torch, kmodel, "banded_pallas", True, "float32")
+    with torch.no_grad():
+        t32 = cuda_ms(torch, lambda: m32(kgraph), 5, warmup=2)
+        flush_ms = cuda_ms(torch, lambda: mb(kgraph), 5, warmup=2)
+        for name, m in (("f32", m32), ("bf16", mb)):
+            wall, prows = device_profile(
+                torch, lambda m=m: [m(kgraph) for _ in range(5)])
+            log_profile("4f", f"5 {name} flush forwards (route C)", wall,
+                        prows, top=8)
+    log(f"[4f] bf16 EllBathymetricGNN forward, one {kgraph.x.shape[0]}-node "
+        f"flush (route C, 4 bf16 kernel C launches): {flush_ms:.3f} ms vs "
+        f"{t32:.3f} ms in f32 timed beside it ({f32['flush_ms']:.3f} in 4c):"
+        f" {flush_ms / t32:.3f} x")
+    del mb, m32
+    steps = {route: bf16_step(torch, np, work, samples, route,
+                              f32[f"step_{route}"])
+             for route in ("C", "D")}
+    return rows, flush_ms, steps
+
+
+def bf16_entries(errs, bmod, rows, flush_ms, steps):
+    """The kernels line's entries of the bf16 forms: launches from the bf16
+    main paths (phase 3f's flush for C and E, phase 4f's bf16 train steps
+    for C's training form, C', D, D' and F), errors from phase 2f, times
+    and bounds from phase 4f."""
+    src = "bathymetric_gnn_tpu_torch/csrc/"
+    rep = "bathymetric_gnn_tpu/ops/pallas/"
+    c, e, ct, d = rows["C"][0], rows["E"][0], rows["Ct"][0], rows["D"][0]
+    sc, sd = steps["C"], steps["D"]
+    common = dict(route="cuda", library_ms=None, dtype="bfloat16")
+    return [{
+        "name": "ell_gat_fwd_bf16", "source": src + "ell_gat_fwd.cu",
+        "replaces": rep + "ell_gat_fused.py:1107",
+        "launches": bmod["flush"]["C"]["launches"],
+        "max_abs_err": errs[("C", c["shape"])], "ms": c["ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "at": c["shape"], "shapes": rows["C"],
+        "model_forward_ms_per_flush": flush_ms,
+        "class_agreement_with_f32": bmod["flush"]["C"]["agreement"],
+        **common,
+    }, {
+        "name": "ell_gat_fwd_train_bf16", "source": src + "ell_gat_fwd.cu",
+        "replaces": rep + "ell_gat_fused.py:1107",
+        "launches": sc["counts"]["c"],
+        "max_abs_err": errs[("Ct", ct["shape"])], "ms": ct["c_ms"],
+        "plain_ms": ct["c_plain_ms"], "bound_ms": ct["c_bound_ms"],
+        "bound_by": ct["c_bound_by"], "at": ct["shape"],
+        "shapes": rows["Ct"], "train_step": sc, **common,
+    }, {
+        "name": "ell_gat_bwd_bf16", "source": src + "ell_gat_bwd.cu",
+        "replaces": rep + "ell_gat_fused.py:1258",
+        "launches": sc["counts"]["cp"],
+        "max_abs_err": errs[("Cp", ct["shape"])], "ms": ct["cp_ms"],
+        "plain_ms": ct["cp_plain_ms"], "bound_ms": ct["cp_bound_ms"],
+        "bound_by": ct["cp_bound_by"], "at": ct["shape"], **common,
+    }, {
+        "name": "ell_gat_band_bf16", "source": src + "ell_gat_band.cu",
+        "replaces": rep + "ell_gat_fused.py:88",
+        "launches": bmod["flush"]["E"]["launches"],
+        "max_abs_err": errs[("E", e["shape"])], "ms": e["ms"],
+        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "at": e["shape"], "shapes": rows["E"],
+        "class_agreement_with_f32": bmod["flush"]["E"]["agreement"],
+        **common,
+    }, {
+        "name": "ell_gat_v2_fwd_bf16", "source": src + "ell_gat_v2_fwd.cu",
+        "replaces": rep + "ell_gat_fused.py:268",
+        "launches": sd["counts"]["d"],
+        "max_abs_err": errs[("D", d["shape"])], "ms": d["d_ms"],
+        "plain_ms": d["d_plain_ms"], "bound_ms": d["d_bound_ms"],
+        "bound_by": d["d_bound_by"], "at": d["shape"], "shapes": rows["D"],
+        "serving_flush_launches": bmod["flush"]["D"]["launches"],
+        "train_step": sd, **common,
+    }, {
+        "name": "ell_gat_v2_bwd_bf16", "source": src + "ell_gat_v2_bwd.cu",
+        "replaces": rep + "ell_gat_fused.py:625",
+        "launches": sd["counts"]["dp"],
+        "max_abs_err": errs[("Dp", d["shape"])], "ms": d["dp_ms"],
+        "plain_ms": d["dp_plain_ms"], "bound_ms": d["dp_bound_ms"],
+        "bound_by": d["dp_bound_by"], "at": d["shape"], **common,
+    }, {
+        "name": "segment_reduce_bf16", "source": src + "segment_reduce.cu",
+        "replaces": rep + "segment_reduce.py:52",
+        "mode": "a, on the bf16 spill-row cotangent of the route-D step",
+        "launches": sd["counts"]["f_a_bf16"],
+        "max_abs_err": errs[("Fa", ct["shape"])], "ms": ct["fa_ms"],
+        "plain_ms": ct["fa_plain_ms"], "bound_ms": ct["fa_bound_ms"],
+        "bound_by": ct["fa_bound_by"], "at": ct["shape"],
+        "mode_b_launches_in_bf16_route_c_step": sc["counts"]["f"],
+        **common,
+    }]
 
 
 # -- main --------------------------------------------------------------------------
@@ -2319,6 +2995,9 @@ def main() -> int:
         becases = band_cases(torch, np, kmodel, dev, kgraph, SEED + 90)
         bdcases = band_cases(torch, np, kmodel, dev, kbatch, SEED + 91)
         berrs = phase_banded_kernels_vs_plain(torch, becases, bdcases)
+        phase = "2f the bf16 forms vs plain"
+        ferrs = phase_bf16_kernels_vs_plain(torch, ecases, kcases, becases,
+                                            bdcases)
         phase = "3 end to end"
         e2e = phase_end_to_end(torch, np, model, work)
         pipe.load_model(e2e["ckpt"])
@@ -2333,6 +3012,9 @@ def main() -> int:
         phase_knn_step_kernel_vs_plain(torch, np, work, ksamples)
         phase = "3e k-NN serving on the banded route"
         bvr = phase_vr_banded(torch, np, work, vr)
+        phase = "3f the bf16 model and banded training"
+        bmod = phase_bf16_model(torch, np, kmodel, kgraph, becases[0][2],
+                                work, ksamples)
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         log(f"[4] end to end (cli.inference, load + 9 tiles + stitch + "
@@ -2350,6 +3032,11 @@ def main() -> int:
         phase = "4e kernels E, D and D' timings"
         berows, bdrows, dstep = phase_banded_timings(
             torch, np, becases, bdcases, kcases, work, ksamples)
+        phase = "4f bf16 timings"
+        frows, bflush_ms, bsteps = phase_bf16_timings(
+            torch, np, ecases, kcases, becases, bdcases, kmodel, kgraph,
+            work, ksamples, dict(flush_ms=flush_ms, step_C=kstep["ms"],
+                                 step_D=dstep["ms"]))
     except Exception:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         traceback.print_exc()
@@ -2506,6 +3193,7 @@ def main() -> int:
         "segment_reduce_mode_a_launches": dstep["counts"]["segment_reduce"],
         **dcommon,
     }]
+    kernels += bf16_entries(ferrs, bmod, frows, bflush_ms, bsteps)
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

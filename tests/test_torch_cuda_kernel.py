@@ -318,8 +318,9 @@ def test_ell_kernel_raises_under_grad_and_on_what_it_does_not_take(dev):
             "el_self": None}
     for fn in (ef.ell_gat_fused, ef.ell_gat_fused_train):
         with torch.no_grad():
-            with pytest.raises(ValueError, match="float32"):
-                fn(**{**kw, "xh": kw["xh"].bfloat16()})
+            # float32 and bfloat16 are taken (test_ell_kernel_bf16_*)
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
+                fn(**{**kw, "xh": kw["xh"].half()})
             with pytest.raises(ValueError, match="heads"):
                 fn(**wide)
     with pytest.raises(ValueError, match="dmask"):
@@ -373,7 +374,7 @@ def _ell_train_run(fn, kw, g=None, **extra):
     out = fn(**{**kw, **leaves}, **extra)
     if g is None:
         g = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
-                        ).to(out.device)
+                        ).to(out.device, out.dtype)
     # allow_unused: without a self loop the plain version never reads
     # el_self (its true gradient is 0)
     grads = torch.autograd.grad(out, list(leaves.values()), g,
@@ -503,7 +504,7 @@ def test_segment_reduce_gat_rows_matches_plain(dev, shape):
     bkw = {name: args[name] for name in (
         "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask", "dmask",
         "seed", "n", "k", "heads", "c", "negative_slope", "has_self",
-        "drop_mode", "thresh", "keep_inv")}
+        "drop_mode", "thresh", "keep_inv", "dtype")}
     g = torch.randn(n, heads * c, generator=torch.Generator().manual_seed(5)
                     ).to(dev)
     full = ef.call_bwd_kernel(**bkw, perm=perm.int(), row_ptr=row_ptr.int(),
@@ -661,7 +662,7 @@ def _v2_run(fn, kw, g=None):
     out = fn(**{**kw, **leaves})
     if g is None:
         g = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
-                        ).to(out.device)
+                        ).to(out.device, out.dtype)
     grads = torch.autograd.grad(out, list(leaves.values()), g)
     return out.detach(), dict(zip(leaves, grads)), g
 
@@ -769,3 +770,256 @@ def test_route_d_model_train_step_on_card_matches_cpu(dev):
         scale = (big if "GATConv" in name and name.endswith(".bias")
                  else r.abs().max().item() + 1e-6)
         assert (gk[name] - r).abs().max().item() <= 1e-3 * scale, name
+
+
+# -- the bf16 forms of kernels C, C', D, D', E and F ------------------------------
+#
+# Each against its plain version on the same bf16 inputs: outputs within
+# TOL[bf16] of (1 + |ref|) (one or two bf16 roundings of the output apart),
+# gradients within GRAD_TOL[bf16] of each leaf's largest |entry| (the
+# kernels round dy to bf16 where the JAX kernels' interpret mode does;
+# autograd of the plain version does not). Kernel E's outputs are f32 from
+# the same bf16 inputs: the f32 tolerance.
+
+ELL_SHAPES = [(65536 // 16, 8, 4, 64), (65536 // 16, 8, 1, 64),
+              (3000, 16, 4, 64), (1000, 8, 2, 6)]
+
+
+def _bf16(kw):
+    return {**kw, "xh": kw["xh"].bfloat16()}
+
+
+@pytest.mark.parametrize("shape", ELL_SHAPES)
+@pytest.mark.parametrize("self_loop,edge", [(True, True), (False, True),
+                                            (True, False)])
+def test_ell_kernel_bf16_matches_plain(dev, shape, self_loop, edge):
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    n, k, heads, c = shape
+    kw = _bf16(_ell_inputs(dev, n, k, heads, c, edge=edge))
+    with torch.no_grad():
+        n0 = ef.launches
+        out = ef.ell_gat_fused(**kw, self_loop=self_loop)
+        torch.cuda.synchronize()
+        assert ef.launches == n0 + 1
+        ref = ef.ell_gat_reference(**kw, self_loop=self_loop)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert err.max().item() <= TOL[torch.bfloat16], err.max().item()
+    assert torch.isfinite(out).all()
+    assert not out[~kw["node_mask"]].float().any()
+
+
+@pytest.mark.parametrize("shape", ELL_SHAPES)
+@pytest.mark.parametrize("drop", [False, True])
+def test_ell_train_kernels_bf16_match_plain(dev, shape, drop):
+    """Kernel C's bf16 training form and C' (+ F (b)) vs the plain bf16
+    forward and autograd of it; d xh comes back in bf16."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    n, k, heads, c = shape
+    kw = _bf16(_ell_inputs(dev, n, k, heads, c))
+    dmask = _ell_dmask(kw, heads) if drop else None
+    counts = (ef.train_launches, ef.bwd_launches, sr.launches)
+    out, grads, g = _ell_train_run(ef.ell_gat_fused_train, kw, dmask=dmask)
+    torch.cuda.synchronize()
+    assert (ef.train_launches, ef.bwd_launches, sr.launches) == tuple(
+        x + 1 for x in counts)
+    ref, rgrads, _ = _ell_train_run(ef.ell_gat_reference, kw, g,
+                                    dmask=dmask)
+    assert out.dtype == torch.bfloat16 and grads["xh"].dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert err.max().item() <= TOL[torch.bfloat16], err.max().item()
+    for name, a in grads.items():
+        r = rgrads[name].float()
+        assert torch.isfinite(a).all(), name
+        scale = r.abs().max().item() + 1e-6
+        d = (a.float() - r).abs().max().item()
+        assert d <= GRAD_TOL[torch.bfloat16] * scale, (name, d, scale)
+    assert not grads["xh"][~kw["node_mask"]].float().any()
+
+
+def test_ell_philox_bf16_fwd_bwd_agree(dev):
+    """Kernels C and C' in bf16 with the in-kernel draw equal (bit for bit)
+    the same kernels given the draw as a streamed mask."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    seed = torch.tensor([987654321], dtype=torch.int64, device=dev)
+    kw = _bf16(_ell_inputs(dev, 4096, 8, 4, 64))
+    mask = ef.drop_mask(seed, 0.9, 4096, 8, 4)
+    out_s, gr_s, g = _ell_train_run(ef.ell_gat_fused_train, kw,
+                                    drop_seed=seed, keep_prob=0.9)
+    out_m, gr_m, _ = _ell_train_run(ef.ell_gat_fused_train, kw, g,
+                                    dmask=mask)
+    assert torch.equal(out_s, out_m)
+    for name in gr_s:
+        assert torch.equal(gr_s[name], gr_m[name]), name
+
+
+@pytest.mark.parametrize("n,k,f", [(4096, 8, 256), (777, 5, 6)])
+def test_segment_reduce_bf16_matches_plain(dev, n, k, f):
+    """Kernel F mode (a) on a bf16 cotangent: f32 sums of the bf16 rows."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.ops.ell import src_sorted_slots
+
+    kw = _ell_inputs(dev, n, k, 1, 8)
+    src, live = kw["nbr_src"], kw["nbr_mask"] & kw["node_mask"][:, None]
+    perm, row_ptr = (torch.from_numpy(t).to(dev) for t in src_sorted_slots(
+        src.cpu().numpy(), live.cpu().numpy()))
+    ct = torch.randn(n * k, f, generator=torch.Generator().manual_seed(4)
+                     ).to(dev).bfloat16()
+    n0 = sr.launches
+    out = sr.segment_reduce_sorted(ct, perm, row_ptr, n)
+    torch.cuda.synchronize()
+    assert sr.launches == n0 + 1 and out.dtype == torch.float32
+    torch.testing.assert_close(
+        out, sr.segment_reduce_reference(ct, perm, row_ptr, n),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", BANDED_SHAPES)
+@pytest.mark.parametrize("self_loop,edge", [(True, True), (False, True)])
+def test_band_kernel_bf16_matches_plain(dev, shape, self_loop, edge):
+    """Kernel E's bf16 form: bf16 xh and a_cat_mat, f32 y, m and denom."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    n, k, heads, c, r = shape
+    kw = _banded_inputs(dev, n, k, heads, c, r, self_loop=self_loop,
+                        edge=edge)
+    args = (kw["xh"].bfloat16(), kw["a_cat_mat"], kw["el_t"],
+            kw["el_self_t"], kw["banded"])
+    with torch.no_grad():
+        n0 = eb.band_launches
+        got = eb.ell_gat_band_part(*args)
+        torch.cuda.synchronize()
+        assert eb.band_launches == n0 + 1
+        want = eb.band_part_reference(*args)
+    for name, a, b in zip(("y", "m", "denom"), got, want):
+        assert a.dtype == torch.float32
+        err = ((a - b).abs() / (1 + b.abs())).max().item()
+        assert err <= TOL[torch.float32], (name, err)
+
+
+def _m_edge_terms(kw, g):
+    """sum_s |eattr_s| |d l_s| [edge_dim, heads] over the spill entries of
+    the plain version: the absolute terms of m_edge's gradient."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    b, xh = kw["banded"], kw["xh"]
+    n, heads, c = xh.shape
+    xf = xh.reshape(n, heads * c)
+    l_s, xs = eb._spill_inputs(xf, kw["a_src"], kw["a_dst"], kw["m_edge"],
+                               b, 0.2, eb._plain_gather)
+    l_s = l_s.detach().requires_grad_()
+    dm, dsp = kw["dropout_masks"] or (None, None)
+    out = eb._v2_plain(xf, kw["a_cat_mat"], b.loc_t, kw["el_t"],
+                       kw["el_self_t"], l_s, xs, b.spill_dst_local_b,
+                       band_rows=b.band_rows, dmask_t=dm, dmask_sp_b=dsp)
+    (dl,) = torch.autograd.grad(out, l_s, g)
+    dl = dl.permute(0, 2, 1).reshape(-1, heads).float()
+    ea = b.spill_eattr_b.reshape(-1, b.spill_eattr_b.shape[-1]).float()
+    return ea.abs().T @ dl.abs()
+
+
+@pytest.mark.parametrize("shape", BANDED_SHAPES)
+@pytest.mark.parametrize("drop", [False, True])
+def test_v2_kernels_bf16_match_plain(dev, shape, drop):
+    """Kernels D and D' in bf16 (F's mode (a) on the bf16 spill-row
+    cotangent) vs the plain bf16 forward and autograd of it.
+
+    m_edge's gradient is the sum over the spill entries of eattr_s d l_s,
+    whose terms cancel (a row's logit cotangents sum to ~0): on the one-head
+    graph it is 0.4 % of the sum of their absolute values. D' rounds dy to
+    bf16 in the spill part of d denom, as JAX's kernel does, where autograd
+    of the plain version does not, so m_edge is also allowed one bf16 step
+    (2^-8) of that absolute sum: the error bound of a sum whose terms are
+    each within one rounding."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    n, k, heads, c, r = shape
+    kw = _bf16(_banded_inputs(dev, n, k, heads, c, r, drop=drop))
+    counts = (eb.v2_launches, eb.v2_bwd_launches, sr.launches)
+    out, grads, g = _v2_run(eb.ell_gat_fused_v2, kw)
+    torch.cuda.synchronize()
+    assert (eb.v2_launches, eb.v2_bwd_launches, sr.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 3)
+    ref, rgrads, _ = _v2_run(eb.fused_v2_reference, kw, g)
+    assert out.dtype == torch.bfloat16 and grads["xh"].dtype == torch.bfloat16
+    err = ((out.float() - ref.float()).abs()
+           / (1 + ref.float().abs())).max().item()
+    assert err <= TOL[torch.bfloat16], err
+    for name, a in grads.items():
+        rr = rgrads[name].float()
+        assert torch.isfinite(a).all(), name
+        scale = rr.abs().max().item() + 1e-6
+        d = (a.float() - rr).abs()
+        allowed = GRAD_TOL[torch.bfloat16] * scale
+        if name == "m_edge":
+            allowed = allowed + 2.0 ** -8 * _m_edge_terms(kw, g)
+        assert bool((d <= allowed).all()), (name, d.max().item(), scale)
+
+
+@pytest.mark.parametrize("route", ["C", "D", "E"])
+def test_bf16_ell_model_on_card_matches_cpu(dev, route):
+    """EllBathymetricGNN(compute_dtype="bfloat16") at full width through
+    the bf16 kernels of one route on the card vs the same weights on the
+    CPU: classes agree on >= 99 % of the live nodes, confidence within
+    1e-2; in training mode (dropout 0, routes C and D) every gradient
+    within 2e-2 of its norm plus twice the distance between the CPU's bf16
+    and f32 gradients (rounding noise, as tests/test_torch_ell_bf16_model.py
+    measures it against JAX)."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import EllBathymetricGNN
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
+
+    rg = np.random.default_rng(3)
+    pos = (rg.random((3500, 2)) * 60).astype(np.float32)
+    x = rg.normal(size=(3500, 8)).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (4096,)
+    g = coo_to_ell(gb.build_knn_graph(x, pos, 8, depth=x[:, 0]).graph, 8)
+    banded = band_ell(g, band_rows=128)
+    live = torch.from_numpy(g.node_mask)
+
+    def build(dtype):
+        m = EllBathymetricGNN(
+            8, sparse_kernel="banded" if route == "E" else "banded_pallas",
+            generator=torch.Generator().manual_seed(0), compute_dtype=dtype)
+        for i in range(4):
+            getattr(m.GNNBackbone_0, f"GATConv_{i}").wide_kernel = \
+                route != "D"
+        return m
+
+    model = build("bfloat16")
+    with torch.no_grad():
+        cpu = model.eval()(g.to("cpu"), banded=banded.to("cpu"))
+        gpu = model.to(dev)(g.to(dev), banded=banded.to(dev))
+    agree = (gpu["predicted_class"].cpu() == cpu["predicted_class"])[live]
+    assert agree.float().mean().item() >= 0.99
+    d = (gpu["confidence"].cpu() - cpu["confidence"]).abs()[live].max()
+    assert d.item() <= 1e-2
+    if route == "E":
+        return
+
+    def grads(m, device):
+        m.to(device).train().zero_grad()
+        out = m(g.to(device), banded=banded.to(device))
+        (out["class_logits"].square().sum() + out["confidence"].sum()
+         + out["correction"].square().sum()).backward()
+        return {n: p.grad.detach().cpu().double()
+                for n, p in m.named_parameters()}
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    gk = grads(model, dev)
+    model.load_state_dict(state)
+    gc = grads(model.to("cpu"), "cpu")
+    m32 = build("float32")
+    m32.load_state_dict(state)
+    g32 = grads(m32, "cpu")
+    for name, r in gc.items():
+        err = (gk[name] - r).norm()
+        noise = (r - g32[name]).norm()
+        assert err <= 2e-2 * r.norm() + 2 * noise, (name, err, noise)
