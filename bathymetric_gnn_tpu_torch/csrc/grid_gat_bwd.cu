@@ -16,43 +16,67 @@
 // The caller sums the partials and forms dW_lin = dW + d(W@a) a_cat^T and
 // d a_cat = W^T d(W@a), as the JAX code does outside its kernel.
 //
-// Two kernels, launched back to back by one C entry. The Pallas kernel
-// does all of it per row block in one pass because a TPU grid step can
-// hold a whole 16 x 256 row block and its [F, HC] weight-grad partial in
-// VMEM. Here a block owns 8 x 16 cells; a per-block [F, HC] partial for
-// every such block would be 512 MB at 4 x 256^2 cells, and the two kinds
-// of product want different tilings. So:
-//  * grid_gat_bwd_attn_kernel (one block per 8 x 16 cells): recomputes xh
-//    for the cells two steps around the block (12 x 20; the softmax of the
-//    ring one step out needs a_src of its own neighbours, and those
-//    softmaxes feed dxh of the block's cells), the softmax of the 10 x 18
-//    ring, d(dropped weights) = xh[nbr] . g per slot and head, the softmax
-//    + LeakyReLU backward, and writes dxh, d_ad, dM_edge and dbias
-//    partials. xh lives only in shared memory, as in the Pallas kernel.
-//  * grid_gat_bwd_products_kernel: one register-tiled SIMT product routine
-//    with two roles chosen by block index: dx tiles (cells x F, depth
-//    HC + 2h) and weight-grad tiles ([F, HC + 2h], depth = one split of
-//    the cells; one f32 partial per split).
-// All products run in these kernels' bodies with f32 accumulation. With
-// bf16 streams (the JAX kernel's `lowp`): x, W, W@a, el, g, the edge
+// What bounds it on an H100 SXM (3.35 TB/s; tensor cores 989 TFLOP/s
+// bf16, 495 TF32; 67 TFLOP/s FP32 outside them). For the 256 -> 256,
+// 4-head layer on 4 x 256^2 cells in f32 the function must do three
+// [262144 x 256] x [256 x 264] products (xh and dots recompute, dx, dW and
+// d(W@a)): ~106 GFLOP, which run as 3xTF32 (grid_gat_mma.cuh; the dots'
+// 3 % on the CUDA cores) at 495/3 = 165 TFLOP/s, ~0.64 ms, plus ~1.2
+// GFLOP of 9-way sums on the CUDA cores, against ~0.9 GB of traffic
+// (~0.27 ms): bound by operations. bf16 (MMA at 989 TFLOP/s, half the
+// bytes) is bound by bytes.
+//
+// Design: two kernels, launched back to back by one C entry, every product
+// but the attention dots on the tensor cores through gridmma (mma.sync,
+// not wgmma; 3xTF32 for f32, bf16 MMA with f32 accumulation for bf16):
+//  * grid_gat_bwd_attn_kernel, one block of 8 warps per 8 x 28 cells
+//    (12 x 12 at 8 heads). It recomputes xh, in 32-channel chunks, for the
+//    cells two steps around the block (12 x 32 = 384 = 24 m16 tiles, 3 a
+//    warp; 16 x 16 at 8 heads): the softmax of the ring one step out needs
+//    a_src of its own neighbours, and those softmaxes feed dxh of the
+//    block's cells. That is 1.71x the block's cells (2.0x in the 8 x 16
+//    SIMT version, 240 cells padded to 256 rows); x and W stream through a
+//    double-buffered cp.async ring, and each W chunk is split (transposed
+//    in bf16) once for all warps (gridmma::prep_b). The attention dots are
+//    f32 FMAs from
+//    the same staged x in ascending k, bit for bit kernel A's (its note
+//    says why they stay off the tensor cores). Then, in f32: the softmax of
+//    the ring-1 cells (kept as the dropped weights w' = w * mask), dxh of
+//    the block's cells, d(w') = xh[nbr] . g per slot and head; after the
+//    last chunk, the softmax weights and dropout multipliers are
+//    recomputed (cheaper in shared memory than keeping them: the 8-head
+//    form fits only so) for the softmax + LeakyReLU backward, d_ad and the
+//    dM_edge / dbias partials. dxh and the cotangent loads take 4
+//    channels a thread. Shared memory at 4 heads, f32: staging ring
+//    68,608 B (the xh chunk, 61,440 B, aliases it), dots 10,944 B, the
+//    cotangent chunk 43,200 B, w' and d(w') 86,400 B, the split W chunk
+//    5,120 B: 214,272 B, one block an SM. x is staged once per 32-channel
+//    chunk (8 times at HC 256, from L2): a wider chunk does not fit beside
+//    w', d(w') and g.
+//  * grid_gat_bwd_products_kernel: a 256 x 128 block tile of 8 warps (64 x
+//    64 each: a 32 x 32 warp tile reads 128 bytes of shared memory per
+//    MMA, as much as the SM's shared memory delivers a cycle), a
+//    3-deep cp.async ring, with two roles chosen by block index: weight-grad
+//    tiles first ([F, HC + 2h], depth = one split of the cells, both
+//    operands M/N-major; one f32 partial per split, no atomics, so the
+//    gradients repeat bit for bit), then dx tiles (cells x F, depth
+//    HC + 2h, both operands K-major).
+// The split keeps dxh and d_ad's round trip through device memory: at the
+// 4 x 256^2 layer that is 262144 x 264 values written once and read twice
+// (~0.83 GB in f32, ~0.25 ms at 3.35 TB/s). Fusing dx into the attention
+// kernel would save the dx role's read but needs [W | W@a] (270 KB in f32)
+// or a second K loop per block, and the dW role still needs dxh of every
+// cell; so the two kernels stay.
+// With bf16 streams (the JAX kernel's `lowp`): x, W, W@a, el, g, the edge
 // attributes, dxh and d_ad are bf16 (the Pallas kernel rounds dxh and d_ad
 // to bf16 at its dot inputs too); the softmax, its backward and every
 // partial are f32.
-//
-// What bounds it on an H100 SXM (67 TFLOP/s FP32 outside the tensor cores,
-// 3.35 TB/s). For the 256 -> 256, 4-head layer on 4 x 256^2 cells in f32
-// the function must do three [262144 x 256] x [256 x 256] products (xh
-// recompute, dx, dW): ~103 GFLOP, ~1.5 ms at the FP32 rate, against
-// ~0.9 GB of traffic (~0.27 ms), so it is bound by operations. This
-// version does more: the attention kernel recomputes xh for 240 cells per
-// 128 (1.9x), dxh and d_ad make a round trip through device memory, and
-// the products are plain SIMT tiles (4 x 4 outputs a thread). Tensor cores
-// and fusing the two kernels are later work.
 
 #include <math.h>
 #include <stddef.h>
 
 #include "grid_gat_common.cuh"
+#include "grid_gat_mma.cuh"
 
 namespace {
 
@@ -65,61 +89,67 @@ using gridgat::to_f;
 
 // ---- attention backward -------------------------------------------------
 
-constexpr int TH = 8;                    // block cells: rows
-constexpr int TW = 16;                   //              cols
-constexpr int NCELL = TH * TW;           // 128
-constexpr int H1W = TW + 2;              // ring 1: 10 x 18 cells
-constexpr int NH1 = (TH + 2) * H1W;      // 180
-constexpr int H2W = TW + 4;              // ring 2: 12 x 20 cells
-constexpr int NH2 = (TH + 4) * H2W;      // 240
-constexpr int RM = 8;                    // product rows per thread
-constexpr int RN = 8;                    // product cols per thread
-constexpr int MROWS = 32 * RM;           // 256 >= NH2, padded with zeros
-constexpr int NC = RN * 8;               // 64 channels per chunk
-constexpr int KC = 32;                   // input features per staging step
-constexpr int NTHREADS = 256;
-constexpr int XS_STRIDE = MROWS + 4;     // staged x, transposed [KC][..]
-constexpr int XH_STRIDE = NC + 4;        // xh chunk [MROWS][..]
-constexpr int GS_STRIDE = NC + 1;        // cotangent chunk [NH1][..]
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = 32 * NWARPS;
+constexpr int NC = 32;                   // channels per chunk
+constexpr int WSB = NC + 24;             // staged W row: NC + dots + pad
+constexpr int XH = NC + 8;               // xh chunk row (f32)
+constexpr int GS = NC + 4;               // cotangent chunk row (f32)
 constexpr int NSLOT = MAXK + 1;          // slot MAXK holds the self loop
 constexpr int MAXED = 4;                 // edge attributes handled
-constexpr int U_FLOATS =
-    (KC * XS_STRIDE > MROWS * XH_STRIDE) ? KC * XS_STRIDE : MROWS * XH_STRIDE;
 
-static_assert(NH2 <= MROWS, "ring-2 rows must fit the padded product");
-static_assert(NTHREADS % NC == 0, "dxh maps threads to channels");
-static_assert(NCELL <= NTHREADS, "dM_edge maps threads to cells");
-static_assert(U_FLOATS % 4 == 0 && XS_STRIDE % 4 == 0, "16B alignment");
-
-template <int HEADS>
-constexpr int attn_smem_floats() {
-  return U_FLOATS + KC * NC + KC * 2 * HEADS + NH2 * HEADS + NH1 * HEADS +
-         NH1 * GS_STRIDE + 3 * NSLOT * HEADS * NH1;
-}
-
-__device__ __forceinline__ int ring1(int ly, int lx) {
-  return (ly + 1) * H1W + lx + 1;
-}
-__device__ __forceinline__ int ring2(int ly, int lx) {
-  return (ly + 2) * H2W + lx + 2;
-}
+template <typename T, int HEADS>
+struct Cfg {
+  static constexpr int TH = HEADS == 8 ? 12 : 8;    // block cells: rows
+  static constexpr int TW = HEADS == 8 ? 12 : 28;   //              cols
+  static constexpr int NCELL = TH * TW;
+  static constexpr int H1W = TW + 2;                // ring 1
+  static constexpr int NH1 = (TH + 2) * H1W;
+  static constexpr int H2W = TW + 4;                // ring 2
+  static constexpr int NH2 = (TH + 4) * H2W;        // 384 (256)
+  static constexpr int MT = NH2 / 16 / NWARPS;
+  static constexpr int ND = 2 * HEADS <= 8 ? 8 : 16;
+  static constexpr int NT = NC / 8;
+  static constexpr int RPT = (NH2 + NTHREADS - 1) / NTHREADS;
+  static constexpr int KC = 64 / (int)sizeof(T);
+  static constexpr int VEC = 16 / (int)sizeof(T);
+  static constexpr int XS = KC + VEC;
+  static constexpr int STAGE = NH2 * XS * (int)sizeof(T) +
+                               KC * WSB * (int)sizeof(T);
+  static constexpr int NSTAGE = 2;                  // ring depth
+  static constexpr int XH_BYTES = NH2 * XH * 4;
+  static constexpr int UNION =
+      XH_BYTES > NSTAGE * STAGE ? XH_BYTES : NSTAGE * STAGE;
+  // W's chunk split (f32) or transposed (bf16) once for all warps
+  static constexpr int PREP_OFF =
+      UNION + 4 * (NH2 * HEADS + NH1 * HEADS + NH1 * GS +
+                   2 * NSLOT * HEADS * NH1);
+  static constexpr int PREP_BYTES =
+      gridmma::Prep<T>::WORDS * NC * XS *
+      (int)sizeof(typename gridmma::Prep<T>::type);
+  static constexpr int SMEM = PREP_OFF + PREP_BYTES;
+  static_assert(NH2 % (16 * NWARPS) == 0, "ring-2 rows: whole m16 tiles");
+  static_assert(NCELL <= NTHREADS, "dM_edge maps threads to cells");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+  static_assert(STAGE % 16 == 0 && UNION % 16 == 0, "16B alignment");
+};
 
 // Logits of ring-1 cell r1, head h, in slots 0..MAXK (self at MAXK; -inf
 // for slots >= K and neighbours outside the tile), exactly as kernel A
 // forms them. Returns false when the cell itself lies outside the tile.
-template <typename T, int HEADS>
+template <typename T, int HEADS, typename G>
 __device__ __forceinline__ bool cell_logits(
     int r1, int h, float* lg, const float* as_s, const float* ad_s,
     const T* __restrict__ el, const T* __restrict__ el_self, int b, int y0,
     int x0, int H, int W, int K, int conn_idx, float slope, int& gy,
     int& gx) {
-  const int ly = r1 / H1W - 1, lx = r1 % H1W - 1;
+  const int ly = r1 / G::H1W - 1, lx = r1 % G::H1W - 1;
   gy = y0 + ly;
   gx = x0 + lx;
   if (gy < 0 || gy >= H || gx < 0 || gx >= W) return false;
   const size_t plane = (size_t)H * W;
   const size_t pix = (size_t)gy * W + gx;
-  const int r2 = ring2(ly, lx);
+  const int r2 = (ly + 2) * G::H2W + lx + 2;
   const float ad = ad_s[r1 * HEADS + h];
   lg[MAXK] = leaky(as_s[r2 * HEADS + h] + ad +
                        to_f(el_self[((size_t)b * HEADS + h) * plane + pix]),
@@ -132,7 +162,7 @@ __device__ __forceinline__ bool cell_logits(
       const int ny = gy + dr, nx = gx + dc;
       if (ny >= 0 && ny < H && nx >= 0 && nx < W)
         lg[k] = leaky(
-            as_s[(r2 + dr * H2W + dc) * HEADS + h] + ad +
+            as_s[(r2 + dr * G::H2W + dc) * HEADS + h] + ad +
                 to_f(el[(((size_t)b * K + k) * HEADS + h) * plane + pix]),
             slope);
     }
@@ -140,8 +170,24 @@ __device__ __forceinline__ bool cell_logits(
   return true;
 }
 
+// softmax weights of the logits lg (in place), as kernel A takes them
+__device__ __forceinline__ void softmax_slots(float* lg) {
+  float m = lg[MAXK];
+#pragma unroll
+  for (int k = 0; k < MAXK; ++k) m = fmaxf(m, lg[k]);
+  float den = 0.f;
+#pragma unroll
+  for (int s = 0; s < NSLOT; ++s) {
+    lg[s] = expf(lg[s] - m);   // exp(-inf) = 0 for skipped slots
+    den += lg[s];
+  }
+  den = fmaxf(den, 1e-16f);
+#pragma unroll
+  for (int s = 0; s < NSLOT; ++s) lg[s] = lg[s] / den;
+}
+
 template <typename T, int HEADS>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 grid_gat_bwd_attn_kernel(
     const T* __restrict__ x, const T* __restrict__ wmat,
     const T* __restrict__ wa, const T* __restrict__ el,
@@ -150,19 +196,32 @@ grid_gat_bwd_attn_kernel(
     const T* __restrict__ mattr, T* __restrict__ dxh, T* __restrict__ dad,
     float* __restrict__ dme_part, float* __restrict__ db_part, int H, int W,
     int F, int HC, int K, int conn_idx, int ED, float slope, Drop drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* xsT = smem;                          // [KC][XS_STRIDE]
-  float* xh_s = smem;                         // [MROWS][XH_STRIDE] (alias)
-  float* ws = smem + U_FLOATS;                // [KC][NC]
-  float* was = ws + KC * NC;                  // [KC][2 * HEADS]
-  float* as_s = was + KC * 2 * HEADS;         // [NH2][HEADS]
-  float* ad_s = as_s + NH2 * HEADS;           // [NH1][HEADS]
-  float* gs = ad_s + NH1 * HEADS;             // [NH1][GS_STRIDE]
-  float* wt_s = gs + NH1 * GS_STRIDE;         // [NSLOT][HEADS][NH1]
-  float* dm_s = wt_s + NSLOT * HEADS * NH1;   // dropout multipliers
-  float* dw_s = dm_s + NSLOT * HEADS * NH1;   // d(w'), then d(logit)
+  using G = Cfg<T, HEADS>;
+  constexpr int TH = G::TH, TW = G::TW, H1W = G::H1W, NH1 = G::NH1;
+  constexpr int H2W = G::H2W, NH2 = G::NH2, NCELL = G::NCELL;
+  constexpr int MT = G::MT, NT = G::NT, KC = G::KC, VEC = G::VEC;
+  constexpr int XS = G::XS;
+  constexpr int SLOT_STRIDE = HEADS * NH1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using PT = typename gridmma::Prep<T>::type;
+  PT* bp = reinterpret_cast<PT*>(smem_raw + G::PREP_OFF);
+  PT* bp_lo = bp + NC * XS;
+  T* xs[G::NSTAGE];    // the staging ring: x and W (+ W@a) K chunks
+  T* wsb[G::NSTAGE];
+#pragma unroll
+  for (int s = 0; s < G::NSTAGE; ++s) {
+    xs[s] = reinterpret_cast<T*>(smem_raw + s * G::STAGE);
+    wsb[s] = xs[s] + NH2 * XS;
+  }
+  float* xh_s = reinterpret_cast<float*>(smem_raw);   // aliases the ring
+  float* as_s = reinterpret_cast<float*>(smem_raw + G::UNION);  // [NH2][h]
+  float* ad_s = as_s + NH2 * HEADS;                   // [NH1][HEADS]
+  float* gs = ad_s + NH1 * HEADS;                     // [NH1][GS]
+  float* wp_s = gs + NH1 * GS;                        // w': [NSLOT][h][NH1]
+  float* dw_s = wp_s + NSLOT * HEADS * NH1;           // d(w'), d(logit)
 
   const int tid = threadIdx.x;
+  const int warp = tid / 32;
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
@@ -170,143 +229,178 @@ grid_gat_bwd_attn_kernel(
   const int C = HC / HEADS;
   const size_t plane = (size_t)H * W;
   const T* xb = x + (size_t)b * plane * F;
-  const int ty = tid / 8;
-  const int tx = tid % 8;
-  constexpr int SLOT_STRIDE = HEADS * NH1;
+  const int row0 = warp * MT * 16;
+  const int nk = (F + KC - 1) / KC;
+  auto ring1 = [](int ly, int lx) { return (ly + 1) * H1W + lx + 1; };
 
   for (int i = tid; i < NSLOT * HEADS * NH1; i += NTHREADS) dw_s[i] = 0.f;
 
-  float dacc[2 * HEADS];
   for (int n0 = 0; n0 < HC; n0 += NC) {
     const bool first = n0 == 0;
     const int n1 = min(HC, n0 + NC);
-    float acc[RM][RN];
+
+    auto stage = [&](int kt, int buf) {
+      const int k0 = kt * KC;
+      for (int i = tid; i < NH2 * (KC / VEC); i += NTHREADS) {
+        const int r = i / (KC / VEC), v = i % (KC / VEC);
+        const int gy = y0 - 2 + r / H2W, gx = x0 - 2 + r % H2W;
+        const int f = k0 + v * VEC;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && f < F;
+        gridmma::stage_vec<T>(
+            xs[buf] + r * XS + v * VEC,
+            in ? xb + ((size_t)gy * W + gx) * F + f : x, in ? F - f : 0, x);
+      }
+      constexpr int WG = NC / VEC, DG = G::ND / VEC;
+      for (int i = tid; i < KC * (WG + DG); i += NTHREADS) {
+        const int kk = i / (WG + DG), v = i % (WG + DG);
+        const int f = k0 + kk;
+        T* dst = wsb[buf] + kk * WSB + v * VEC;
+        if (v < WG) {
+          const int col = n0 + v * VEC;
+          const bool in = f < F && col < HC;
+          gridmma::stage_vec<T>(dst, in ? wmat + (size_t)f * HC + col : wmat,
+                                in ? HC - col : 0, wmat);
+        } else if (first) {
+          const int col = (v - WG) * VEC;
+          const bool in = f < F && col < 2 * HEADS;
+          gridmma::stage_vec<T>(dst, in ? wa + (size_t)f * 2 * HEADS + col
+                                        : wa,
+                                in ? 2 * HEADS - col : 0, wa);
+        }
+      }
+    };
+
+    float acc[MT][NT][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 2 * HEADS; ++j) dacc[j] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    float dacc[G::RPT][2 * HEADS];
+#pragma unroll
+    for (int rr = 0; rr < G::RPT; ++rr)
+#pragma unroll
+      for (int j = 0; j < 2 * HEADS; ++j) dacc[rr][j] = 0.f;
 
     // xh (and, in the first chunk, the attention dots) of the ring-2 cells
-    for (int k0 = 0; k0 < F; k0 += KC) {
-      for (int i = tid; i < MROWS * KC; i += NTHREADS) {
-        const int r = i / KC, kk = i % KC;
-        float v = 0.f;
-        if (r < NH2) {
-          const int gy = y0 - 2 + r / H2W, gx = x0 - 2 + r % H2W;
-          const int f = k0 + kk;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W && f < F)
-            v = to_f(xb[((size_t)gy * W + gx) * F + f]);
-        }
-        xsT[kk * XS_STRIDE + r] = v;
-      }
-      for (int i = tid; i < KC * NC; i += NTHREADS) {
-        const int f = k0 + i / NC, col = n0 + i % NC;
-        ws[i] = (f < F && col < HC) ? to_f(wmat[(size_t)f * HC + col]) : 0.f;
-      }
+#pragma unroll
+    for (int s = 0; s < G::NSTAGE - 1; ++s) {
+      if (s < nk) stage(s, s);
+      gridmma::cp_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int buf = kt % G::NSTAGE;
+      gridmma::cp_wait<G::NSTAGE - 2>();
+      __syncthreads();   // chunk kt landed; chunk kt - 1's buffer is free
+      if (kt + G::NSTAGE - 1 < nk)
+        stage(kt + G::NSTAGE - 1, (kt + G::NSTAGE - 1) % G::NSTAGE);
+      gridmma::cp_commit();
+      gridmma::prep_b<KC, NC, NTHREADS>(wsb[buf], WSB, bp, bp_lo, XS);
+      __syncthreads();
+      gridmma::mma_chunk_pre<MT, NT, KC>(acc, xs[buf] + row0 * XS, XS, bp,
+                                         bp_lo, XS);
       if (first) {
-        for (int i = tid; i < KC * 2 * HEADS; i += NTHREADS) {
-          const int f = k0 + i / (2 * HEADS);
-          was[i] = f < F ? to_f(wa[(size_t)f * 2 * HEADS + i % (2 * HEADS)])
-                         : 0.f;
+        // the attention dots, f32 FMAs in ascending k (see the note)
+        const T* xr = xs[buf];
+        const T* wr = wsb[buf] + NC;
+#pragma unroll
+        for (int rr = 0; rr < G::RPT; ++rr) {
+          const int r = tid + rr * NTHREADS;
+          if (r >= NH2) break;
+#pragma unroll
+          for (int kk = 0; kk < KC; kk += 4) {
+            float xv[4];
+            gridgat::load4(xr + r * XS + kk, xv);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float wv[(2 * HEADS + 3) / 4 * 4];
+#pragma unroll
+              for (int j = 0; j < 2 * HEADS; j += 4)
+                gridgat::load4(wr + (kk + q) * WSB + j, wv + j);
+#pragma unroll
+              for (int j = 0; j < 2 * HEADS; ++j)
+                dacc[rr][j] = fmaf(xv[q], wv[j], dacc[rr][j]);
+            }
+          }
         }
       }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float* ar = xsT + kk * XS_STRIDE + ty * RM;
-        const float4 a03 = *reinterpret_cast<const float4*>(ar);
-        const float4 a47 = *reinterpret_cast<const float4*>(ar + 4);
-        const float a[RM] = {a03.x, a03.y, a03.z, a03.w,
-                             a47.x, a47.y, a47.z, a47.w};
-        const float* br = ws + kk * NC + tx * RN;
-        const float4 b0 = *reinterpret_cast<const float4*>(br);
-        const float4 b1 = *reinterpret_cast<const float4*>(br + 4);
-        const float bv[RN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    }
+    __syncthreads();   // the ring is free: xh_s aliases it
 #pragma unroll
-        for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      if (first && tid < NH2) {
-        for (int kk = 0; kk < KC; ++kk) {
-          const float xv = xsT[kk * XS_STRIDE + tid];
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int j = 0; j < 2 * HEADS; ++j)
-            dacc[j] = fmaf(xv, was[kk * 2 * HEADS + j], dacc[j]);
+        for (int e = 0; e < 4; ++e)
+          xh_s[(row0 + 16 * i + gridmma::acc_row(e)) * XH + 8 * j +
+               gridmma::acc_col(e)] = acc[i][j][e];
+    if (first) {
+#pragma unroll
+      for (int rr = 0; rr < G::RPT; ++rr) {
+        const int r = tid + rr * NTHREADS;
+        if (r >= NH2) break;
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) as_s[r * HEADS + h] = dacc[rr][h];
+        const int ly = r / H2W - 2, lx = r % H2W - 2;
+        if (ly >= -1 && ly <= TH && lx >= -1 && lx <= TW) {
+#pragma unroll
+          for (int h = 0; h < HEADS; ++h)
+            ad_s[ring1(ly, lx) * HEADS + h] = dacc[rr][HEADS + h];
         }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float* dst = xh_s + (ty * RM + i) * XH_STRIDE + tx * RN;
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    if (first && tid < NH2) {
-#pragma unroll
-      for (int h = 0; h < HEADS; ++h) as_s[tid * HEADS + h] = dacc[h];
-      const int ly = tid / H2W - 2, lx = tid % H2W - 2;
-      if (ly >= -1 && ly <= TH && lx >= -1 && lx <= TW) {
-#pragma unroll
-        for (int h = 0; h < HEADS; ++h)
-          ad_s[ring1(ly, lx) * HEADS + h] = dacc[HEADS + h];
       }
     }
     // cotangent chunk of the ring-1 cells: g * valid, 0 outside the tile
-    for (int i = tid; i < NH1 * NC; i += NTHREADS) {
-      const int r = i / NC, c = i % NC;
-      const int gy = y0 - 1 + r / H1W, gx = x0 - 1 + r % H1W;
-      const int col = n0 + c;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && col < HC) {
-        const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
-        if (valid[pix] > 0.f) v = to_f(g[pix * HC + col]);
+    if (HC % 4 == 0) {
+#pragma unroll 4
+      for (int i = tid; i < NH1 * (NC / 4); i += NTHREADS) {
+        const int r = i / (NC / 4), c = 4 * (i % (NC / 4));
+        const int gy = y0 - 1 + r / H1W, gx = x0 - 1 + r % H1W;
+        const int col = n0 + c;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W && col < HC) {
+          const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
+          if (valid[pix] > 0.f) gridgat::load4(g + pix * HC + col, v);
+        }
+        *reinterpret_cast<float4*>(gs + r * GS + c) =
+            make_float4(v[0], v[1], v[2], v[3]);
       }
-      gs[r * GS_STRIDE + c] = v;
+    } else {
+      for (int i = tid; i < NH1 * NC; i += NTHREADS) {
+        const int r = i / NC, c = i % NC;
+        const int gy = y0 - 1 + r / H1W, gx = x0 - 1 + r % H1W;
+        const int col = n0 + c;
+        float v = 0.f;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W && col < HC) {
+          const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
+          if (valid[pix] > 0.f) v = to_f(g[pix * HC + col]);
+        }
+        gs[r * GS + c] = v;
+      }
     }
     __syncthreads();
 
     if (first) {
-      // softmax weights and dropout multipliers of the ring-1 cells
+      // dropped softmax weights w' of the ring-1 cells
       for (int i = tid; i < NH1 * HEADS; i += NTHREADS) {
         const int r1 = i % NH1, h = i / NH1;
         float lg[NSLOT];
         int gy, gx;
-        float* wt = wt_s + h * NH1 + r1;
-        float* dm = dm_s + h * NH1 + r1;
-        if (!cell_logits<T, HEADS>(r1, h, lg, as_s, ad_s, el, el_self, b, y0,
-                                   x0, H, W, K, conn_idx, slope, gy, gx)) {
+        float* wp = wp_s + h * NH1 + r1;
+        if (!cell_logits<T, HEADS, G>(r1, h, lg, as_s, ad_s, el, el_self, b,
+                                      y0, x0, H, W, K, conn_idx, slope, gy,
+                                      gx)) {
 #pragma unroll
-          for (int s = 0; s < NSLOT; ++s) {
-            wt[s * SLOT_STRIDE] = 0.f;
-            dm[s * SLOT_STRIDE] = 0.f;
-          }
+          for (int s = 0; s < NSLOT; ++s) wp[s * SLOT_STRIDE] = 0.f;
           continue;
         }
-        float m = lg[MAXK];
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) m = fmaxf(m, lg[k]);
-        float den = 0.f;
-#pragma unroll
-        for (int s = 0; s < NSLOT; ++s) {
-          lg[s] = expf(lg[s] - m);   // exp(-inf) = 0 for skipped slots
-          den += lg[s];
-        }
-        den = fmaxf(den, 1e-16f);
+        softmax_slots(lg);
 #pragma unroll
         for (int s = 0; s < NSLOT; ++s) {
           const bool live = s == MAXK || s < K;
-          wt[s * SLOT_STRIDE] = lg[s] / den;
-          dm[s * SLOT_STRIDE] =
-              live ? drop.mult(b, s == MAXK ? K : s, h, gy, gx, K, HEADS, H,
-                               W)
+          wp[s * SLOT_STRIDE] =
+              live ? lg[s] * drop.mult(b, s == MAXK ? K : s, h, gy, gx, K,
+                                       HEADS, H, W)
                    : 0.f;
         }
       }
@@ -317,43 +411,68 @@ grid_gat_bwd_attn_kernel(
     if (tid < NC && n0 + tid < HC) {
       float s = 0.f;
       for (int q = 0; q < NCELL; ++q)
-        s += gs[ring1(q / TW, q % TW) * GS_STRIDE + tid];
+        s += gs[ring1(q / TW, q % TW) * GS + tid];
       db_part[(size_t)blk * HC + n0 + tid] = s;
     }
 
     // dxh of the block's cells: xh[q] is read by q itself (self loop) and
     // by each p = q - off_k through its slot k
-    {
-      const int c = tid % NC;
-      const int col = n0 + c;
-      if (col < HC) {
-        const int h = col / C;
-        const float* wt = wt_s + h * NH1;
-        const float* dm = dm_s + h * NH1;
-        for (int q = tid / NC; q < NCELL; q += NTHREADS / NC) {
-          const int ly = q / TW, lx = q % TW;
-          const int gy = y0 + ly, gx = x0 + lx;
-          if (gy >= H || gx >= W) continue;
-          const int r1 = ring1(ly, lx);
-          float v = wt[MAXK * SLOT_STRIDE + r1] * dm[MAXK * SLOT_STRIDE + r1] *
-                    gs[r1 * GS_STRIDE + c];
+    if (C % 4 == 0) {
+      // 4 channels of one head a thread
+#pragma unroll 2
+      for (int i = tid; i < NCELL * (NC / 4); i += NTHREADS) {
+        const int q = i / (NC / 4), c = 4 * (i % (NC / 4));
+        const int col = n0 + c;
+        if (col >= HC) continue;
+        const int ly = q / TW, lx = q % TW;
+        const int gy = y0 + ly, gx = x0 + lx;
+        if (gy >= H || gx >= W) continue;
+        const float* wp = wp_s + (col / C) * NH1;
+        const int r1 = ring1(ly, lx);
+        const float ws = wp[MAXK * SLOT_STRIDE + r1];
+        const float4 g0 = *reinterpret_cast<const float4*>(gs + r1 * GS + c);
+        float v[4] = {ws * g0.x, ws * g0.y, ws * g0.z, ws * g0.w};
 #pragma unroll
-          for (int k = 0; k < MAXK; ++k) {
-            if (k < K) {
-              const int p = r1 - (c_off[conn_idx][k][0] * H1W +
-                                  c_off[conn_idx][k][1]);
-              v += wt[k * SLOT_STRIDE + p] * dm[k * SLOT_STRIDE + p] *
-                   gs[p * GS_STRIDE + c];
-            }
+        for (int k = 0; k < MAXK; ++k) {
+          if (k < K) {
+            const int p =
+                r1 - (c_off[conn_idx][k][0] * H1W + c_off[conn_idx][k][1]);
+            const float wk = wp[k * SLOT_STRIDE + p];
+            const float4 gk =
+                *reinterpret_cast<const float4*>(gs + p * GS + c);
+            v[0] += wk * gk.x, v[1] += wk * gk.y, v[2] += wk * gk.z,
+                v[3] += wk * gk.w;
           }
-          const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
-          dxh[pix * HC + col] = from_f<T>(v);
         }
+        const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
+        gridgat::store4(dxh + pix * HC + col, v);
+      }
+    } else {
+      for (int i = tid; i < NCELL * NC; i += NTHREADS) {
+        const int q = i / NC, c = i % NC;
+        const int col = n0 + c;
+        if (col >= HC) continue;
+        const int ly = q / TW, lx = q % TW;
+        const int gy = y0 + ly, gx = x0 + lx;
+        if (gy >= H || gx >= W) continue;
+        const float* wp = wp_s + (col / C) * NH1;
+        const int r1 = ring1(ly, lx);
+        float v = wp[MAXK * SLOT_STRIDE + r1] * gs[r1 * GS + c];
+#pragma unroll
+        for (int k = 0; k < MAXK; ++k) {
+          if (k < K) {
+            const int p =
+                r1 - (c_off[conn_idx][k][0] * H1W + c_off[conn_idx][k][1]);
+            v += wp[k * SLOT_STRIDE + p] * gs[p * GS + c];
+          }
+        }
+        const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
+        dxh[pix * HC + col] = from_f<T>(v);
       }
     }
 
-    // d(dropped weight) of each ring-1 cell, slot and head in this chunk:
-    // sum over the head's channels of xh[neighbour] * g[cell]
+    // d(w') of each ring-1 cell, slot and head in this chunk: sum over the
+    // head's channels of xh[neighbour] * g[cell]
     {
       const int h_lo = n0 / C;
       const int nh = (n1 - 1) / C - h_lo + 1;
@@ -364,43 +483,65 @@ grid_gat_bwd_attn_kernel(
         const int h = h_lo + t % nh;
         const int sl = t / nh;
         const int ly = r1 / H1W - 1, lx = r1 % H1W - 1;
-        int r2 = ring2(ly, lx);
-        if (sl < K) r2 += c_off[conn_idx][sl][0] * H2W + c_off[conn_idx][sl][1];
+        int r2 = (ly + 2) * H2W + lx + 2;
+        if (sl < K)
+          r2 += c_off[conn_idx][sl][0] * H2W + c_off[conn_idx][sl][1];
         const int c_lo = max(h * C, n0) - n0;
         const int c_hi = min((h + 1) * C, n1) - n0;
-        const float* xr = xh_s + r2 * XH_STRIDE;
-        const float* gr = gs + r1 * GS_STRIDE;
+        const float* xr = xh_s + r2 * XH;
+        const float* gr = gs + r1 * GS;
         float s = 0.f;
-        for (int c = c_lo; c < c_hi; ++c) s = fmaf(xr[c], gr[c], s);
+        int c = c_lo;
+        if ((c_lo & 3) == 0)
+          for (; c + 4 <= c_hi; c += 4) {
+            const float4 a = *reinterpret_cast<const float4*>(xr + c);
+            const float4 q = *reinterpret_cast<const float4*>(gr + c);
+            s = fmaf(a.x, q.x, s);
+            s = fmaf(a.y, q.y, s);
+            s = fmaf(a.z, q.z, s);
+            s = fmaf(a.w, q.w, s);
+          }
+        for (; c < c_hi; ++c) s = fmaf(xr[c], gr[c], s);
         dw_s[((sl < K ? sl : MAXK) * HEADS + h) * NH1 + r1] += s;
       }
     }
     __syncthreads();   // xh_s and gs are overwritten by the next chunk
   }
 
-  // softmax + LeakyReLU backward of each ring-1 cell and head
+  // softmax + LeakyReLU backward of each ring-1 cell and head, with the
+  // weights and dropout multipliers recomputed
   for (int i = tid; i < NH1 * HEADS; i += NTHREADS) {
     const int r1 = i % NH1, h = i / NH1;
     float lg[NSLOT];
     int gy, gx;
-    const bool inside = cell_logits<T, HEADS>(r1, h, lg, as_s, ad_s, el,
-                                              el_self, b, y0, x0, H, W, K,
-                                              conn_idx, slope, gy, gx);
+    const bool inside = cell_logits<T, HEADS, G>(r1, h, lg, as_s, ad_s, el,
+                                                 el_self, b, y0, x0, H, W, K,
+                                                 conn_idx, slope, gy, gx);
+    if (!inside) {
+#pragma unroll
+      for (int sl = 0; sl < NSLOT; ++sl)
+        dw_s[(sl * HEADS + h) * NH1 + r1] = 0.f;
+      continue;
+    }
+    float wt[NSLOT];
+#pragma unroll
+    for (int sl = 0; sl < NSLOT; ++sl) wt[sl] = lg[sl];
+    softmax_slots(wt);
     float dw[NSLOT];
     float s = 0.f;
 #pragma unroll
     for (int sl = 0; sl < NSLOT; ++sl) {
-      const int idx = (sl * HEADS + h) * NH1 + r1;
-      dw[sl] = dw_s[idx] * dm_s[idx];
-      s = fmaf(wt_s[idx], dw[sl], s);
+      const bool live = sl == MAXK || sl < K;
+      const float dm =
+          live ? drop.mult(b, sl == MAXK ? K : sl, h, gy, gx, K, HEADS, H, W)
+               : 0.f;
+      dw[sl] = dw_s[(sl * HEADS + h) * NH1 + r1] * dm;
+      s = fmaf(wt[sl], dw[sl], s);
     }
 #pragma unroll
-    for (int sl = 0; sl < NSLOT; ++sl) {
-      const int idx = (sl * HEADS + h) * NH1 + r1;
-      dw_s[idx] = inside ? wt_s[idx] * (dw[sl] - s) *
-                               (lg[sl] >= 0.f ? 1.f : slope)
-                         : 0.f;
-    }
+    for (int sl = 0; sl < NSLOT; ++sl)
+      dw_s[(sl * HEADS + h) * NH1 + r1] =
+          wt[sl] * (dw[sl] - s) * (lg[sl] >= 0.f ? 1.f : slope);
   }
   __syncthreads();
 
@@ -447,7 +588,8 @@ grid_gat_bwd_attn_kernel(
 #pragma unroll
           for (int h = 0; h < HEADS; ++h)
             acc[e * HEADS + h] =
-                fmaf(ma, dw_s[(MAXK * HEADS + h) * NH1 + r1], acc[e * HEADS + h]);
+                fmaf(ma, dw_s[(MAXK * HEADS + h) * NH1 + r1],
+                     acc[e * HEADS + h]);
           for (int k = 0; k < K; ++k) {
             const float ea =
                 to_f(eattr[(((size_t)b * K + k) * plane + pix) * ED + e]);
@@ -460,7 +602,7 @@ grid_gat_bwd_attn_kernel(
       }
     }
     float* red = gs;   // free after the chunk loop: [warps][MAXED * HEADS]
-    const int lane = tid % 32, warp = tid / 32;
+    const int lane = tid % 32;
 #pragma unroll
     for (int o = 0; o < MAXED * HEADS; ++o) {
       float v = acc[o];
@@ -473,7 +615,7 @@ grid_gat_bwd_attn_kernel(
     if (tid < ED * HEADS) {
       const int e = tid / HEADS, h = tid % HEADS;
       float s = 0.f;
-      for (int w = 0; w < NTHREADS / 32; ++w)
+      for (int w = 0; w < NWARPS; ++w)
         s += red[w * MAXED * HEADS + e * HEADS + h];
       dme_part[((size_t)blk * ED + e) * HEADS + h] = s;
     }
@@ -482,40 +624,86 @@ grid_gat_bwd_attn_kernel(
 
 // ---- products -----------------------------------------------------------
 
-constexpr int PBM = 64;    // tile rows
-constexpr int PBN = 64;    // tile cols
-constexpr int PBK = 16;    // depth per staging step
-constexpr int PT = 256;    // 16 x 16 threads, 4 x 4 outputs each
+constexpr int PBM = 256;   // tile rows: 4 warps x 64
+constexpr int PBN = 128;   // tile cols: 2 warps x 64
+constexpr int PT = 256;
+constexpr int PMT = 4;     // m16 tiles a warp
+constexpr int PNT = 8;     // n8 tiles a warp
+constexpr int PSTAGE = 3;  // cp.async ring depth: 3 x 30,720 B
 
-// Role "dx" (blocks [0, n_dx)): dx[cell, f] = sum_j D[cell, j] Wc[f, j]
-// with D = [dxh | d_ad] (width NB = HC + 2h) and Wc = [W | W@a].
-// Role "dw" (the rest): part[split, f, j] = sum over the split's cells of
-// x[cell, f] D[cell, j]: the dW (j < HC) and d(W@a) (j >= HC) partials.
 template <typename T>
-__global__ void __launch_bounds__(PT)
+struct PCfg {
+  static constexpr int KC = 64 / (int)sizeof(T);
+  static constexpr int VEC = 16 / (int)sizeof(T);
+  static constexpr int KS = KC + VEC;      // K-major rows (dx role)
+  static constexpr int MS = PBM + 8;       // M-major rows (dw role, A)
+  static constexpr int NS = PBN + 8;       // N-major rows (dw role, B)
+  static constexpr int DX_ELEMS = (PBM + PBN) * KS;
+  static constexpr int DW_ELEMS = KC * (MS + NS);
+  static constexpr int STAGE = DX_ELEMS > DW_ELEMS ? DX_ELEMS : DW_ELEMS;
+};
+
+// VEC consecutive columns j.. of one row of the concatenation [a | b]
+// (widths wa_, wb_; zeros past both) at dst
+template <typename T>
+__device__ __forceinline__ void stage_cat(T* dst, const T* a, int wa_,
+                                          const T* b, int wb_, int j,
+                                          const T* any) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  if (j + VEC <= wa_) {
+    gridmma::stage_vec<T>(dst, a + j, VEC, any);
+  } else if (j >= wa_) {
+    gridmma::stage_vec<T>(dst, b + (j - wa_), wb_ - (j - wa_), any);
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const int jj = j + v;
+      dst[v] = jj < wa_ ? a[jj]
+                        : (jj - wa_ < wb_ ? b[jj - wa_] : gridmma::zero<T>());
+    }
+  }
+}
+
+// Role "dw" (blocks [0, n_dw): the long ones first): part[split, f, j] =
+// sum over the split's cells of x[cell, f] D[cell, j]: the dW (j < HC)
+// and d(W@a) (j >= HC) partials, D = [dxh | d_ad] (width NB = HC + 2h).
+// Role "dx" (the rest): dx[cell, f] = sum_j D[cell, j] Wc[f, j] with
+// Wc = [W | W@a]. A warp owns a 64 x 64 tile: each staged byte feeds more
+// MMAs than with 32 x 32 tiles, which shared memory's bandwidth needed.
+template <typename T>
+__global__ void __launch_bounds__(PT, 1)
 grid_gat_bwd_products_kernel(const T* __restrict__ x,
                              const T* __restrict__ wmat,
                              const T* __restrict__ wa,
                              const T* __restrict__ dxh,
                              const T* __restrict__ dad, T* __restrict__ dx,
                              float* __restrict__ dw_part, int ncell, int F,
-                             int HC, int A2, int n_dx, int dx_tiles_n,
+                             int HC, int A2, int n_dw, int dx_tiles_n,
                              int dw_tiles_n, int cells_per_split) {
-  __shared__ __align__(16) float As[PBK][PBM + 4];
-  __shared__ __align__(16) float Bs[PBK][PBN + 4];
+  using P = PCfg<T>;
+  constexpr int KC = P::KC, VEC = P::VEC, KS = P::KS, MS = P::MS;
+  constexpr int NS = P::NS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sbuf[PSTAGE];
+#pragma unroll
+  for (int s = 0; s < PSTAGE; ++s)
+    sbuf[s] = reinterpret_cast<T*>(smem_raw) + s * P::STAGE;
   const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;   // 4 x 2 warps
   const int NB = HC + A2;
-  const bool role_dx = (int)blockIdx.x < n_dx;
+  const bool role_dx = (int)blockIdx.x >= n_dw;
   int m0, n0, M, N, k_begin, k_end, split = 0;
   if (role_dx) {
-    m0 = (blockIdx.x / dx_tiles_n) * PBM;
-    n0 = (blockIdx.x % dx_tiles_n) * PBN;
+    const int blk = blockIdx.x - n_dw;
+    m0 = (blk / dx_tiles_n) * PBM;
+    n0 = (blk % dx_tiles_n) * PBN;
     M = ncell;
     N = F;
     k_begin = 0;
     k_end = NB;
   } else {
-    const int blk = blockIdx.x - n_dx;
+    const int blk = blockIdx.x;
     const int dw_tiles_m = (F + PBM - 1) / PBM;
     split = blk / (dw_tiles_m * dw_tiles_n);
     const int t = blk % (dw_tiles_m * dw_tiles_n);
@@ -526,72 +714,103 @@ grid_gat_bwd_products_kernel(const T* __restrict__ x,
     k_begin = split * cells_per_split;
     k_end = min(ncell, k_begin + cells_per_split);
   }
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int nt_live = max(0, min(PNT, (N - n0 - 64 * wn + 7) / 8));
 
-  for (int k0 = k_begin; k0 < k_end; k0 += PBK) {
-    // A tile [PBK][PBM]; neighbouring threads read neighbouring addresses
-    for (int i = tid; i < PBM * PBK; i += PT) {
-      const int mm = role_dx ? i / PBK : i % PBM;
-      const int kk = role_dx ? i % PBK : i / PBM;
-      const int m = m0 + mm, k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < k_end) {
-        if (role_dx)
-          v = k < HC ? to_f(dxh[(size_t)m * HC + k])
-                     : to_f(dad[(size_t)m * A2 + (k - HC)]);
-        else
-          v = to_f(x[(size_t)k * F + m]);
+  auto stage = [&](int k0, int buf) {
+    T* s = sbuf[buf];
+    if (role_dx) {
+      // A: D rows m0.. (K-major), B: Wc rows n0.. (K-major)
+      for (int i = tid; i < (PBM + PBN) * (KC / VEC); i += PT) {
+        const int r = i / (KC / VEC), v = i % (KC / VEC);
+        const int k = k0 + v * VEC;
+        T* dst = s + r * KS + v * VEC;
+        if (r < PBM) {
+          const int m = m0 + r;
+          if (m < M && k < k_end)
+            stage_cat<T>(dst, dxh + (size_t)m * HC, HC, dad + (size_t)m * A2,
+                         A2, k, dxh);
+          else
+            gridmma::stage_vec<T>(dst, dxh, 0, dxh);
+        } else {
+          const int n = n0 + r - PBM;
+          if (n < N && k < k_end)
+            stage_cat<T>(dst, wmat + (size_t)n * HC, HC, wa + (size_t)n * A2,
+                         A2, k, wmat);
+          else
+            gridmma::stage_vec<T>(dst, wmat, 0, wmat);
+        }
       }
-      As[kk][mm] = v;
-    }
-    // B tile [PBK][PBN]
-    for (int i = tid; i < PBK * PBN; i += PT) {
-      const int nn = role_dx ? i / PBK : i % PBN;
-      const int kk = role_dx ? i % PBK : i / PBN;
-      const int n = n0 + nn, k = k0 + kk;
-      float v = 0.f;
-      if (n < N && k < k_end) {
-        if (role_dx)
-          v = k < HC ? to_f(wmat[(size_t)n * HC + k])
-                     : to_f(wa[(size_t)n * A2 + (k - HC)]);
-        else
-          v = n < HC ? to_f(dxh[(size_t)k * HC + n])
-                     : to_f(dad[(size_t)k * A2 + (n - HC)]);
+    } else {
+      // A: x^T (rows = cells k, M-major), B: D (rows = cells k, N-major)
+      T* sa = s;
+      T* sb = s + KC * MS;
+      for (int i = tid; i < KC * (PBM / VEC + PBN / VEC); i += PT) {
+        const int kk = i / (PBM / VEC + PBN / VEC);
+        const int v = i % (PBM / VEC + PBN / VEC);
+        const int k = k0 + kk;
+        if (v < PBM / VEC) {
+          const int m = m0 + v * VEC;
+          T* dst = sa + kk * MS + v * VEC;
+          const bool in = k < k_end && m < M;
+          gridmma::stage_vec<T>(dst, in ? x + (size_t)k * F + m : x,
+                                in ? M - m : 0, x);
+        } else {
+          const int n = n0 + (v - PBM / VEC) * VEC;
+          T* dst = sb + kk * NS + (v - PBM / VEC) * VEC;
+          if (k < k_end && n < N)
+            stage_cat<T>(dst, dxh + (size_t)k * HC, HC, dad + (size_t)k * A2,
+                         A2, n, dxh);
+          else
+            gridmma::stage_vec<T>(dst, dxh, 0, dxh);
+        }
       }
-      Bs[kk][nn] = v;
     }
-    __syncthreads();
+  };
+
+  float acc[PMT][PNT][4];
 #pragma unroll
-    for (int kk = 0; kk < PBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bq = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+  for (int i = 0; i < PMT; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < PNT; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (k_end - k_begin + KC - 1) / KC;
+#pragma unroll
+  for (int s = 0; s < PSTAGE - 1; ++s) {
+    if (s < nk) stage(k_begin + s * KC, s);
+    gridmma::cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    gridmma::cp_wait<PSTAGE - 2>();
+    __syncthreads();   // chunk kt landed; chunk kt - 1's buffer is free
+    if (kt + PSTAGE - 1 < nk)
+      stage(k_begin + (kt + PSTAGE - 1) * KC, (kt + PSTAGE - 1) % PSTAGE);
+    gridmma::cp_commit();
+    const T* s = sbuf[kt % PSTAGE];
+    if (role_dx)
+      gridmma::mma_chunk<PMT, PNT, KC, true, true>(
+          acc, s + (64 * wm) * KS, KS, s + (PBM + 64 * wn) * KS, KS,
+          nt_live);
+    else
+      gridmma::mma_chunk<PMT, PNT, KC, false, false>(
+          acc, s + 64 * wm, MS, s + KC * MS + 64 * wn, NS, nt_live);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+  for (int i = 0; i < PMT; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      if (role_dx)
-        dx[(size_t)m * F + n] = from_f<T>(acc[i][j]);
-      else
-        dw_part[((size_t)split * F + m) * NB + n] = acc[i][j];
+    for (int j = 0; j < PNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 64 * wm + 16 * i + gridmma::acc_row(e);
+        const int n = n0 + 64 * wn + 8 * j + gridmma::acc_col(e);
+        if (m >= M || n >= N) continue;
+        if (role_dx)
+          dx[(size_t)m * F + n] = from_f<T>(acc[i][j][e]);
+        else
+          dw_part[((size_t)split * F + m) * NB + n] = acc[i][j][e];
+      }
     }
   }
 }
@@ -606,14 +825,19 @@ struct BwdArgs {
 };
 
 template <typename T, int HEADS>
+dim3 attn_grid(int B, int H, int W) {
+  using G = Cfg<T, HEADS>;
+  return dim3((W + G::TW - 1) / G::TW, (H + G::TH - 1) / G::TH, B);
+}
+
+template <typename T, int HEADS>
 int launch(const BwdArgs& a, Drop drop, cudaStream_t stream) {
-  const int smem = attn_smem_floats<HEADS>() * (int)sizeof(float);
+  const int smem = Cfg<T, HEADS>::SMEM;
   auto attn = grid_gat_bwd_attn_kernel<T, HEADS>;
   cudaError_t err = cudaFuncSetAttribute(
       attn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, a.B);
-  attn<<<grid, NTHREADS, smem, stream>>>(
+  attn<<<attn_grid<T, HEADS>(a.B, a.H, a.W), NTHREADS, smem, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.w),
       static_cast<const T*>(a.wa), static_cast<const T*>(a.el),
       static_cast<const T*>(a.el_self), static_cast<const float*>(a.valid),
@@ -631,11 +855,16 @@ int launch(const BwdArgs& a, Drop drop, cudaStream_t stream) {
   const int n_dx = ((ncell + PBM - 1) / PBM) * dx_tiles_n;
   const int dw_tiles_n = (a.HC + A2 + PBN - 1) / PBN;
   const int n_dw = a.nsplit * ((a.F + PBM - 1) / PBM) * dw_tiles_n;
-  grid_gat_bwd_products_kernel<T><<<n_dx + n_dw, PT, 0, stream>>>(
+  const int psmem = PSTAGE * PCfg<T>::STAGE * (int)sizeof(T);
+  auto prod = grid_gat_bwd_products_kernel<T>;
+  err = cudaFuncSetAttribute(
+      prod, cudaFuncAttributeMaxDynamicSharedMemorySize, psmem);
+  if (err != cudaSuccess) return (int)err;
+  prod<<<n_dx + n_dw, PT, psmem, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.w),
       static_cast<const T*>(a.wa), static_cast<const T*>(a.dxh),
       static_cast<const T*>(a.dad), static_cast<T*>(a.dx),
-      static_cast<float*>(a.dw_part), ncell, a.F, a.HC, A2, n_dx,
+      static_cast<float*>(a.dw_part), ncell, a.F, a.HC, A2, n_dw,
       dx_tiles_n, dw_tiles_n, a.cells_per_split);
   return (int)cudaGetLastError();
 }
@@ -649,12 +878,29 @@ int dispatch_heads(int heads, const BwdArgs& a, Drop drop, cudaStream_t s) {
       return launch<T, 2>(a, drop, s);
     case 4:
       return launch<T, 4>(a, drop, s);
+    case 8:
+      return launch<T, 8>(a, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+// Number of attention blocks, the leading size of dme_part and db_part
+// below, for `heads` heads on a [B, H, W] batch (-1 for heads it does not
+// take). The block tile does not depend on the I/O type.
+extern "C" int grid_gat_bwd_blocks(int heads, int B, int H, int W) {
+  dim3 g;
+  switch (heads) {
+    case 1: g = attn_grid<float, 1>(B, H, W); break;
+    case 2: g = attn_grid<float, 2>(B, H, W); break;
+    case 4: g = attn_grid<float, 4>(B, H, W); break;
+    case 8: g = attn_grid<float, 8>(B, H, W); break;
+    default: return -1;
+  }
+  return (int)(g.x * g.y * g.z);
+}
 
 // C entry, bound with ctypes: launches both kernels on `stream` and returns
 // cudaGetLastError() (0 on success). dtype 0 = float32, 1 = bfloat16 for x,
@@ -663,9 +909,10 @@ int dispatch_heads(int heads, const BwdArgs& a, Drop drop, cudaStream_t s) {
 // wa [F,2h], el [B,K,h,H,W], el_self [B,h,H,W], valid [B,H,W],
 // g [B,H,W,HC], eattr [B,K,H,W,ed], mattr [B,H,W,ed] (mean incoming
 // attribute), dxh [B,H,W,HC], dad [B,H,W,2h], dme_part [nblk,ed,h],
-// db_part [nblk,HC] with nblk = B * ceil(H/8) * ceil(W/16), dx [B,H,W,F],
-// dw_part [nsplit,F,HC+2h]; split s covers cells [s*cps, (s+1)*cps) of the
-// B*H*W cells, and nsplit * cps >= B*H*W. Dropout as in grid_gat_fwd.
+// db_part [nblk,HC] with nblk = grid_gat_bwd_blocks(heads, B, H, W),
+// dx [B,H,W,F], dw_part [nsplit,F,HC+2h]; split s covers cells
+// [s*cps, (s+1)*cps) of the B*H*W cells, and nsplit * cps >= B*H*W.
+// Dropout as in grid_gat_fwd.
 extern "C" int grid_gat_bwd(
     int dtype, const void* x, const void* w, const void* wa, const void* el,
     const void* el_self, const void* valid, const void* g, const void* eattr,

@@ -20,32 +20,69 @@
 // edge logit is premasked to -1e30); missing neighbours inside the tile
 // arrive premasked the same way through `el`.
 //
-// Design (simple and correct first). One block of 256 threads per
-// (8 x 16 cells, tile). The block stages x for the 10 x 18 halo-extended
-// cells in shared memory, 32 features at a time, and computes xh for the
-// halo cells with a register-tiled SIMT product (6 x 8 outputs a thread,
-// f32 accumulation), 64 output channels at a time. The first channel
-// chunk also computes the 2 * heads attention dots from the same staged x
-// and then the softmax weights of all 128 cells, kept in shared memory.
-// Each chunk ends with the weighted sum over the 3 x 3 window, the
-// epilogue and a coalesced store. Softmax and accumulation are f32 for
-// both I/O types; with bf16 I/O, x, W, W@a, el, el_self and the output
-// are bf16 (the Pallas kernel rounds at the same places).
-//
-// What bounds it on an H100 SXM (989 TFLOP/s bf16 tensor, 67 TFLOP/s FP32
-// non-tensor, 3.35 TB/s). At a 1024^2 tile in f32 a 256 -> 256 layer must
-// move ~2.30 GB (x 1.07 GB in, out 1.07 GB, el + el_self 0.15 GB: ~0.69 ms)
-// and do ~146.5 GFLOP (x@W 137.4, dots 4.3, weighted sum 4.8: ~2.19 ms at
-// the FP32 rate), so in f32 it is bound by operations. This version does
-// more than that: the halo cells' xh is recomputed (192 padded rows per
-// 128 output cells, 1.5x the x@W work) and x is re-read from L2 once per
-// 64-channel chunk. Tensor cores (wgmma, in bf16 at least), TMA loads and
-// shared-memory pipelining are later work.
+// Design. What bounds it on an H100 SXM (3.35 TB/s; tensor cores: 989
+// TFLOP/s bf16, 495 TF32): at a 1024^2 tile a 256 -> 256 layer must move
+// ~2.30 GB in f32 (x 1.07 GB in, out 1.07 GB, el + el_self 0.15 GB: ~0.69
+// ms) and do ~146.5 GFLOP, 141.7 of them the x@W and dot products. In f32
+// those run as 3xTF32 (three TF32 MMAs a product, grid_gat_mma.cuh): at
+// 495/3 = 165 TFLOP/s plus the 9-way weighted sum at the 67 TFLOP/s FP32
+// rate, ~0.93 ms, so f32 is bound by operations; in bf16 (half the bytes,
+// products at 989 TFLOP/s) it is bound by bytes. The design:
+//  * x @ W on the tensor cores (mma.sync, not wgmma, through
+//    gridmma::mma_chunk_pre: 3xTF32 for f32, bf16 MMA with f32
+//    accumulation for bf16), each warp 2 m16 row tiles x all 8 n8 column
+//    tiles of a 64-channel chunk (128 registers a thread). Each staged W
+//    chunk is split into its TF32 hi / lo words (transposed, in bf16) once
+//    for all warps (gridmma::prep_b) instead of once per warp;
+//  * the 2 * heads attention dots x @ (W @ [a_src|a_dst]) (3 % of the
+//    operations at 4 heads) as f32 FMAs on the CUDA cores from the same
+//    staged x, one halo cell a thread, in ascending k, the order of the
+//    earlier SIMT kernels. The dots decide LeakyReLU's branch, whose
+//    derivative jumps from 1 to the slope at 0: a logit within rounding of
+//    0 takes the other branch when its dot is rounded otherwise. With the
+//    dots on the tensor cores (other summation order, truncating
+//    accumulation), kernel B's gradients missed the plain version's at
+//    the 4 x 256^2 check batch (x 1.35e-2 of its scale, against 2e-4)
+//    through such logits; kernel B recomputes the dots the same way;
+//  * a block of 8 warps owns 14 x 14 output cells; its 16 x 16
+//    halo-extended cells are exactly 16 m16 tiles, so xh is recomputed for
+//    1.31x the cells it outputs (1.5x in the 8 x 16 SIMT version with its
+//    192-row padding). Two such blocks share an SM, so one block's loads,
+//    products and epilogue overlap the other's: on the H100 that ran
+//    faster than one block of 16 warps on 14 x 30 cells (1.22x recompute,
+//    one block an SM) and than one block of 8 warps with 4 m16 tiles each.
+//    At 8 heads the softmax weights leave room for one block an SM, of 16
+//    warps;
+//  * x and W stream through a double-buffered cp.async ring (K chunks of
+//    64 bytes a row: 16 f32 or 32 bf16 features; zero-filled outside the
+//    tile, past F and past HC), so the next chunk loads while this one
+//    multiplies; one barrier a step (a third buffer ran no faster);
+//  * x is staged once per 64-channel chunk: 4 times at HC 256 (from L2 in
+//    practice). Staging it once per block would need the whole
+//    [256, F] halo block in shared memory (256 KB at F 256 in f32), and a
+//    wider chunk does not fit two blocks an SM;
+//  * softmax (f32, with the dropout multipliers folded in) once per block
+//    in the first chunk, kept in shared memory for all heads; each chunk
+//    ends with the 9-way weighted sum (4 channels a thread, float4 reads of
+//    the xh chunk), the epilogue and a coalesced store.
+// Shared memory, f32, at 4 heads: xh chunk 256 x 72 f32 (73,728 B; the two
+// staging buffers, 2 x 26,112 B, and the split W chunk, 10,240 B, alias
+// it), a_src / a_dst 7,232 B, softmax weights 28,224 B, the chunk's bias /
+// BatchNorm constants 768 B: 109,952 B a block. bf16 stages x and W in
+// bf16 and keeps xh, the softmax and the sums in f32 (the Pallas kernel
+// rounds only x, W, W@a, el, el_self and the output to bf16, as here).
+// Where the time goes (builds with one phase removed at a time, on an
+// H100, before the two-block layout): the 3xTF32 MMAs, staging x from L2
+// and the weighted-sum epilogue each take a large share, the attention
+// dots a small one. mma.sync runs far below the tensor cores' wgmma rate;
+// wgmma with a producer warp, and the epilogue overlapped with the next
+// chunk's loads inside a block, are the next step.
 
 #include <math.h>
 #include <stddef.h>
 
 #include "grid_gat_common.cuh"
+#include "grid_gat_mma.cuh"
 
 namespace {
 
@@ -56,34 +93,54 @@ using gridgat::leaky;
 using gridgat::MAXK;
 using gridgat::to_f;
 
-constexpr int TH = 8;                   // output rows per block
-constexpr int TW = 16;                  // output cols per block
-constexpr int HALO_W = TW + 2;
-constexpr int NHALO = (TH + 2) * HALO_W;  // 180 halo-extended cells
-constexpr int NCELL = TH * TW;          // 128 output cells
-constexpr int RM = 6;                   // product rows per thread
-constexpr int RN = 8;                   // product cols per thread
-constexpr int MROWS = 32 * RM;          // 192 >= NHALO, padded with zeros
-constexpr int NC = RN * 8;              // 64 output channels per chunk
-constexpr int KC = 32;                  // input features per staging step
-constexpr int NTHREADS = 256;           // 32 row groups x 8 col groups
-constexpr int XS_STRIDE = MROWS + 2;    // x tile, transposed [KC][XS_STRIDE]
-constexpr int XH_STRIDE = NC + 4;       // xh tile [MROWS][XH_STRIDE]
-constexpr int U_FLOATS =
-    (KC * XS_STRIDE > MROWS * XH_STRIDE) ? KC * XS_STRIDE : MROWS * XH_STRIDE;
-
-static_assert(NHALO <= MROWS, "halo rows must fit the padded product");
-static_assert(NTHREADS % NC == 0, "aggregation maps threads to channels");
-static_assert(U_FLOATS % 4 == 0, "keep later shared arrays 16B aligned");
-
-template <int HEADS>
-constexpr int smem_floats() {
-  return U_FLOATS + KC * NC + KC * 2 * HEADS + NHALO * HEADS +
-         NCELL * HEADS + (MAXK + 1) * HEADS * NCELL;
-}
+constexpr int NC = 64;                  // output channels per chunk
+constexpr int WS = NC + 24;             // staged W row: NC + dots + pad
+constexpr int XH = NC + 8;              // xh chunk row (f32)
 
 template <typename T, int HEADS>
-__global__ void __launch_bounds__(NTHREADS)
+struct Cfg {
+  static constexpr int TH = 14;
+  static constexpr int TW = 14;
+  // two blocks of 8 warps an SM (each block's loads, products and epilogue
+  // overlap the other's); at 8 heads the softmax weights allow one block,
+  // of 16 warps
+  static constexpr int MIN_BLOCKS = HEADS == 8 ? 1 : 2;
+  static constexpr int NWARPS = HEADS == 8 ? 16 : 8;
+  static constexpr int NTHREADS = 32 * NWARPS;
+  static constexpr int HW = TW + 2;                 // halo width
+  static constexpr int NHALO = (TH + 2) * HW;       // 512 (256)
+  static constexpr int NCELL = TH * TW;             // 420 (196)
+  static constexpr int MT = NHALO / 16 / NWARPS;    // m16 tiles a warp
+  static constexpr int ND = 2 * HEADS <= 8 ? 8 : 16;  // dot columns
+  static constexpr int NT = NC / 8;
+  static constexpr int RPT = (NHALO + NTHREADS - 1) / NTHREADS;
+  static constexpr int KC = 64 / (int)sizeof(T);    // features a stage
+  static constexpr int VEC = 16 / (int)sizeof(T);
+  static constexpr int XS = KC + VEC;               // staged x row
+  // bytes
+  static constexpr int STAGE = NHALO * XS * (int)sizeof(T) +
+                               KC * WS * (int)sizeof(T);
+  static constexpr int NSTAGE = 2;                  // ring depth
+  static constexpr int XH_BYTES = NHALO * XH * 4;
+  // W's chunk split (f32) or transposed (bf16) once for all warps
+  static constexpr int PREP_OFF = NSTAGE * STAGE;
+  static constexpr int PREP_BYTES =
+      gridmma::Prep<T>::WORDS * NC * XS *
+      (int)sizeof(typename gridmma::Prep<T>::type);
+  static constexpr int UNION = XH_BYTES > PREP_OFF + PREP_BYTES
+                                   ? XH_BYTES : PREP_OFF + PREP_BYTES;
+  static constexpr int SMEM = UNION + 4 * (NHALO * HEADS + NCELL * HEADS +
+                                           (MAXK + 1) * HEADS * NCELL +
+                                           3 * NC);
+  static_assert(NHALO % (16 * NWARPS) == 0, "halo rows: whole m16 tiles");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "blocks an SM");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+  static_assert(STAGE % 16 == 0 && UNION % 16 == 0, "16B alignment");
+};
+
+template <typename T, int HEADS>
+__global__ void __launch_bounds__(Cfg<T, HEADS>::NTHREADS,
+                                  Cfg<T, HEADS>::MIN_BLOCKS)
 grid_gat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
                     const T* __restrict__ wa, const T* __restrict__ el,
                     const T* __restrict__ el_self,
@@ -93,109 +150,161 @@ grid_gat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
                     const float* __restrict__ bn_shift, T* __restrict__ out,
                     int H, int W, int F, int HC, int K, int conn_idx,
                     float slope, int fuse_bn, int fuse_relu, Drop drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* xsT = smem;     // staged x, transposed: [KC][XS_STRIDE]
-  float* xh_s = smem;    // xh of the halo cells: [MROWS][XH_STRIDE]
-                         // (aliases xsT: written only after the k loop)
-  float* ws = smem + U_FLOATS;            // [KC][NC]
-  float* was = ws + KC * NC;              // [KC][2 * HEADS]
-  float* asrc_s = was + KC * 2 * HEADS;   // [NHALO][HEADS]
-  float* adst_s = asrc_s + NHALO * HEADS; // [NCELL][HEADS]
-  float* wts_s = adst_s + NCELL * HEADS;  // [HEADS][MAXK + 1][NCELL]
+  using G = Cfg<T, HEADS>;
+  constexpr int TH = G::TH, TW = G::TW, HW = G::HW, NHALO = G::NHALO;
+  constexpr int NTHREADS = G::NTHREADS;
+  constexpr int NCELL = G::NCELL, MT = G::MT, NT = G::NT, KC = G::KC;
+  constexpr int VEC = G::VEC, XS = G::XS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using PT = typename gridmma::Prep<T>::type;
+  PT* bp = reinterpret_cast<PT*>(smem_raw + G::PREP_OFF);  // in the union
+  PT* bp_lo = bp + NC * XS;
+  T* xs[G::NSTAGE];    // the staging ring: x and W (+ W@a) K chunks
+  T* wsb[G::NSTAGE];
+#pragma unroll
+  for (int s = 0; s < G::NSTAGE; ++s) {
+    xs[s] = reinterpret_cast<T*>(smem_raw + s * G::STAGE);
+    wsb[s] = xs[s] + NHALO * XS;
+  }
+  float* xh_s = reinterpret_cast<float*>(smem_raw);   // aliases the ring
+  float* asrc_s = reinterpret_cast<float*>(smem_raw + G::UNION);
+  float* adst_s = asrc_s + NHALO * HEADS;             // [NCELL][HEADS]
+  float* wts_s = adst_s + NCELL * HEADS;              // [HEADS][K+1][NCELL]
+  float* epi_s = wts_s + (MAXK + 1) * HEADS * NCELL;  // bias, scale, shift
 
   const int tid = threadIdx.x;
+  const int warp = tid / 32;
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
   const int C = HC / HEADS;
   const size_t plane = (size_t)H * W;
   const T* xb = x + (size_t)b * plane * F;
-  const int ty = tid / 8;  // product row group: rows ty*RM .. ty*RM+RM-1
-  const int tx = tid % 8;  // product col group: cols tx*RN .. tx*RN+RN-1
-
-  float dacc[2 * HEADS];
+  const int row0 = warp * MT * 16;    // this warp's first halo row
+  const int nk = (F + KC - 1) / KC;
 
   for (int n0 = 0; n0 < HC; n0 += NC) {
     const bool first = n0 == 0;
-    float acc[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2 * HEADS; ++j) dacc[j] = 0.f;
 
-    for (int k0 = 0; k0 < F; k0 += KC) {
-      // stage x (halo cells x KC features), zeros outside the tile
-      for (int i = tid; i < MROWS * KC; i += NTHREADS) {
-        const int r = i / KC, kk = i % KC;
-        float v = 0.f;
-        if (r < NHALO) {
-          const int gy = y0 - 1 + r / HALO_W, gx = x0 - 1 + r % HALO_W;
-          const int f = k0 + kk;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W && f < F)
-            v = to_f(xb[((size_t)gy * W + gx) * F + f]);
+    // one K chunk of x (halo cells) and W (+ W@a in the first chunk)
+    auto stage = [&](int kt, int buf) {
+      const int k0 = kt * KC;
+      for (int i = tid; i < NHALO * (KC / VEC); i += NTHREADS) {
+        const int r = i / (KC / VEC), v = i % (KC / VEC);
+        const int gy = y0 - 1 + r / HW, gx = x0 - 1 + r % HW;
+        const int f = k0 + v * VEC;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && f < F;
+        gridmma::stage_vec<T>(
+            xs[buf] + r * XS + v * VEC,
+            in ? xb + ((size_t)gy * W + gx) * F + f : x, in ? F - f : 0, x);
+      }
+      constexpr int WG = NC / VEC, DG = G::ND / VEC;
+      for (int i = tid; i < KC * (WG + DG); i += NTHREADS) {
+        const int kk = i / (WG + DG), v = i % (WG + DG);
+        const int f = k0 + kk;
+        T* dst = wsb[buf] + kk * WS + v * VEC;
+        if (v < WG) {
+          const int col = n0 + v * VEC;
+          const bool in = f < F && col < HC;
+          gridmma::stage_vec<T>(dst, in ? wmat + (size_t)f * HC + col : wmat,
+                                in ? HC - col : 0, wmat);
+        } else if (first) {
+          const int col = (v - WG) * VEC;
+          const bool in = f < F && col < 2 * HEADS;
+          gridmma::stage_vec<T>(dst, in ? wa + (size_t)f * 2 * HEADS + col
+                                        : wa,
+                                in ? 2 * HEADS - col : 0, wa);
         }
-        xsT[kk * XS_STRIDE + r] = v;
       }
-      for (int i = tid; i < KC * NC; i += NTHREADS) {
-        const int f = k0 + i / NC, col = n0 + i % NC;
-        ws[i] = (f < F && col < HC) ? to_f(wmat[(size_t)f * HC + col]) : 0.f;
-      }
+    };
+
+    // the chunk's epilogue constants (read after the k loop's barriers)
+    for (int c = tid; c < NC; c += NTHREADS) {
+      const int col = min(n0 + c, HC - 1);
+      epi_s[c] = bias[col];
+      epi_s[NC + c] = fuse_bn ? bn_scale[col] : 1.f;
+      epi_s[2 * NC + c] = fuse_bn ? bn_shift[col] : 0.f;
+    }
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    float dacc[G::RPT][2 * HEADS];
+#pragma unroll
+    for (int rr = 0; rr < G::RPT; ++rr)
+#pragma unroll
+      for (int j = 0; j < 2 * HEADS; ++j) dacc[rr][j] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < G::NSTAGE - 1; ++s) {
+      if (s < nk) stage(s, s);
+      gridmma::cp_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int buf = kt % G::NSTAGE;
+      gridmma::cp_wait<G::NSTAGE - 2>();
+      __syncthreads();   // chunk kt landed; chunk kt - 1's buffer is free
+      if (kt + G::NSTAGE - 1 < nk)
+        stage(kt + G::NSTAGE - 1, (kt + G::NSTAGE - 1) % G::NSTAGE);
+      gridmma::cp_commit();
+      gridmma::prep_b<KC, NC, NTHREADS>(wsb[buf], WS, bp, bp_lo, XS);
+      __syncthreads();
+      gridmma::mma_chunk_pre<MT, NT, KC>(acc, xs[buf] + row0 * XS, XS, bp,
+                                         bp_lo, XS);
       if (first) {
-        for (int i = tid; i < KC * 2 * HEADS; i += NTHREADS) {
-          const int f = k0 + i / (2 * HEADS);
-          was[i] = f < F ? to_f(wa[(size_t)f * 2 * HEADS + i % (2 * HEADS)])
-                         : 0.f;
+        // the attention dots, f32 FMAs in ascending k (see the note)
+        const T* xr = xs[buf];
+        const T* wr = wsb[buf] + NC;
+#pragma unroll
+        for (int rr = 0; rr < G::RPT; ++rr) {
+          const int r = tid + rr * NTHREADS;
+          if (r >= NHALO) break;
+#pragma unroll
+          for (int kk = 0; kk < KC; kk += 4) {
+            float xv[4];
+            gridgat::load4(xr + r * XS + kk, xv);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float wv[(2 * HEADS + 3) / 4 * 4];
+#pragma unroll
+              for (int j = 0; j < 2 * HEADS; j += 4)
+                gridgat::load4(wr + (kk + q) * WS + j, wv + j);
+#pragma unroll
+              for (int j = 0; j < 2 * HEADS; ++j)
+                dacc[rr][j] = fmaf(xv[q], wv[j], dacc[rr][j]);
+            }
+          }
         }
       }
-      __syncthreads();
+    }
+    __syncthreads();   // the ring is free: xh_s aliases it
 
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float* ar = xsT + kk * XS_STRIDE + ty * RM;
-        const float2 a01 = *reinterpret_cast<const float2*>(ar);
-        const float2 a23 = *reinterpret_cast<const float2*>(ar + 2);
-        const float2 a45 = *reinterpret_cast<const float2*>(ar + 4);
-        const float a[RM] = {a01.x, a01.y, a23.x, a23.y, a45.x, a45.y};
-        const float* br = ws + kk * NC + tx * RN;
-        const float4 b0 = *reinterpret_cast<const float4*>(br);
-        const float4 b1 = *reinterpret_cast<const float4*>(br + 4);
-        const float bv[RN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    // xh of this chunk (all halo cells) -> shared; first chunk: the dots
 #pragma unroll
-        for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      if (first && tid < MROWS) {
-        for (int kk = 0; kk < KC; ++kk) {
-          const float xv = xsT[kk * XS_STRIDE + tid];
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int j = 0; j < 2 * HEADS; ++j)
-            dacc[j] = fmaf(xv, was[kk * 2 * HEADS + j], dacc[j]);
+        for (int e = 0; e < 4; ++e)
+          xh_s[(row0 + 16 * i + gridmma::acc_row(e)) * XH + 8 * j +
+               gridmma::acc_col(e)] = acc[i][j][e];
+    if (first) {
+#pragma unroll
+      for (int rr = 0; rr < G::RPT; ++rr) {
+        const int r = tid + rr * NTHREADS;
+        if (r >= NHALO) break;
+        const int hy = r / HW, hx = r % HW;
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) asrc_s[r * HEADS + h] = dacc[rr][h];
+        if (hy >= 1 && hy <= TH && hx >= 1 && hx <= TW) {
+#pragma unroll
+          for (int h = 0; h < HEADS; ++h)
+            adst_s[((hy - 1) * TW + hx - 1) * HEADS + h] = dacc[rr][HEADS + h];
         }
-      }
-      __syncthreads();
-    }
-
-    // xh of this channel chunk for all halo cells -> shared
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float* dst = xh_s + (ty * RM + i) * XH_STRIDE + tx * RN;
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    if (first && tid < NHALO) {
-#pragma unroll
-      for (int h = 0; h < HEADS; ++h) asrc_s[tid * HEADS + h] = dacc[h];
-      const int hy = tid / HALO_W, hx = tid % HALO_W;
-      if (hy >= 1 && hy <= TH && hx >= 1 && hx <= TW) {
-        const int cell = (hy - 1) * TW + (hx - 1);
-#pragma unroll
-        for (int h = 0; h < HEADS; ++h)
-          adst_s[cell * HEADS + h] = dacc[HEADS + h];
       }
     }
     __syncthreads();
@@ -213,7 +322,7 @@ grid_gat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
           continue;
         }
         const size_t pix = (size_t)gy * W + gx;
-        const int hc = (ly + 1) * HALO_W + (lx + 1);
+        const int hc = (ly + 1) * HW + (lx + 1);
         const float ad = adst_s[cell * HEADS + h];
         const float self_lg = leaky(
             asrc_s[hc * HEADS + h] + ad +
@@ -228,7 +337,7 @@ grid_gat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
             const int dr = c_off[conn_idx][k][0], dc = c_off[conn_idx][k][1];
             const int ny = gy + dr, nx = gx + dc;
             if (ny >= 0 && ny < H && nx >= 0 && nx < W) {
-              const int hn = hc + dr * HALO_W + dc;
+              const int hn = hc + dr * HW + dc;
               lg[k] = leaky(
                   asrc_s[hn * HEADS + h] + ad +
                       to_f(el[(((size_t)b * K + k) * HEADS + h) * plane + pix]),
@@ -257,37 +366,69 @@ grid_gat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
       __syncthreads();
     }
 
-    // weighted sum over the 3x3 window + bias + epilogue + mask
-    {
-      const int c = tid % NC;
-      const int col = n0 + c;
-      if (col < HC) {
-        const int h = col / C;
-        const float bcol = bias[col];
-        const float sc = fuse_bn ? bn_scale[col] : 1.f;
-        const float sh = fuse_bn ? bn_shift[col] : 0.f;
-        const float* wbase = wts_s + h * (MAXK + 1) * NCELL;
-        for (int cell = tid / NC; cell < NCELL; cell += NTHREADS / NC) {
-          const int ly = cell / TW, lx = cell % TW;
-          const int gy = y0 + ly, gx = x0 + lx;
-          if (gy >= H || gx >= W) continue;
-          const int hc = (ly + 1) * HALO_W + (lx + 1);
-          float v = xh_s[hc * XH_STRIDE + c] * wbase[MAXK * NCELL + cell];
+    // weighted sum over the 3x3 window + bias + epilogue + mask, 4
+    // channels of one cell a thread
+    const bool one_head = C % 4 == 0;
+    const bool vec_out = HC % 4 == 0;
+    for (int i = tid; i < NCELL * (NC / 4); i += NTHREADS) {
+      const int c = 4 * (i % (NC / 4)), cell = i / (NC / 4);
+      const int col0 = n0 + c;
+      if (col0 >= HC) continue;
+      const int ly = cell / TW, lx = cell % TW;
+      const int gy = y0 + ly, gx = x0 + lx;
+      if (gy >= H || gx >= W) continue;
+      const int hc = (ly + 1) * HW + (lx + 1);
+      float v[4];
+      if (one_head) {
+        const float* wb = wts_s + (col0 / C) * (MAXK + 1) * NCELL + cell;
+        const float4 s = *reinterpret_cast<const float4*>(xh_s + hc * XH + c);
+        const float ws0 = wb[MAXK * NCELL];
+        v[0] = s.x * ws0, v[1] = s.y * ws0, v[2] = s.z * ws0, v[3] = s.w * ws0;
+#pragma unroll
+        for (int k = 0; k < MAXK; ++k) {
+          if (k < K) {
+            const int hn =
+                hc + c_off[conn_idx][k][0] * HW + c_off[conn_idx][k][1];
+            const float4 q =
+                *reinterpret_cast<const float4*>(xh_s + hn * XH + c);
+            const float wk = wb[k * NCELL];
+            v[0] += q.x * wk, v[1] += q.y * wk, v[2] += q.z * wk,
+                v[3] += q.w * wk;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int h = min(col0 + j, HC - 1) / C;
+          const float* wb = wts_s + h * (MAXK + 1) * NCELL + cell;
+          float a = xh_s[hc * XH + c + j] * wb[MAXK * NCELL];
 #pragma unroll
           for (int k = 0; k < MAXK; ++k) {
             if (k < K) {
               const int hn =
-                  hc + c_off[conn_idx][k][0] * HALO_W + c_off[conn_idx][k][1];
-              v += xh_s[hn * XH_STRIDE + c] * wbase[k * NCELL + cell];
+                  hc + c_off[conn_idx][k][0] * HW + c_off[conn_idx][k][1];
+              a += xh_s[hn * XH + c + j] * wb[k * NCELL];
             }
           }
-          v += bcol;
-          if (fuse_bn) v = v * sc + sh;
-          if (fuse_relu) v = fmaxf(v, 0.f);
-          const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
-          v *= valid[pix] > 0.f ? 1.f : 0.f;
-          out[pix * HC + col] = from_f<T>(v);
+          v[j] = a;
         }
+      }
+      const size_t pix = (size_t)b * plane + (size_t)gy * W + gx;
+      const float keep = valid[pix] > 0.f ? 1.f : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float a = v[j] + epi_s[c + j];
+        if (fuse_bn) a = a * epi_s[NC + c + j] + epi_s[2 * NC + c + j];
+        if (fuse_relu) a = fmaxf(a, 0.f);
+        v[j] = a * keep;
+      }
+      T* dst = out + pix * HC + col0;
+      if (vec_out) {
+        gridgat::store4(dst, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col0 + j < HC) dst[j] = from_f<T>(v[j]);
       }
     }
     __syncthreads();  // xh_s is overwritten by the next chunk's staging
@@ -300,13 +441,14 @@ int launch(const void* x, const void* w, const void* wa, const void* el,
            const void* bn_scale, const void* bn_shift, void* out, int B,
            int H, int W, int F, int HC, int K, float slope, int fuse_bn,
            int fuse_relu, Drop drop, cudaStream_t stream) {
-  const int smem = smem_floats<HEADS>() * (int)sizeof(float);
+  const int smem = Cfg<T, HEADS>::SMEM;
   auto kern = grid_gat_fwd_kernel<T, HEADS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  constexpr int TH = Cfg<T, HEADS>::TH, TW = Cfg<T, HEADS>::TW;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  kern<<<grid, Cfg<T, HEADS>::NTHREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(wa), static_cast<const T*>(el),
       static_cast<const T*>(el_self), static_cast<const float*>(valid),

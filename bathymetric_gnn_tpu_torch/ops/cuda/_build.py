@@ -46,6 +46,7 @@ KERNELS: Dict[str, tuple] = {
     "grid_gat_bwd": ("grid_gat_bwd.cu", {
         "grid_gat_bwd": (_I, [_I] + [_VP] * 15 + [_I] * 8 + [_F] + _DROP
                          + [_I, _I, _VP]),
+        "grid_gat_bwd_blocks": (_I, [_I] * 4),
         "grid_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_fwd": ("ell_gat_fwd.cu", {

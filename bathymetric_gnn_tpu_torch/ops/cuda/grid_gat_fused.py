@@ -19,7 +19,6 @@ kernels do not take raises.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -37,7 +36,7 @@ train_launches = 0
 bwd_launches = 0
 
 _KERNEL_HEADS = (1, 2, 4, 8)
-_BWD_HEADS = (1, 2, 4)
+_BWD_HEADS = (1, 2, 4, 8)
 _MAX_EDGE_DIM = 4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -474,11 +473,12 @@ def call_kernel(*, x, w, wa, el, el_self, valid, bias, bn_scale, bn_shift,
 
 def _splits(ncell: int):
     """(nsplit, cells per split) of kernel B's weight-grad partials: at
-    most 64 partials, each over a run of >= 1024 cells (a multiple of the
-    products kernel's depth step, 16)."""
-    target = max(1, min(64, ncell // 1024))
+    most 128 partials (enough blocks to fill the card with the products
+    kernel's 256 x 128 weight-grad tiles), each over a run of >= 1024 cells
+    (a multiple of its depth step, 32 bf16 or 16 f32 cells)."""
+    target = max(1, min(128, ncell // 1024))
     cps = -(-ncell // target)
-    cps = -(-cps // 16) * 16
+    cps = -(-cps // 32) * 32
     return -(-ncell // cps), cps
 
 
@@ -498,12 +498,13 @@ def call_bwd_kernel(*, x, w, wa, el, el_self, valid, g, eattr, mattr, heads,
     hc = w.shape[1]
     ed = eattr.shape[-1]
     _check(heads in _BWD_HEADS, f"backward: heads={heads} not in "
-           f"{_BWD_HEADS} (kernel B's shared memory)")
+           f"{_BWD_HEADS}")
     _check(ed <= _MAX_EDGE_DIM, f"edge_dim {ed} > {_MAX_EDGE_DIM}")
     _check(tuple(g.shape) == (b, h, wd, hc) and g.dtype == x.dtype
            and g.is_contiguous(), f"cotangent {tuple(g.shape)} {g.dtype}")
     dev, dt = x.device, x.dtype
-    nblk = b * math.ceil(h / 8) * math.ceil(wd / 16)
+    lib = library("grid_gat_bwd")
+    nblk = lib.grid_gat_bwd_blocks(heads, b, h, wd)
     nsplit, cps = _splits(b * h * wd)
     dxh = torch.empty(b, h, wd, hc, device=dev, dtype=dt)
     dad = torch.empty(b, h, wd, 2 * heads, device=dev, dtype=dt)
@@ -512,7 +513,6 @@ def call_bwd_kernel(*, x, w, wa, el, el_self, valid, g, eattr, mattr, heads,
     dx = torch.empty(b, h, wd, f_in, device=dev, dtype=dt)
     dw_part = torch.empty(nsplit, f_in, hc + 2 * heads, device=dev,
                           dtype=torch.float32)
-    lib = library("grid_gat_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grid_gat_bwd(

@@ -61,8 +61,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
    plain functions (dropout 0); the ``"banded"`` route trains too (at
    dropout 0, phase 3f);
 4. timings with CUDA events after warm-up: kernel A per inference shape,
-   kernels A (training form) and B per training shape, the whole train
-   step in f32 and bf16, kernel C per shape with the model forward of
+   kernels A (training form) and B per training shape, each beside its
+   bound (products at the tensor-core rate, ``MMA_FLOPS``) and, as
+   information, ``torch.matmul`` of the same x@W product (the port never
+   calls it), the whole train step in f32 and bf16, kernel C per shape with the model forward of
    one 65,536-node flush, and (4d) kernel C's training form, C', F's two
    modes (``index_add_`` beside mode (a)) per k-NN training shape and the
    k-NN train step on one merged batch with its device busy share;
@@ -127,6 +129,11 @@ MODEL_LAYERS = 4
 # input type (FP32 outside the tensor cores; bf16 tensor cores).
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# The rate of the fastest f32-accurate matrix product the card has, for
+# kernels A and B's products: f32 products run as 3xTF32 (three TF32
+# tensor-core MMAs a product, 495 / 3 TFLOP/s); bf16 on bf16 MMAs. Their
+# other operations (the 9-way sums) run on the CUDA cores at the FP32 rate.
+MMA_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # kernel vs plain version on the card: |err| <= TOL * (1 + |ref|).
 # f32: the same f32 products summed in another order (~1e-6 measured);
 # bf16: one or two bf16 rounding steps of the output (2^-7 relative each).
@@ -724,21 +731,52 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return e0.elapsed_time(e1) / iters
 
 
+def split_bound(nbytes, mma_flops, other_flops, dtype):
+    """(ms, "bytes" | "operations", old ms): the larger of bytes over HBM
+    bandwidth and the operations' time, products at MMA_FLOPS[dtype] plus
+    the other operations at the FP32 rate; the old ms counts every
+    operation at PEAK_FLOPS[dtype] (the bound before the kernels ran their
+    products on the tensor cores)."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (mma_flops / MMA_FLOPS[dtype]
+             + other_flops / PEAK_FLOPS["float32"]) * 1e3
+    old = max(t_bytes, (mma_flops + other_flops) / PEAK_FLOPS[dtype] * 1e3)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", old)
+
+
 def bound(dims):
     """Least time for one call: the kernel's inputs read once and its
-    output written once over HBM bandwidth, vs its operations (x@W, the
-    attention dots, the 9-way weighted sum) over the peak rate of the
-    input type."""
+    output written once over HBM bandwidth, vs its operations: the x@W and
+    attention-dot products at the tensor-core rate of the input type
+    (``MMA_FLOPS``) plus the 9-way weighted sum at the FP32 rate. Returns
+    (ms, bound by, bytes, flops, old ms with every operation at
+    ``PEAK_FLOPS``)."""
     n = dims["h"] * dims["w"]
     f, hc, heads, k = dims["f"], dims["hc"], dims["heads"], dims["k"]
     s = 4 if dims["dtype"] == "float32" else 2
     nbytes = (s * (n * f + f * hc + f * 2 * heads + (k + 1) * heads * n
                    + n * hc) + 4 * n + 12 * hc)
-    flops = 2 * n * f * hc + 2 * n * f * 2 * heads + 2 * (k + 1) * n * hc
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dims["dtype"]] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", nbytes, flops)
+    mma = 2 * n * f * hc + 2 * n * f * 2 * heads
+    other = 2 * (k + 1) * n * hc
+    ms, by, old = split_bound(nbytes, mma, other, dims["dtype"])
+    return ms, by, nbytes, mma + other, old
+
+
+def cublas_xw_ms(torch, n, f, hc, dtype, dev):
+    """Info only (the port never calls it): one torch.matmul of the layer's
+    [n, f] x [f, hc] product on the card, f32 with allow_tf32 False (full
+    f32) or bf16, seeded inputs."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    dt = getattr(torch, dtype)
+    a = torch.randn(n, f, generator=g, device=dev).to(dt)
+    b = torch.randn(f, hc, generator=g, device=dev).to(dt)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(torch, lambda: torch.matmul(a, b), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def phase_timings(torch, np, cases, pipe, depth):
@@ -756,14 +794,22 @@ def phase_timings(torch, np, cases, pipe, depth):
             plain_ms = cuda_ms(
                 torch, lambda: gf.grid_gat_reference(*args, **kw), 3,
                 warmup=1)
-            b_ms, b_by, nbytes, flops = bound(dims)
+            b_ms, b_by, nbytes, flops, b_old = bound(dims)
+            mm_ms = cublas_xw_ms(torch, dims["h"] * dims["w"], dims["f"],
+                                 dims["hc"], dims["dtype"], dev=args[0].device)
             rows.append(dict(shape=label, ms=ms, wrapper_ms=wrap_ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             bytes=nbytes, flops=flops))
+                             bound_old_ms=b_old, bytes=nbytes, flops=flops,
+                             cublas_xw_ms=mm_ms))
             log(f"[4] {label}: kernel {ms:.3f} ms (wrapper incl. edge "
                 f"precompute {wrap_ms:.3f} ms), plain {plain_ms:.3f} ms, "
-                f"bound {b_ms:.3f} ms by {b_by} ({nbytes / 1e9:.3f} GB, "
+                f"bound {b_ms:.3f} ms by {b_by} (old, all operations at "
+                f"the FP32 or bf16 peak: {b_old:.3f}; {nbytes / 1e9:.3f} GB, "
                 f"{flops / 1e9:.1f} GFLOP), {b_ms / ms:.3f} of bound")
+            log(f"[4]   info: torch.matmul of the x@W product "
+                f"[{dims['h'] * dims['w']}, {dims['f']}] x [{dims['f']}, "
+                f"{dims['hc']}] in {dims['dtype']} (allow_tf32 False): "
+                f"{mm_ms:.3f} ms")
             del kargs
 
         tiles = [depth[r:r + TILE, c:c + TILE] for r in (0, 896, 1280)
@@ -781,13 +827,14 @@ def phase_timings(torch, np, cases, pipe, depth):
 
 def train_bounds(dims):
     """Least time of kernel A's training form and of kernel B for one call
-    (the larger of bytes / 3.35 TB/s and operations / peak of the input
-    type). A: as ``bound`` without the epilogue (dropout drawn in the
-    kernel: no mask bytes). B: x, W, W@a, the edge logit terms, mask, g
-    and the edge attributes read once, dx and the summed dW, d(W@a),
-    dM_edge and dbias written once; operations: the xh and attention-dot
-    recompute, dx, dW and d(W@a) products and the 9-way dxh and
-    d(weights) sums."""
+    (the larger of bytes / 3.35 TB/s and the operations' time: products at
+    ``MMA_FLOPS``, the rest at the FP32 rate; ``split_bound``). A: as
+    ``bound`` without the epilogue (dropout drawn in the kernel: no mask
+    bytes). B: x, W, W@a, the edge logit terms, mask, g and the edge
+    attributes read once, dx and the summed dW, d(W@a), dM_edge and dbias
+    written once; products: the xh and attention-dot recompute, dx, dW and
+    d(W@a); other operations: the 9-way dxh and d(weights) sums. Each entry
+    is (ms, bound by, bytes, flops, old ms)."""
     n = dims["b"] * dims["h"] * dims["w"]
     f, hc, heads, k, ed = (dims["f"], dims["hc"], dims["heads"], dims["k"],
                            dims["ed"])
@@ -795,19 +842,16 @@ def train_bounds(dims):
     a2 = 2 * heads
     a_bytes = (s * (n * f + f * hc + f * a2 + (k + 1) * heads * n + n * hc)
                + 4 * n + 4 * hc)
-    a_flops = 2 * n * f * hc + 2 * n * f * a2 + 2 * (k + 1) * n * hc
+    a_mma, a_other = 2 * n * f * hc + 2 * n * f * a2, 2 * (k + 1) * n * hc
     b_bytes = (s * (2 * n * f + f * hc + f * a2 + (k + 1) * heads * n
                     + n * hc + (k + 1) * n * ed)
                + 4 * n + 4 * (f * hc + f * a2 + ed * heads + hc))
-    b_flops = (2 * n * f * (hc + a2) + 2 * n * (hc + a2) * f
-               + 2 * n * f * (hc + a2) + 4 * (k + 1) * n * hc)
+    b_mma, b_other = 3 * 2 * n * f * (hc + a2), 4 * (k + 1) * n * hc
     out = {}
-    for name, nbytes, flops in (("A", a_bytes, a_flops),
-                                ("B", b_bytes, b_flops)):
-        t_b = nbytes / PEAK_BYTES * 1e3
-        t_o = flops / PEAK_FLOPS[dims["dtype"]] * 1e3
-        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
-                     nbytes, flops)
+    for name, nbytes, mma, other in (("A", a_bytes, a_mma, a_other),
+                                     ("B", b_bytes, b_mma, b_other)):
+        ms, by, old = split_bound(nbytes, mma, other, dims["dtype"])
+        out[name] = (ms, by, nbytes, mma + other, old)
     return out
 
 
@@ -856,20 +900,30 @@ def phase_train_timings(torch, np, cases, work, data):
         pb_ms = cuda_ms(torch, lambda: torch.autograd.grad(
             ref, leaves, g, retain_graph=True), 3, warmup=1)
         bd = train_bounds(dims)
+        mm_ms = cublas_xw_ms(torch, dims["b"] * dims["h"] * dims["w"],
+                             dims["f"], dims["hc"], dims["dtype"],
+                             dev=args[0].device)
         rows.append(dict(shape=label, a_ms=a_ms, b_ms=b_ms,
                          layer_fwd_bwd_ms=layer_ms, a_plain_ms=pa_ms,
                          b_plain_ms=pb_ms, a_bound_ms=bd["A"][0],
                          a_bound_by=bd["A"][1], b_bound_ms=bd["B"][0],
                          b_bound_by=bd["B"][1], a_bytes=bd["A"][2],
                          a_flops=bd["A"][3], b_bytes=bd["B"][2],
-                         b_flops=bd["B"][3]))
+                         b_flops=bd["B"][3], a_bound_old_ms=bd["A"][4],
+                         b_bound_old_ms=bd["B"][4], cublas_xw_ms=mm_ms))
         log(f"[4b] {label}: kernel A (training) {a_ms:.3f} ms, plain "
             f"{pa_ms:.3f} ms, bound {bd['A'][0]:.3f} ms by {bd['A'][1]} "
             f"({bd['A'][0] / a_ms:.3f} of bound); kernel B {b_ms:.3f} ms, "
             f"plain backward {pb_ms:.3f} ms, bound {bd['B'][0]:.3f} ms by "
             f"{bd['B'][1]} ({bd['B'][2] / 1e9:.3f} GB, "
             f"{bd['B'][3] / 1e9:.1f} GFLOP; {bd['B'][0] / b_ms:.3f} of "
-            f"bound); layer fwd + bwd through autograd {layer_ms:.3f} ms")
+            f"bound); layer fwd + bwd through autograd {layer_ms:.3f} ms; "
+            f"old bounds (all operations at the FP32 or bf16 peak) A "
+            f"{bd['A'][4]:.3f}, B {bd['B'][4]:.3f} ms")
+        log(f"[4b]   info: torch.matmul of the x@W product "
+            f"[{dims['b'] * dims['h'] * dims['w']}, {dims['f']}] x "
+            f"[{dims['f']}, {dims['hc']}] in {dims['dtype']} (allow_tf32 "
+            f"False): {mm_ms:.3f} ms")
         del kw, bkw, ea, mattr, g, mask, ref, leaves
 
     steps = {}

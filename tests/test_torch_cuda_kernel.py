@@ -66,6 +66,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
     (1, 30, 100, 16, 4, 16, 4),   # 4-connected
     (1, 64, 96, 64, 4, 64, 8),    # the model's widths: 64 -> 4 x 64
     (1, 40, 33, 256, 1, 64, 8),   # last layer: 256 -> 64, heads 1
+    (2, 31, 65, 40, 4, 16, 4),    # H, W across the 14 x 14 tile; F 40
+    (2, 29, 33, 40, 8, 8, 8),     # 8 heads: one 16-warp block an SM
 ])
 @pytest.mark.parametrize("relu", [False, True])
 def test_kernel_matches_plain(dev, dtype, shape, relu):
@@ -145,6 +147,8 @@ def _dmask(args, heads, seed=3, keep=0.9):
     (1, 30, 100, 16, 4, 16, 4),   # 4-connected
     (1, 64, 96, 64, 4, 64, 8),    # the model's widths: 64 -> 4 x 64
     (1, 40, 33, 256, 1, 64, 8),   # last layer: 256 -> 64, heads 1
+    (2, 23, 61, 40, 4, 16, 4),    # across B's 8 x 28 tile; F 40, conn 4
+    (2, 27, 31, 40, 8, 8, 8),     # 8 heads: B's 12 x 12 tile
 ])
 @pytest.mark.parametrize("drop", [False, True])
 def test_train_kernels_match_plain(dev, dtype, shape, drop):
@@ -165,6 +169,43 @@ def test_train_kernels_match_plain(dev, dtype, shape, drop):
         scale = r.float().abs().max().item() + 1e-6
         d = (a.float() - r.float()).abs().max().item()
         assert d <= GRAD_TOL[dtype] * scale, (name, d, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 23, 61, 40, 4, 16, 4),
+    (2, 27, 31, 40, 8, 8, 8),
+    (1, 40, 33, 256, 1, 64, 8),
+])
+def test_train_kernels_philox_match_plain(dev, dtype, shape):
+    """Dropout mode 2 (the Philox draw in kernels A and B) vs the plain
+    forward and autograd of it given the same draw as a mask."""
+    b, h, w, f_in, heads, c, conn = shape
+    args, _, _ = _layer_inputs(dev, b, h, w, f_in, heads, c, conn)
+    seed = torch.tensor([20241017], dtype=torch.int64, device=dev)
+    mask = gf.drop_mask(seed, 0.9, b, conn, heads, h, w)
+    out, grads, g = _train_run(gf.fused_grid_gat, args, None, dtype,
+                               drop_seed=seed, keep_prob=0.9)
+    ref, rgrads, _ = _train_run(gf.grid_gat_reference, args, mask, dtype, g)
+    err = (out.float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert err.max().item() <= TOL[dtype], err.max().item()
+    for name, a, r in zip(LEAVES, grads, rgrads):
+        scale = r.float().abs().max().item() + 1e-6
+        d = (a.float() - r.float()).abs().max().item()
+        assert d <= GRAD_TOL[dtype] * scale, (name, d, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [4, 8])
+def test_bwd_gradients_repeat_bit_for_bit(dev, dtype, heads):
+    """Kernel B's partials carry no atomics: two calls on the same inputs
+    give the same gradients bit for bit."""
+    args, _, _ = _layer_inputs(dev, 2, 45, 70, 64, heads, 64 // heads, 8)
+    dmask = _dmask(args, heads)
+    _, first, g = _train_run(gf.fused_grid_gat, args, dmask, dtype)
+    _, again, _ = _train_run(gf.fused_grid_gat, args, dmask, dtype, g)
+    for name, a, r in zip(LEAVES, first, again):
+        assert torch.equal(a, r), name
 
 
 def test_philox_rate_and_fwd_bwd_agree(dev):

@@ -10,6 +10,14 @@ compared exactly; node features within the featurization parity of
 positions and depths, within 1e-6.
 """
 
+import ctypes
+import fcntl
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +39,57 @@ from bathymetric_gnn_tpu_torch.ops.graph import batch_graphs
 torch.set_num_threads(2)
 
 STD_CHANNEL = 2
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _loads(so: Path) -> bool:
+    try:
+        ctypes.CDLL(str(so))
+        return True
+    except OSError:
+        return False
+
+
+def ensure_jax_native_kit():
+    """Make sure the JAX package's k-NN runs on its native graph kit, not
+    on its NumPy fallback (which breaks distance ties differently).
+
+    The JAX loader builds ``libgraphkit.so`` on first use with
+    ``native/build.sh``, which has g++ write straight into the final path,
+    and caches a failed build or load per process. Under several test
+    workers one worker can read the file while another writes it. So,
+    under a file lock in ``build/``: where the library is missing or does
+    not load, compile ``native/graphkit.cpp`` with ``build.sh``'s flags
+    into a temporary file beside it and move it into place atomically;
+    then reset the loader's cache and load it, retrying briefly while
+    another process may still be rewriting the file."""
+    so = ROOT / "bathymetric_gnn_tpu" / "native" / "libgraphkit.so"
+    lock = ROOT / "build" / "jax_graphkit.lock"
+    lock.parent.mkdir(exist_ok=True)
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if not (so.exists() and _loads(so)):
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+                os.close(fd)
+                try:
+                    subprocess.run(
+                        ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                         "-o", tmp, str(ROOT / "native" / "graphkit.cpp"),
+                         "-lpthread"], check=True, capture_output=True,
+                        timeout=300)
+                    os.replace(tmp, so)
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+    for _ in range(10):
+        jax_native._LIB, jax_native._TRIED = None, False
+        if jax_native._load() is not None:
+            break
+        time.sleep(0.5)
+    assert jax_native.native_available(), "JAX graph kit did not load"
 
 
 def _cloud(seed=0, n=1500):
@@ -62,7 +121,7 @@ def _refinement(seed, shape, holes=0.05):
 @pytest.mark.parametrize("k", [8, 16])
 def test_knn2d_matches_jax(points, k):
     pos = _cloud() if points == "cloud" else _grid_with_holes()
-    assert jax_native.native_available()
+    ensure_jax_native_kit()
     want = jax_native.knn2d(pos, k)
     got = native.knn2d(pos, k)
     np.testing.assert_array_equal(got, want)
@@ -84,6 +143,7 @@ def test_ell_pack_matches_jax():
     rg = np.random.default_rng(2)
     dst = np.sort(rg.integers(0, 300, 2000)).astype(np.int32)
     src = rg.integers(0, 300, 2000).astype(np.int32)
+    ensure_jax_native_kit()
     want = jax_native.ell_pack(src, dst, 300, 6)
     got = native.ell_pack(src, dst, 300, 6)
     for g, w in zip(got[:3], want[:3]):
@@ -125,6 +185,7 @@ def _check_graph(tg, jg):
 def test_graph_builder_knn_matches_jax(shape, with_unc):
     depth, valid, unc = _refinement(sum(shape), shape)
     res = (1.5, 2.0)
+    ensure_jax_native_kit()
     jb = JaxBuilder(JaxGraph(knn_k=8), JaxBucket()).build_graph(
         depth, valid, unc if with_unc else None, res)
     tb = GraphBuilder(GraphConfig(knn_k=8), BucketConfig()).build_graph(
@@ -149,6 +210,7 @@ def test_batch_graphs_and_coo_to_ell_match_jax():
     """A batch of refinement graphs (one of a single node, one of two, so
     with isolated nodes and fewer than K live slots) packed by both
     packages, then converted to ELL of width 8."""
+    ensure_jax_native_kit()
     builders = (JaxBuilder(JaxGraph(knn_k=8), JaxBucket()),
                 GraphBuilder(GraphConfig(knn_k=8), BucketConfig()))
     shapes = [(12, 9), (1, 1), (1, 2), (30, 21), (5, 5)]

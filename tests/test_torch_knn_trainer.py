@@ -40,7 +40,8 @@ from bathymetric_gnn_tpu_torch.utils.weights import (coo_state_dict,
                                                      state_dict_from_flax)
 
 from conftest import make_ramp_surface
-from test_torch_knn_graph import _check_graph
+from test_torch_knn_graph import (_check_graph,
+                                  ensure_jax_native_kit)
 
 torch.set_num_threads(2)
 
@@ -95,6 +96,7 @@ class Fixed:
 
 @pytest.fixture(scope="module")
 def datasets():
+    ensure_jax_native_kit()   # not JAX's NumPy k-NN: it breaks ties apart
     jcfg, cfg = _configs()
     j = jds.SyntheticTileDataset(_grids(), jcfg, tile_size=32, overlap=8,
                                  seed=5)
