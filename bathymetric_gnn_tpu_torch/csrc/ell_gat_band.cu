@@ -25,7 +25,8 @@
 // gathers rows directly, so this kernel reads each in-band source's row
 // (from L2: Hilbert order keeps the window's rows close) and needs no
 // window. Two kernels behind one C entry:
-//   (1) the attention dots ac [N, 2 * heads] (ell_gat_banded.cuh);
+//   (1) the attention dots ac [N, 2 * heads] (ell_gat_rows.cuh
+//       mat_dots_kernel, shared with D and D');
 //   (2) one warp per destination row: lanes own slots for the softmax
 //       (the K x heads exponentials in the warp's slice of shared
 //       memory), then output columns for the weighted gather-sum with
@@ -40,6 +41,7 @@
 // neighbour row once more per slot.
 
 #include "ell_gat_banded.cuh"
+#include "ell_gat_rows.cuh"
 
 using namespace band;
 using ellgat::VecT;
@@ -123,9 +125,9 @@ int launch_band(const void* xh, const void* acat, const void* loc,
                 int r, float slope, int vec, size_t smem, cudaStream_t s) {
   const int wpb = THREADS / WARP;
   const T* txh = static_cast<const T*>(xh);
-  cudaError_t err = launch_acat_dots<T>(txh, static_cast<const T*>(acat),
-                                        static_cast<float*>(ac), n, heads * c,
-                                        2 * heads, s);
+  cudaError_t err = rows::launch_mat_dots<T>(
+      txh, static_cast<const T*>(acat), static_cast<float*>(ac), n, heads * c,
+      2 * heads, s);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
 #define BAND_ARGS                                                            \

@@ -1,7 +1,7 @@
 // Device helpers shared by the banded-ELL GAT kernels (ell_gat_band.cu,
 // kernel E; ell_gat_v2_fwd.cu, kernel D; ell_gat_v2_bwd.cu, kernel D'):
-// the window source of an in-band slot, the attention dots against a
-// [HC, 2 * heads] matrix, and the in-band softmax of one destination row.
+// the window source of an in-band slot and the in-band softmax of one
+// destination row (the attention dots: ell_gat_rows.cuh).
 //
 // Layouts (ops/ell_banded.py band_ell): loc [K, N] int32 local window
 // index (slot-major), el [K * heads, N] f32 raw edge logits (row k * heads
@@ -37,47 +37,6 @@ __device__ __forceinline__ long long window_source(int loc, long long i,
   const long long chunk = i / r + loc / r - 1;
   if (chunk < 0 || chunk >= bands) return -1;
   return chunk * r + loc % r;
-}
-
-// ac[i, j] = sum_col xh[i, col] * acat[col, j] for j < h2 = 2 * heads
-// (acat [HC, h2] row-major: a_src dots then a_dst dots; xh and acat of
-// type T, ac f32). One warp per node; the lanes stride over the columns.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-acat_dots_kernel(const T* __restrict__ xh, const T* __restrict__ acat,
-                 float* __restrict__ ac, long long n, int hc, int h2) {
-  const int lane = threadIdx.x & (WARP - 1);
-  const long long i =
-      (long long)blockIdx.x * (blockDim.x / WARP) + threadIdx.x / WARP;
-  if (i >= n) return;
-  float acc[2 * MAX_HEADS];
-#pragma unroll
-  for (int j = 0; j < 2 * MAX_HEADS; ++j) acc[j] = 0.f;
-  const T* row = xh + i * hc;
-  for (int col = lane; col < hc; col += WARP) {
-    const float x = ld(row + col);
-    const T* a = acat + (long long)col * h2;
-#pragma unroll
-    for (int j = 0; j < 2 * MAX_HEADS; ++j)
-      if (j < h2) acc[j] = fmaf(x, ld(a + j), acc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < 2 * MAX_HEADS; ++j) {
-    if (j < h2) {
-      const float s = warp_sum(acc[j]);
-      if (lane == 0) ac[i * h2 + j] = s;
-    }
-  }
-}
-
-template <typename T>
-inline cudaError_t launch_acat_dots(const T* xh, const T* acat, float* ac,
-                                    long long n, int hc, int h2,
-                                    cudaStream_t s) {
-  const int per_block = THREADS / WARP;
-  acat_dots_kernel<T><<<(unsigned)((n + per_block - 1) / per_block),
-                        THREADS, 0, s>>>(xh, acat, ac, n, hc, h2);
-  return cudaGetLastError();
 }
 
 // The K window sources of destination i into src_s (lanes own slots).

@@ -44,6 +44,7 @@
 // halves the xh and out streams).
 
 #include "ell_gat_banded.cuh"
+#include "ell_gat_rows.cuh"
 
 using namespace band;
 using ellgat::VecT;
@@ -174,9 +175,9 @@ int launch_v2_fwd(const void* xh, const void* acat, const void* loc,
                   cudaStream_t s) {
   const int wpb = THREADS / WARP;
   const T* txh = static_cast<const T*>(xh);
-  cudaError_t err = launch_acat_dots<T>(txh, static_cast<const T*>(acat),
-                                        static_cast<float*>(ac), n, heads * c,
-                                        2 * heads, s);
+  cudaError_t err = rows::launch_mat_dots<T>(
+      txh, static_cast<const T*>(acat), static_cast<float*>(ac), n, heads * c,
+      2 * heads, s);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
 #define V2_FWD_ARGS                                                          \

@@ -12,9 +12,10 @@
 // prefetched into the grid. Hopper reads rows directly, so one warp per
 // output row walks its segment (row_ptr from a source-sorted stable
 // argsort, ops/ell.py src_sorted_slots) and sums in registers
-// (segment_reduce.cuh). The same kernel, with its rows formed in
-// registers from kernel C''s per-slot coefficients instead of read from
-// ct, is the source-side half of kernel C' (ell_gat_bwd.cu).
+// (segment_reduce.cuh). Mode (b), its rows formed in registers from
+// kernel C''s per-slot coefficients instead of read from ct, is the
+// source-side half of kernel C' (ell_gat_bwd.cu), which starts each row
+// from C''s destination side; segment_reduce_gat_rows runs it alone.
 //
 // The cotangent is read as float or bf16 (the bf16 model's spill-row
 // gathers, whose cotangent JAX casts to the gathered table's dtype) and
@@ -45,23 +46,21 @@ extern "C" int segment_reduce_sorted(int dtype, const void* ct,
   const int* rp = static_cast<const int*>(row_ptr);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const segred::RowsCT<ellgat::bf16> rows{
-        static_cast<const ellgat::bf16*>(ct), f};
-    return (int)segred::launch_reduce<false>(rows, p, rp, nullptr, o, n, f,
-                                             vec, s);
-  }
-  const segred::RowsCT<float> rows{static_cast<const float*>(ct), f};
-  return (int)segred::launch_reduce<false>(rows, p, rp, nullptr, o, n, f,
-                                           vec, s);
+  if (dtype == 1)
+    return (int)segred::launch_reduce(static_cast<const ellgat::bf16*>(ct),
+                                      p, rp, o, n, f, vec, s);
+  return (int)segred::launch_reduce(static_cast<const float*>(ct), p, rp, o,
+                                    n, f, vec, s);
 }
 
-// Mode (b) on its own (kernel C' launches it after its own kernel, adding
-// into dxh): out [n, heads * c] = for each source j the sum over its
-// slots s of alpha[s, h] * dy[s / k, h, :] + dl[s, h] * att_src[h, :].
-// alpha, dl [n * k, heads] f32; dy [n, heads * c] f32; att_src
-// [heads * c] f32; perm / row_ptr as mode (a); out overwritten. vec 4
-// needs c % 4 == 0 and 16-byte aligned dy, att_src and out.
+// Mode (b) on its own, the kernel of kernel C''s source side without the
+// destination side C' adds first: out [n, heads * c] = for each source j
+// the sum over its slots s of alpha[s, h] * dy[s / k, h, :] + dl[s, h] *
+// att_src[h, :]. alpha, dl [n * k, heads] f32; dy [n, heads * c] f32;
+// att_src [heads * c] f32; perm / row_ptr as mode (a); out overwritten.
+// vec 4 (16-byte row chunks) needs c % 4 == 0 and 16-byte aligned dy,
+// att_src and out and takes heads * c <= 2048; vec 1 takes heads * c <=
+// 1024.
 extern "C" int segment_reduce_gat_rows(const void* alpha, const void* dl,
                                        const void* dy, const void* att_src,
                                        const void* perm, const void* row_ptr,
@@ -71,15 +70,19 @@ extern "C" int segment_reduce_gat_rows(const void* alpha, const void* dl,
   if (n < 1 || k < 1 || heads < 1 || c < 1 || (vec != 1 && vec != 4) ||
       (vec == 4 && c % 4 != 0))
     return (int)cudaErrorInvalidValue;
-  const segred::RowsGAT<float> rows{static_cast<const float*>(alpha),
-                                    static_cast<const float*>(dl),
-                                    static_cast<const float*>(dy),
-                                    static_cast<const float*>(att_src),
-                                    nullptr, k, heads, c};
-  return (int)segred::launch_reduce<false>(
-      rows, static_cast<const int*>(perm), static_cast<const int*>(row_ptr),
-      nullptr, static_cast<float*>(out), n, heads * c, vec,
-      static_cast<cudaStream_t>(stream));
+  const float* a = static_cast<const float*>(alpha);
+  const float* d = static_cast<const float*>(dl);
+  const float* g = static_cast<const float*>(dy);
+  const float* t = static_cast<const float*>(att_src);
+  const int* p = static_cast<const int*>(perm);
+  const int* rp = static_cast<const int*>(row_ptr);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return (int)segred::launch_gat_src<float, 4, false, float>(
+        a, d, g, t, nullptr, nullptr, p, rp, o, n, k, heads, c, s);
+  return (int)segred::launch_gat_src<float, 1, false, float>(
+      a, d, g, t, nullptr, nullptr, p, rp, o, n, k, heads, c, s);
 }
 
 extern "C" const char* segment_reduce_error_string(int err) {

@@ -59,7 +59,7 @@ KERNELS: Dict[str, tuple] = {
     "ell_gat_bwd": ("ell_gat_bwd.cu", {
         "ell_gat_bwd": (_I, [_I] + [_VP] * 8 + _DROP + [_VP] * 10
                         + [_LL, _I, _I, _I, _F, _I, _I, _I, _VP]),
-        "ell_gat_bwd_warps_per_block": (_I, [_I, _I, _I]),
+        "ell_gat_bwd_blocks": (_I, [_I, _LL, _I, _I, _I, _I]),
         "ell_gat_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_band": ("ell_gat_band.cu", {
@@ -73,8 +73,9 @@ KERNELS: Dict[str, tuple] = {
         "ell_gat_v2_fwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_v2_bwd": ("ell_gat_v2_bwd.cu", {
-        "ell_gat_v2_bwd": (_I, [_I] + [_VP] * 24 + [_LL] + [_I] * 5
+        "ell_gat_v2_bwd": (_I, [_I] + [_VP] * 26 + [_LL] + [_I] * 5
                            + [_F, _I, _I, _VP]),
+        "ell_gat_v2_bwd_blocks": (_I, [_I, _LL, _I, _I, _I, _I]),
         "ell_gat_v2_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "segment_reduce": ("segment_reduce.cu", {

@@ -63,8 +63,6 @@ v2_bwd_launches = 0
 
 _MAX_HEADS = 8
 _MAX_K = 64
-# D' writes d acat as this many per-block partials, summed in order
-DA_BLOCKS = 512
 
 
 def _band_softmax(xh_flat, a_cat_mat, loc_t, el_t, el_self_t, band_rows,
@@ -282,8 +280,8 @@ def ell_gat_fused_v2(xh, a_src, a_dst, a_cat_mat, el_t, el_self_t, m_edge,
         return _FusedV2.apply(
             xh_flat, a_cat_mat, el_t, el_self_t, l_spill_b, xh_spill_b,
             banded.loc_t, banded.spill_dst_local_b, dmask_t, dmask_sp_b,
-            banded.band_perm, banded.band_row_ptr,
-            (banded.band_rows, float(negative_slope)))
+            banded.band_perm, banded.band_row_ptr, banded.spill_perm_d,
+            banded.spill_row_ptr_d, (banded.band_rows, float(negative_slope)))
     if xh.device.type == "cpu":
         return _v2_plain(
             xh_flat, a_cat_mat, banded.loc_t, el_t, el_self_t, l_spill_b,
@@ -297,12 +295,14 @@ class _FusedV2(torch.autograd.Function):
     """Kernel D forward, kernel D' backward, as the JAX custom VJP
     ``_fused_v2``: the forward keeps the layer's inputs (and the dropout
     masks), the backward recomputes the softmax in D' and sums its d acat
-    partials in a fixed order."""
+    partials in a fixed order. D' reads the in-band slots by source
+    (band_perm / band_row_ptr) and the spill entries by destination
+    (spill_perm_d / spill_row_ptr_d), the BandedEll's own tables."""
 
     @staticmethod
     def forward(ctx, xh_flat, a_cat_mat, el_t, el_self_t, l_spill_b,
                 xh_spill_b, loc_t, dst_loc_b, dmask_t, dmask_sp_b, band_perm,
-                band_row_ptr, opts):
+                band_row_ptr, spill_perm_d, spill_row_ptr_d, opts):
         band_rows, slope = opts
         kw = kernel_args(xh_flat, a_cat_mat, loc_t, el_t, el_self_t,
                          l_spill_b, xh_spill_b, dst_loc_b, dmask_t,
@@ -315,12 +315,19 @@ class _FusedV2(torch.autograd.Function):
                and band_row_ptr.device == xh_flat.device,
                f"band tables {tuple(band_perm.shape)} / "
                f"{tuple(band_row_ptr.shape)} vs N={n}, K={k}")
+        _check(tuple(spill_row_ptr_d.shape) == (n + 1,)
+               and spill_perm_d.device == xh_flat.device
+               and spill_row_ptr_d.device == xh_flat.device,
+               f"spill tables {tuple(spill_perm_d.shape)} / "
+               f"{tuple(spill_row_ptr_d.shape)} vs N={n}")
         out = call_v2_kernel(**kw)
         ctx.save_for_backward(
             kw["xh"], kw["acat"], kw["loc"], kw["el"], kw["el_self"],
             kw["l_spill"], kw["xh_spill"], kw["dst_loc"], kw["dmask"],
             kw["dmask_sp"], band_perm.to(torch.int32).contiguous(),
-            band_row_ptr.to(torch.int32).contiguous())
+            band_row_ptr.to(torch.int32).contiguous(),
+            spill_perm_d.to(torch.int32).contiguous(),
+            spill_row_ptr_d.to(torch.int32).contiguous())
         ctx.kw = {name: kw[name] for name in (
             "n", "k", "heads", "c", "r", "s_max", "negative_slope", "dtype")}
         ctx.has_self = el_self_t is not None
@@ -330,15 +337,16 @@ class _FusedV2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (xh, acat, loc, el, el_self, l_spill, xh_spill, dst_loc, dmask,
-         dmask_sp, perm, row_ptr) = ctx.saved_tensors
+         dmask_sp, perm, row_ptr, sp_perm, sp_row_ptr) = ctx.saved_tensors
         dxh, dacat, del_t, del_self, dl_spill, dxh_spill = call_v2_bwd_kernel(
             xh=xh, acat=acat, loc=loc, el=el, el_self=el_self,
             l_spill=l_spill, xh_spill=xh_spill, dst_loc=dst_loc,
             dmask=dmask, dmask_sp=dmask_sp, dout=g.to(xh.dtype).contiguous(),
-            perm=perm, row_ptr=row_ptr, **ctx.kw)
+            perm=perm, row_ptr=row_ptr, sp_perm=sp_perm,
+            sp_row_ptr=sp_row_ptr, **ctx.kw)
         return (dxh, dacat, del_t, del_self if ctx.has_self else None,
                 dl_spill, dxh_spill.to(ctx.spill_dtype), None, None, None,
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def _check(cond: bool, msg: str):
@@ -498,15 +506,19 @@ def call_v2_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
 
 
 def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
-                       dst_loc, dmask, dmask_sp, dout, perm, row_ptr, n, k,
-                       heads, c, r, s_max, negative_slope, dtype):
-    """Launch kernel D' (dots, destination rows, source walk, d acat
-    partials) on the inputs kernel D was given (``kernel_args``), the
-    cotangent ``dout`` [N, HC] in xh's dtype and the in-band slots'
-    source-sorted tables (int32). Returns (dxh [N, HC] in xh's dtype,
-    d acat [HC, 2 * heads], d el_t [K * heads, N], d el_self_t [heads, N]
-    or None, d l_spill [T, heads, S], d xh_spill [T, S, HC]), f32 but dxh.
-    The only place that counts ``v2_bwd_launches``."""
+                       dst_loc, dmask, dmask_sp, dout, perm, row_ptr,
+                       sp_perm, sp_row_ptr, n, k, heads, c, r, s_max,
+                       negative_slope, dtype):
+    """Launch kernel D' (dots, the destination pass with d acat folded in,
+    the source walk) on the inputs kernel D was given (``kernel_args``),
+    the cotangent ``dout`` [N, HC] in xh's dtype, the in-band slots'
+    source-sorted tables (perm / row_ptr) and the spill entries'
+    destination-sorted tables (sp_perm / sp_row_ptr: the BandedEll's
+    ``spill_perm_d`` / ``spill_row_ptr_d``), int32. Returns (dxh [N, HC] in
+    xh's dtype, d acat [HC, 2 * heads], d el_t [K * heads, N], d el_self_t
+    [heads, N] or None, d l_spill [T, heads, S], d xh_spill [T, S, HC]),
+    f32 but dxh; the kernel writes every entry of the spill cotangents
+    (0 at dead entries). The only place that counts ``v2_bwd_launches``."""
     global v2_bwd_launches
     from ._build import library
 
@@ -514,8 +526,20 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
     _check(tuple(dout.shape) == (n, hc) and dout.dtype == xh.dtype
            and dout.is_contiguous(), f"cotangent {tuple(dout.shape)} "
            f"{dout.dtype}")
+    _check(tuple(sp_row_ptr.shape) == (n + 1,)
+           and sp_perm.dtype == sp_row_ptr.dtype == torch.int32,
+           "spill tables: int32 perm and row_ptr [N + 1]")
     t_count = n // r
-    blocks = min(DA_BLOCKS, n)
+    xh, xh_spill, dout = (t if _aligned(t) else t.clone()
+                          for t in (xh, xh_spill, dout))
+    vec = 4 if c % 4 == 0 else 1
+    lib = library("ell_gat_v2_bwd")
+    with torch.cuda.device(xh.device):
+        blocks = lib.ell_gat_v2_bwd_blocks(dtype, n, k, heads, c, vec)
+    _check(blocks >= 1, f"heads={heads}, HC={hc}: a row wider than the "
+           "kernel takes (HC <= 1024 when C is not a multiple of 4 (f32) or "
+           "8 (bf16), else 2048 (f32) or 4096 (bf16)), or a d acat "
+           "accumulator over 227 KB")
     f32 = dict(device=xh.device, dtype=torch.float32)
     ac = torch.empty(n, 2 * heads, **f32)
     alpha = torch.empty(n * k, heads, **f32)
@@ -525,24 +549,23 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
     dxh = torch.empty(n, hc, device=xh.device, dtype=xh.dtype)
     del_t = torch.empty(k * heads, n, **f32)
     del_self = torch.empty(heads, n, **f32) if el_self is not None else None
-    # only live spill entries are written
-    dl_spill = torch.zeros(t_count, heads, s_max, **f32)
-    dxh_spill = torch.zeros(t_count, s_max, hc, **f32)
+    # every entry is written by the kernel (0 at dead entries)
+    dl_spill = torch.empty(t_count, heads, s_max, **f32)
+    dxh_spill = torch.empty(t_count, s_max, hc, **f32)
     part = torch.empty(blocks, hc, 2 * heads, **f32)
-    vec = 4 if c % 4 == 0 and all(_aligned(t) for t in (dout, dxh)) else 1
-    lib = library("ell_gat_v2_bwd")
     with torch.cuda.device(xh.device):
         err = lib.ell_gat_v2_bwd(
             dtype, xh.data_ptr(), acat.data_ptr(), loc.data_ptr(),
             el.data_ptr(), _ptr(el_self), l_spill.data_ptr(),
-            xh_spill.data_ptr(), dst_loc.data_ptr(), _ptr(dmask),
-            _ptr(dmask_sp), dout.data_ptr(),
-            perm.data_ptr(), row_ptr.data_ptr(), ac.data_ptr(),
-            alpha.data_ptr(), dl.data_ptr(), cself.data_ptr(),
-            dac.data_ptr(), dxh.data_ptr(), del_t.data_ptr(),
-            _ptr(del_self), dl_spill.data_ptr(), dxh_spill.data_ptr(),
-            part.data_ptr(), n, k, heads, c, r, s_max, negative_slope, vec,
-            blocks, torch.cuda.current_stream().cuda_stream)
+            xh_spill.data_ptr(), dst_loc.data_ptr(), sp_perm.data_ptr(),
+            sp_row_ptr.data_ptr(), _ptr(dmask), _ptr(dmask_sp),
+            dout.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(),
+            ac.data_ptr(), alpha.data_ptr(), dl.data_ptr(),
+            cself.data_ptr(), dac.data_ptr(), dxh.data_ptr(),
+            del_t.data_ptr(), _ptr(del_self), dl_spill.data_ptr(),
+            dxh_spill.data_ptr(), part.data_ptr(), n, k, heads, c, r, s_max,
+            negative_slope, vec, blocks,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _raise(lib, "ell_gat_v2_bwd", "kernel D' (ell_gat_v2_bwd)", err)
     v2_bwd_launches += 1

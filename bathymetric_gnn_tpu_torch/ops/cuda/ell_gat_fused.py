@@ -408,26 +408,31 @@ def call_kernel(*, xh, att, nbr, nmask, el, el_self, bias, node_mask, n, k,
     return out
 
 
-# C' blocks at most: each writes one [3, HC] partial of d att_src,
-# d att_dst and d bias (3 MB at HC 256), and walks its share of the nodes
-BWD_MAX_BLOCKS = 1024
+def _realigned(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its data starts on 16 bytes (the kernels' row
+    chunks), else a fresh copy (the allocator aligns to 256)."""
+    return t if _aligned(t) else t.clone()
 
 
 def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
                     seed, perm, row_ptr, g, n, k, heads, c, negative_slope,
                     has_self, drop_mode, thresh, keep_inv, dtype,
                     source_side: bool = True):
-    """Launch kernel C' (the attention dots, C' proper, then kernel F in
-    its mode (b)) on the inputs kernel C was given (``kernel_args``), the
-    cotangent ``g`` [N, HC] in xh's dtype and the source-sorted slot
-    tables. Returns (dxh [N, HC] in xh's dtype, alpha and dl [N * K,
-    heads] (the dropped softmax weights, unnormalized in the bf16 form, and
-    the logit cotangents, i.e. d el), d el_self [N, heads], partials
-    [blocks, 3, HC] of d att_src, d att_dst and d bias), f32 but dxh.
-    ``source_side=False`` leaves kernel F out (dxh is then the destination
-    side only, f32: for timing C' on its own). The only place that counts
-    ``bwd_launches``, and kernel F's launches (``segment_reduce.launches``)
-    of mode (b) within C'."""
+    """Launch kernel C' (the attention dots, the destination pass, then
+    kernel F in its mode (b) with the destination side added first) on the
+    inputs kernel C was given (``kernel_args``), the cotangent ``g``
+    [N, HC] in xh's dtype and the source-sorted slot tables. Returns (dxh
+    [N, HC] in xh's dtype, alpha and dl [N * K, heads] (the dropped softmax
+    weights, unnormalized in the bf16 form, and the logit cotangents, i.e.
+    d el), d el_self [N, heads], partials [blocks, 3, HC] of d att_src,
+    d att_dst and d bias), f32 but dxh. ``source_side=False`` leaves
+    kernel F out (for timing the destination pass on its own): the first
+    element is then what that pass writes for the destination side of dxh,
+    dsc [N, 3, heads] f32 = (at_s, the rounded dl sum, the rounded dl_self)
+    per node and head (kernel F's mode (b) forms its rows from them as
+    at_s dy + dst_r att_dst + dls_r att_src). The only place
+    that counts ``bwd_launches``, and kernel F's launches
+    (``segment_reduce.launches``) of mode (b) within C'."""
     global bwd_launches
     from ._build import library
 
@@ -435,23 +440,25 @@ def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
     _check(tuple(g.shape) == (n, hc) and g.dtype == xh.dtype
            and g.is_contiguous(), f"cotangent {tuple(g.shape)} {g.dtype}")
     lowp = xh.dtype != torch.float32
+    xh, g, att = _realigned(xh), _realigned(g), _realigned(att)
+    vec = 4 if c % 4 == 0 else 1
     lib = library("ell_gat_bwd")
-    wpb = lib.ell_gat_bwd_warps_per_block(k, heads, hc)
-    _check(wpb >= 1, f"K={k} x heads={heads}, HC={hc}: one warp's "
-           "accumulators and slot tables do not fit in 48 KB")
-    blocks = min(-(-n // wpb), BWD_MAX_BLOCKS)
     dev = xh.device
+    with torch.cuda.device(dev):
+        blocks = lib.ell_gat_bwd_blocks(dtype, n, k, heads, c, vec)
+    _check(blocks >= 1, f"K={k} x heads={heads}, HC={hc}: a row wider than "
+           "the kernel takes (HC <= 1024 when C is not a multiple of 4 "
+           "(f32) or 8 (bf16), else 2048 (f32) or 4096 (bf16))")
     f32 = dict(device=dev, dtype=torch.float32)
     dots = torch.empty(n, 2 * heads, **f32)
     alpha = torch.empty(n * k, heads, **f32)
     dl = torch.empty(n * k, heads, **f32)
-    dxh32 = torch.empty(n, hc, **f32)     # the destination side
-    # float32: kernel F adds the source side in place
-    dxh = torch.empty(n, hc, device=dev, dtype=xh.dtype) if lowp else dxh32
+    dsc = torch.empty(n, 3, heads, **f32)
+    dxh = torch.empty(n, hc, device=dev, dtype=xh.dtype) if source_side \
+        else None
     inv = torch.empty(n, heads, **f32) if lowp else None
     del_self = torch.empty(n, heads, **f32)
     part = torch.empty(blocks, 3, hc, **f32)
-    vec = 4 if c % 4 == 0 and all(_aligned(t) for t in (g, att)) else 1
     with torch.cuda.device(dev):
         err = lib.ell_gat_bwd(
             dtype, xh.data_ptr(), att.data_ptr(), nbr.data_ptr(),
@@ -459,8 +466,8 @@ def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
             g.data_ptr(), drop_mode, _ptr(dmask), _ptr(seed), thresh,
             keep_inv, _ptr(perm if source_side else None),
             _ptr(row_ptr if source_side else None), dots.data_ptr(),
-            alpha.data_ptr(), dl.data_ptr(), _ptr(inv), dxh32.data_ptr(),
-            dxh.data_ptr(), del_self.data_ptr(), part.data_ptr(), n, k,
+            alpha.data_ptr(), dl.data_ptr(), _ptr(inv), dsc.data_ptr(),
+            _ptr(dxh), del_self.data_ptr(), part.data_ptr(), n, k,
             heads, c, negative_slope, int(has_self), vec, blocks,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -469,6 +476,6 @@ def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
                            f"error {err} ({msg})")
     bwd_launches += 1
     if not source_side:
-        return dxh32, alpha, dl, del_self, part
+        return dsc, alpha, dl, del_self, part
     segment_reduce.launches += 1
     return dxh, alpha, dl, del_self, part

@@ -1789,14 +1789,19 @@ def knn_train_bounds(dims, dtype="float32"):
     """Least time of one call (bytes over 3.35 TB/s vs operations over the
     FP32 peak), counting this graph's live data: ln live nodes, le live
     slots. C (training form): as ``ell_bound``, the draw made in the
-    kernel. C' (without F): reads xh and dy rows, el_self of the live
-    nodes, el and nbr_src of the live slots, nbr_mask of the live nodes'
-    slots, node_mask and att; writes alpha and dl for the live nodes'
-    slots, dxh and d el_self over all N (zeros at padded rows);
-    operations: the attention dots, the softmax recompute, a dot product
-    and an axpy of C per live slot and head (P and d att_src), and the
-    destination-side rows. F mode (b) alone: reads alpha, dl and perm of
-    the live slots, row_ptr, the dy rows once and att_src, writes out
+    kernel. C' whole call ("Cw", the call the main path makes: dots,
+    destination pass, F (b)): reads xh and dy rows, el_self of the live
+    nodes, el, nbr_src and perm of the live slots, nbr_mask of the live
+    nodes' slots, row_ptr, node_mask and att; writes d el (dl) for the
+    live nodes' slots, dxh and d el_self over all N (zeros at padded
+    rows); operations: the attention dots, the softmax recompute, a dot
+    product and an axpy of C per live slot and head (P and d att_src), the
+    d att_dst and d bias sums, the destination-side rows and F (b)'s 4 per
+    live slot and column. C' destination pass alone ("Cp", an info line):
+    the same reads but perm and row_ptr; writes alpha and dl for the live
+    nodes' slots, d el_self and the destination side's three scalars per
+    node and head over all N. F mode (b) alone: reads alpha, dl and perm
+    of the live slots, row_ptr, the dy rows once and att_src, writes out
     [N, HC]; 4 operations per live slot and column. F mode (a): reads the
     [S, HC] cotangent (S = live slots), perm and row_ptr, writes out; one
     add per element read. In bfloat16 the xh, dy, att, dxh and cotangent
@@ -1806,11 +1811,16 @@ def knn_train_bounds(dims, dtype="float32"):
     s = 4 if dtype == "float32" else 2
     out = {"C": ell_bound(dims, dtype)}
     parts = {
-        "Cp": (s * (2 * ln * hc + 2 * hc + n * hc)
-               + 4 * (ln * h + le * h + le + 2 * ln * k * h + n * h)
+        "Cw": (s * (2 * ln * hc + 2 * hc + n * hc)
+               + 4 * (ln * h + le * h + le + ln * k * h + n * h + le + n
+                      + 1) + ln * k + n,
+               4 * ln * hc + 8 * (le + ln) * h + 4 * (le + ln) * hc
+               + 8 * ln * hc + 4 * le * hc),
+        "Cp": (s * (2 * ln * hc + 2 * hc)
+               + 4 * (ln * h + le * h + le + 2 * ln * k * h + 4 * n * h)
                + ln * k + n,
                4 * ln * hc + 8 * (le + ln) * h + 4 * (le + ln) * hc
-               + 6 * ln * hc),
+               + 3 * ln * hc),
         "Fb": (4 * (2 * le * h + le + n + 1 + ln * hc + hc + n * hc),
                4 * le * hc),
         "Fa": (s * le * hc + 4 * (le + n + 1 + n * hc), le * hc),
@@ -1824,8 +1834,9 @@ def knn_train_bounds(dims, dtype="float32"):
 
 
 def phase_knn_train_timings(torch, np, cases, work, samples):
-    """CUDA-event times of kernel C's training form (Philox draw), C'
-    (without F), F's mode (b) alone and mode (a) (index_add_ beside it)
+    """CUDA-event times of kernel C's training form (Philox draw), C''s
+    whole call (with F (b), as the main path makes it) and its destination
+    pass alone, F's mode (b) alone and mode (a) (index_add_ beside it)
     per shape against their bounds and plain versions; then the k-NN train
     step on one fixed merged batch: ms per step, the device's busy share
     under torch.profiler and the top device operations."""
@@ -1884,7 +1895,8 @@ def phase_knn_train_timings(torch, np, cases, work, samples):
                    c_bound_ms=bd["C"][0], c_bound_by=bd["C"][1],
                    cp_ms=cp_ms, cp_call_with_f_ms=call_ms,
                    cp_plain_ms=pcp_ms, cp_bound_ms=bd["Cp"][0],
-                   cp_bound_by=bd["Cp"][1], fb_ms=fb_ms, fb_plain_ms=pfb_ms,
+                   cp_bound_by=bd["Cp"][1], cw_bound_ms=bd["Cw"][0],
+                   cw_bound_by=bd["Cw"][1], fb_ms=fb_ms, fb_plain_ms=pfb_ms,
                    fb_bound_ms=bd["Fb"][0], fb_bound_by=bd["Fb"][1],
                    fa_ms=fa_ms, fa_plain_ms=pfa_ms, fa_library_ms=lib_ms,
                    fa_bound_ms=bd["Fa"][0], fa_bound_by=bd["Fa"][1],
@@ -1893,10 +1905,12 @@ def phase_knn_train_timings(torch, np, cases, work, samples):
         rows.append(row)
         log(f"[4d] {label}: C training {c_ms:.4f} ms (plain {pc_ms:.4f}, "
             f"bound {bd['C'][0]:.4f} by {bd['C'][1]}, {bd['C'][0] / c_ms:.3f}"
-            f" of bound); C' {cp_ms:.4f} ms (with F in the same call "
-            f"{call_ms:.4f}; plain autograd backward {pcp_ms:.4f}; bound "
-            f"{bd['Cp'][0]:.4f} by {bd['Cp'][1]}, {bd['Cp'][2] / 1e6:.1f} "
-            f"MB, {bd['Cp'][0] / cp_ms:.3f} of bound); F (b) {fb_ms:.4f} ms "
+            f" of bound); C' whole call (+ F (b)) {call_ms:.4f} ms (plain "
+            f"autograd backward {pcp_ms:.4f}; bound {bd['Cw'][0]:.4f} by "
+            f"{bd['Cw'][1]}, {bd['Cw'][2] / 1e6:.1f} MB, "
+            f"{bd['Cw'][0] / call_ms:.3f} of bound); info: its destination "
+            f"pass alone {cp_ms:.4f} ms (bound {bd['Cp'][0]:.4f} by "
+            f"{bd['Cp'][1]}, {bd['Cp'][0] / cp_ms:.3f} of bound); F (b) {fb_ms:.4f} ms "
             f"(plain {pfb_ms:.4f}, bound {bd['Fb'][0]:.4f} by "
             f"{bd['Fb'][1]}, {bd['Fb'][0] / fb_ms:.3f} of bound); F (a) over "
             f"{src.numel()} x {hc} {fa_ms:.4f} ms (index_add_ {lib_ms:.4f}, "
@@ -1920,8 +1934,9 @@ def phase_knn_train_timings(torch, np, cases, work, samples):
         f"in a sync)")
     wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
     busy = log_profile("4d", "3 k-NN train steps", wall, prows, top=14)
-    names = ("aggregate_kernel", "::bwd_kernel", "segred::reduce_kernel",
-             "ellgat::dots_kernel", "drop_mask_kernel")
+    names = ("aggregate_kernel", "::bwd_kernel", "segred::gat_src_kernel",
+             "segred::reduce_kernel", "ellgat::dots_kernel",
+             "drop_mask_kernel")
     mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
     log(f"[4d]   kernels C, C' and F: {mine / 3:.3f} ms per step of "
         f"{sum(r[0] for r in prows) / 3:.3f} ms device time")
@@ -2173,8 +2188,9 @@ def band_bounds(dims, drop=False, dtype="float32"):
     loop for the weighted sum. D: as E, plus the spill rows, logits and
     rows of dst_loc read, ~8 H + 2 HC per spill, one divide per output,
     and (``drop``) the masks; out written over all N. D' (one call): reads
-    xh, dout, el, loc, el_self, acat, the spill tables and the in-band
-    source tables; writes dxh, d el, d el_self, the spill cotangents over
+    xh, dout, el, loc, el_self, acat, the spill tables, the in-band
+    source tables and the spill entries' destination tables; writes dxh,
+    d el, d el_self, the spill cotangents over
     their full tables and d acat; operations: the dots, the softmax
     recompute, a dot product and an axpy of C per slot, self loop and
     spill and head, and the acat products of dxh and d acat (8 HC H a
@@ -2192,7 +2208,8 @@ def band_bounds(dims, drop=False, dtype="float32"):
         "E": (e_in + 4 * (n * hc + 2 * n * h), e_ops),
         "D": (e_in + spill_in + masks + s * n * hc,
               e_ops + ls * (8 * h + 2 * hc) + n * hc),
-        "Dp": (e_in + s * n * hc + spill_in + 4 * (lb + n + 1) + masks
+        "Dp": (e_in + s * n * hc + spill_in + 4 * (lb + ls + 2 * n + 2)
+               + masks
                + s * n * hc + 4 * (k * h * n + n * h + ts * (h + hc)
                                    + 2 * hc * h),
                4 * ln * hc + 8 * (lb + ln + ls) * h
@@ -2260,7 +2277,9 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
             row_ptr = banded.band_row_ptr.int().contiguous()
             d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs), 10)
             dp_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
-                **bkw, dout=g, perm=perm, row_ptr=row_ptr), 10)
+                **bkw, dout=g, perm=perm, row_ptr=row_ptr,
+                sp_perm=banded.spill_perm_d.int().contiguous(),
+                sp_row_ptr=banded.spill_row_ptr_d.int().contiguous()), 10)
             pd_ms = cuda_ms(torch, lambda: eb.fused_v2_reference(
                 **kw, banded=banded), 3, warmup=1)
         leaves = {nm: kw[nm].detach().clone().requires_grad_()
@@ -2332,7 +2351,7 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
     wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
     busy = log_profile("4e", "3 route-D k-NN train steps", wall, prows,
                        top=14)
-    names = ("v2_fwd_kernel", "v2_bwd_", "band::acat_dots_kernel",
+    names = ("v2_fwd_kernel", "v2_bwd_", "rows::mat_dots_kernel",
              "segred::reduce_kernel")
     mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
     log(f"[4e]   kernels D, D' and F (a): {mine / 3:.3f} ms per step of "
@@ -2840,16 +2859,19 @@ def phase_bf16_timings(torch, np, ecases, kcases, becases, bdcases, kmodel,
             shape=bf16_label(label), c_ms=c_ms, c_plain_ms=pc_ms,
             c_bound_ms=bd["C"][0], c_bound_by=bd["C"][1], cp_ms=cp_ms,
             cp_call_with_f_ms=call_ms, cp_plain_ms=pcp_ms,
-            cp_bound_ms=bd["Cp"][0], cp_bound_by=bd["Cp"][1], fa_ms=fa_ms,
+            cp_bound_ms=bd["Cp"][0], cp_bound_by=bd["Cp"][1],
+            cw_bound_ms=bd["Cw"][0], cw_bound_by=bd["Cw"][1], fa_ms=fa_ms,
             fa_plain_ms=pfa_ms, fa_bound_ms=bd["Fa"][0],
             fa_bound_by=bd["Fa"][1],
-            **{f"{nm}_bytes": bd[nm][2] for nm in ("C", "Cp", "Fa")}))
+            **{f"{nm}_bytes": bd[nm][2] for nm in ("C", "Cw", "Cp", "Fa")}))
         log(f"[4f] {bf16_label(label)}: C training {c_ms:.4f} ms (plain "
             f"{pc_ms:.4f}, bound {bd['C'][0]:.4f} by {bd['C'][1]}, "
-            f"{bd['C'][0] / c_ms:.3f} of bound); C' {cp_ms:.4f} ms (with F (b)"
-            f" in the same call {call_ms:.4f}; plain autograd backward "
-            f"{pcp_ms:.4f}; bound {bd['Cp'][0]:.4f} by {bd['Cp'][1]}, "
-            f"{bd['Cp'][0] / cp_ms:.3f} of bound); F (a) on a bf16 "
+            f"{bd['C'][0] / c_ms:.3f} of bound); C' whole call (+ F (b)) "
+            f"{call_ms:.4f} ms (plain autograd backward {pcp_ms:.4f}; bound "
+            f"{bd['Cw'][0]:.4f} by {bd['Cw'][1]}, "
+            f"{bd['Cw'][0] / call_ms:.3f} of bound); info: its destination "
+            f"pass alone {cp_ms:.4f} ms (bound {bd['Cp'][0]:.4f} by "
+            f"{bd['Cp'][1]}, {bd['Cp'][0] / cp_ms:.3f} of bound); F (a) on a bf16 "
             f"{src.numel()} x {hc} cotangent {fa_ms:.4f} ms (plain "
             f"{pfa_ms:.4f}, bound {bd['Fa'][0]:.4f} by {bd['Fa'][1]})")
         del args, bkw, g, mask, ct, pa, ra, src
@@ -2875,7 +2897,9 @@ def phase_bf16_timings(torch, np, ecases, kcases, becases, bdcases, kmodel,
             row_ptr = banded.band_row_ptr.int().contiguous()
             d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs), 10)
             dp_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
-                **bkw, dout=g, perm=perm, row_ptr=row_ptr), 10)
+                **bkw, dout=g, perm=perm, row_ptr=row_ptr,
+                sp_perm=banded.spill_perm_d.int().contiguous(),
+                sp_row_ptr=banded.spill_row_ptr_d.int().contiguous()), 10)
             pd_ms = cuda_ms(torch, lambda: eb.fused_v2_reference(
                 **kb, banded=banded), 3, warmup=1)
         leaves = {nm: kb[nm].detach().clone().requires_grad_()
@@ -2951,9 +2975,15 @@ def bf16_entries(errs, bmod, rows, flush_ms, steps):
         "name": "ell_gat_bwd_bf16", "source": src + "ell_gat_bwd.cu",
         "replaces": rep + "ell_gat_fused.py:1258",
         "launches": sc["counts"]["cp"],
-        "max_abs_err": errs[("Cp", ct["shape"])], "ms": ct["cp_ms"],
-        "plain_ms": ct["cp_plain_ms"], "bound_ms": ct["cp_bound_ms"],
-        "bound_by": ct["cp_bound_by"], "at": ct["shape"], **common,
+        "max_abs_err": errs[("Cp", ct["shape"])],
+        "ms": ct["cp_call_with_f_ms"], "plain_ms": ct["cp_plain_ms"],
+        "bound_ms": ct["cw_bound_ms"], "bound_by": ct["cw_bound_by"],
+        "share_of_bound": ct["cw_bound_ms"] / ct["cp_call_with_f_ms"],
+        "timed": "the whole call (dots, destination pass, F (b))",
+        "destination_pass": {"ms": ct["cp_ms"],
+                             "bound_ms": ct["cp_bound_ms"],
+                             "bound_by": ct["cp_bound_by"]},
+        "at": ct["shape"], **common,
     }, {
         "name": "ell_gat_band_bf16", "source": src + "ell_gat_band.cu",
         "replaces": rep + "ell_gat_fused.py:88",
@@ -2978,7 +3008,9 @@ def bf16_entries(errs, bmod, rows, flush_ms, steps):
         "launches": sd["counts"]["dp"],
         "max_abs_err": errs[("Dp", d["shape"])], "ms": d["dp_ms"],
         "plain_ms": d["dp_plain_ms"], "bound_ms": d["dp_bound_ms"],
-        "bound_by": d["dp_bound_by"], "at": d["shape"], **common,
+        "bound_by": d["dp_bound_by"],
+        "share_of_bound": d["dp_bound_ms"] / d["dp_ms"], "at": d["shape"],
+        **common,
     }, {
         "name": "segment_reduce_bf16", "source": src + "segment_reduce.cu",
         "replaces": rep + "segment_reduce.py:52",
@@ -3186,8 +3218,13 @@ def main() -> int:
         "launches": ktr["counts"]["bwd"],
         "max_abs_err": max(kerr[nm] for nm in ELL_LEAVES),
         "grad_max_abs_err": {nm: kerr[nm] for nm in ELL_LEAVES},
-        "ms": krow["cp_ms"], "plain_ms": krow["cp_plain_ms"],
-        "bound_ms": krow["cp_bound_ms"], "bound_by": krow["cp_bound_by"],
+        "ms": krow["cp_call_with_f_ms"], "plain_ms": krow["cp_plain_ms"],
+        "bound_ms": krow["cw_bound_ms"], "bound_by": krow["cw_bound_by"],
+        "share_of_bound": krow["cw_bound_ms"] / krow["cp_call_with_f_ms"],
+        "timed": "the whole call (dots, destination pass, F (b))",
+        "destination_pass": {"ms": krow["cp_ms"],
+                             "bound_ms": krow["cp_bound_ms"],
+                             "bound_by": krow["cp_bound_by"]},
         **kcommon,
     }, {
         "name": "segment_reduce",
@@ -3244,6 +3281,7 @@ def main() -> int:
         "max_abs_err": berrs[("Dp", bdrow["shape"])],
         "ms": bdrow["dp_ms"], "plain_ms": bdrow["dp_plain_ms"],
         "bound_ms": bdrow["dp_bound_ms"], "bound_by": bdrow["dp_bound_by"],
+        "share_of_bound": bdrow["dp_bound_ms"] / bdrow["dp_ms"],
         "segment_reduce_mode_a_launches": dstep["counts"]["segment_reduce"],
         **dcommon,
     }]

@@ -39,6 +39,7 @@ from bathymetric_gnn_tpu_torch.utils.weights import (coo_state_dict,
 from test_torch_ell_banded import (LAYERS, _jax_layer, _params, _port_graph,
                                    _port_layer, band_pairs,  # noqa: F401
                                    knn_case)  # noqa: F401
+from test_torch_knn_graph import ensure_jax_native_kit
 from test_torch_knn_trainer import Fixed, _configs, _grids
 
 torch.set_num_threads(2)
@@ -89,6 +90,7 @@ def _banded_configs(dropout=0.0):
 def trainers(tmp_path_factory):
     """The JAX and the port trainers on the ``"banded"`` route on the same
     fixed samples, the port's model holding the JAX model's weights."""
+    ensure_jax_native_kit()   # not JAX's NumPy k-NN: it breaks ties apart
     jcfg, cfg = _banded_configs()
     jfix = Fixed(jds.SyntheticTileDataset(_grids(), jcfg, tile_size=32,
                                           overlap=8, seed=5))
@@ -185,6 +187,7 @@ def test_banded_trainer_runs_an_epoch(tmp_path):
 def test_banded_trainer_refuses_dropout_as_jax(tmp_path):
     """With dropout JAX's layer raises at the first step; the port's
     trainer raises the same error when it is built."""
+    ensure_jax_native_kit()
     jcfg, cfg = _banded_configs(dropout=0.1)
     ds = jds.SyntheticTileDataset(_grids()[:1], jcfg, tile_size=32,
                                   overlap=8, seed=5)

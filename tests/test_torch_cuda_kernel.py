@@ -15,6 +15,8 @@ not need). The kernel is built from ``bathymetric_gnn_tpu_torch/csrc`` on
 first use.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -529,9 +531,11 @@ def test_segment_reduce_matches_index_add(dev, n, k, f):
                                    (3000, 16, 4, 64), (1000, 8, 2, 6)])
 def test_segment_reduce_gat_rows_matches_plain(dev, shape):
     """Kernel F's mode (b) on its own vs its plain version, on C''s own
-    coefficients; and C' without F plus F equals C' with F (the source
-    side it adds into dxh; the sums start from another value, so within
-    f32 rounding), the per-slot outputs bit for bit."""
+    coefficients; and C' without F (its destination pass, which writes the
+    destination side of dxh as three scalars per node and head) plus F
+    equals C' with F: the destination-side rows formed from those scalars
+    plus the source side equal dxh (the sums start from another value, so
+    within f32 rounding), the per-slot outputs bit for bit."""
     from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
     from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
     from bathymetric_gnn_tpu_torch.ops.ell import src_sorted_slots
@@ -561,7 +565,11 @@ def test_segment_reduce_gat_rows_matches_plain(dev, shape):
     ref = sr.gat_rows_reference(full[1], full[2], g, kw["att_src"], perm,
                                 row_ptr, n, k)
     torch.testing.assert_close(src, ref, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(dst[0] + src, full[0], rtol=1e-5, atol=1e-5)
+    assert tuple(dst[0].shape) == (n, 3, heads)
+    from test_torch_ell_bwd_design import dst_side_rows
+
+    rows = dst_side_rows(dst[0], g, args["att"])
+    torch.testing.assert_close(rows + src, full[0], rtol=1e-5, atol=1e-5)
     for a, b in zip(dst[1:], full[1:]):
         assert torch.equal(a, b)
 
@@ -617,11 +625,12 @@ def test_ell_model_train_step_on_card_matches_cpu(dev):
 # -- kernels E, D and D': the banded-ELL layer ----------------------------------
 
 def _banded_inputs(dev, n, k, heads, c, r, seed=0, self_loop=True,
-                   edge=True, drop=False):
+                   edge=True, drop=False, full_band=False):
     """A k-NN graph over n - n / 16 random points padded to n nodes, split
     by band_ell into r-row bands on the card, with the layer inputs of
     ``ell_gat_fused_v2`` from ``seed`` (el_t carrying the NEG_BIG mask) and
-    streamed dropout masks (keep 0.9) when ``drop``."""
+    streamed dropout masks (keep 0.9) when ``drop``. ``full_band``: the
+    spill tables exactly as wide as the fullest band's spills."""
     from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
     from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
     from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
@@ -633,7 +642,11 @@ def _banded_inputs(dev, n, k, heads, c, r, seed=0, self_loop=True,
     gb = GraphBuilder()
     gb.buckets.node_buckets = (n,)
     g = coo_to_ell(gb.build_knn_graph(x, pos, k).graph, max_degree=k)
-    banded = band_ell(g, band_rows=r, heads=heads).to(dev)
+    s_max = None
+    if full_band:
+        dl = band_ell(g, band_rows=r, heads=heads).spill_dst_local_b
+        s_max = int((dl >= 0).sum(-1).max())
+    banded = band_ell(g, band_rows=r, heads=heads, s_max=s_max).to(dev)
     gen = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, s=1.0):
@@ -1064,3 +1077,183 @@ def test_bf16_ell_model_on_card_matches_cpu(dev, route):
         err = (gk[name] - r).norm()
         noise = (r - g32[name]).norm()
         assert err <= 2e-2 * r.norm() + 2 * noise, (name, err, noise)
+
+
+# -- kernels C' and D' as redesigned: forms, determinism, spill tables --------
+#
+# The destination passes hold each row in 16-byte chunks (4 floats, 8 bf16;
+# single columns where C is not a multiple) and reduce each head's dot
+# products among that head's lanes (a xor tree where C / chunk is a power
+# of two, else one warp sum a head): heads 1 / 2 / 4 / 8 and C % 4 != 0
+# reach every form. The last four are rows wider than 8 chunks a lane in
+# one dtype or both (16 or 32 single columns, 16 float4; they spill to
+# local memory): (4, 100) and (2, 300) in bf16 (C % 8 == 4) take 16 and 32
+# single columns, (1, 257) 16 in both dtypes, (8, 160) in f32 16 float4.
+# Tolerances are TOL / GRAD_TOL of the other tests.
+
+BWD_FORMS = [(4, 64), (1, 64), (2, 32), (8, 32), (1, 256), (2, 12), (8, 6),
+             (4, 100), (2, 300), (1, 257), (8, 160)]
+
+
+def _grads_close(grads, rgrads, dtype, extra=None):
+    for name, a in grads.items():
+        r = rgrads[name].float()
+        assert torch.isfinite(a).all(), name
+        scale = r.abs().max().item() + 1e-6
+        d = (a.float() - r).abs()
+        allowed = GRAD_TOL[dtype] * scale
+        if extra is not None and name in extra:
+            allowed = allowed + extra[name]
+        assert bool((d <= allowed).all()), (name, d.max().item(), scale)
+
+
+def _v2_extra(kw, g, dtype):
+    """m_edge's allowance in bf16 (see test_v2_kernels_bf16_match_plain)."""
+    if dtype != torch.bfloat16 or kw.get("m_edge") is None:
+        return None
+    return {"m_edge": 2.0 ** -8 * _m_edge_terms(kw, g)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,c", BWD_FORMS)
+def test_ell_bwd_forms_match_plain(dev, dtype, heads, c):
+    """Kernel C' (+ F (b)) in every row form vs autograd of the plain
+    version, with streamed dropout, padded nodes (zero gradients) and live
+    nodes with no live slot."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    kw = _ell_inputs(dev, 2048, 8, heads, c)
+    kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+    assert not kw["nbr_mask"][:5].any() and kw["node_mask"][:5].all()
+    dmask = _ell_dmask(kw, heads)
+    out, grads, g = _ell_train_run(ef.ell_gat_fused_train, kw, dmask=dmask)
+    ref, rgrads, _ = _ell_train_run(ef.ell_gat_reference, kw, g,
+                                    dmask=dmask)
+    err = (out.float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert err.max().item() <= TOL[dtype], err.max().item()
+    _grads_close(grads, rgrads, dtype)
+    assert not grads["xh"][~kw["node_mask"]].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,c", BWD_FORMS)
+def test_v2_bwd_forms_match_plain(dev, dtype, heads, c):
+    """Kernel D' in every row form vs autograd of the plain version, with
+    streamed dropout masks."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    kw = _banded_inputs(dev, 2048, 8, heads, c, 128, drop=True)
+    kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+    out, grads, g = _v2_run(eb.ell_gat_fused_v2, kw)
+    ref, rgrads, _ = _v2_run(eb.fused_v2_reference, kw, g)
+    err = ((out.float() - ref.float()).abs()
+           / (1 + ref.float().abs())).max().item()
+    assert err <= TOL[dtype], err
+    _grads_close(grads, rgrads, dtype, _v2_extra(kw, g, dtype))
+
+
+@pytest.mark.parametrize("kernel", ["C'", "D'"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_bwd_refuses_rows_past_the_templates(dev, kernel, dtype):
+    """A row wider than the row templates hold (HC 1026 with C % 4 != 0:
+    33 single columns a lane, past 32) is refused with the limits named,
+    not run and not sent to the plain version."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    if kernel == "C'":
+        kw = _ell_inputs(dev, 1024, 8, 2, 513)
+        kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+        n0 = ef.bwd_launches
+        with pytest.raises(ValueError, match="a row wider than the kernel "
+                           "takes .HC <= 1024 when C is not a multiple"):
+            _ell_train_run(ef.ell_gat_fused_train, kw)
+        assert ef.bwd_launches == n0
+    else:
+        kw = _banded_inputs(dev, 1024, 8, 2, 513, 128)
+        kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+        n0 = eb.v2_bwd_launches
+        with pytest.raises(ValueError, match="a row wider than the kernel "
+                           "takes .HC <= 1024 when C is not a multiple"):
+            _v2_run(eb.ell_gat_fused_v2, kw)
+        assert eb.v2_bwd_launches == n0
+
+
+@pytest.mark.parametrize("kernel", ["C'", "D'"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_bwd_gradients_repeat_bit_for_bit(dev, kernel, dtype):
+    """No atomics: two calls of C' (with F (b)) or D' on the same inputs
+    give every gradient bit for bit, at the model's shapes."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    if kernel == "C'":
+        kw = _ell_inputs(dev, 8192, 8, 4, 64)
+        kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+        dmask = _ell_dmask(kw, 4)
+        runs = [_ell_train_run(ef.ell_gat_fused_train, kw, dmask=dmask)]
+        runs.append(_ell_train_run(ef.ell_gat_fused_train, kw, runs[0][2],
+                                   dmask=dmask))
+    else:
+        kw = _banded_inputs(dev, 8192, 8, 4, 64, 128, drop=True)
+        kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+        runs = [_v2_run(eb.ell_gat_fused_v2, kw)]
+        runs.append(_v2_run(eb.ell_gat_fused_v2, kw, runs[0][2]))
+    (_, g1, _), (_, g2, _) = runs
+    for name in g1:
+        assert torch.equal(g1[name], g2[name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["no spills", "full band"])
+def test_v2_bwd_spill_tables(dev, dtype, case):
+    """Kernel D' on a graph with no spilled edge (one band: every source
+    in its window) and with the spill tables exactly as wide as the
+    fullest band's spills: the gradients vs autograd of the plain version,
+    and D''s spill cotangents written in full, 0 at every dead entry."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    n = 2048
+    r = n if case == "no spills" else 128
+    kw = _banded_inputs(dev, n, 8, 4, 16, r, drop=True,
+                        full_band=case == "full band")
+    kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+    b = kw["banded"]
+    live = b.spill_dst_local_b.reshape(-1) >= 0
+    if case == "no spills":
+        assert not live.any()
+    else:
+        assert bool((b.spill_dst_local_b >= 0).all(-1).any())
+    out, grads, g = _v2_run(eb.ell_gat_fused_v2, kw)
+    ref, rgrads, _ = _v2_run(eb.fused_v2_reference, kw, g)
+    err = ((out.float() - ref.float()).abs()
+           / (1 + ref.float().abs())).max().item()
+    assert err <= TOL[dtype], err
+    _grads_close(grads, rgrads, dtype, _v2_extra(kw, g, dtype))
+
+    xh = kw["xh"].reshape(n, -1)
+    l_s, xs = eb._spill_inputs(xh, kw["a_src"], kw["a_dst"], kw["m_edge"],
+                               b, 0.2, eb._plain_gather)
+    args = eb.kernel_args(xh, kw["a_cat_mat"], b.loc_t, kw["el_t"],
+                          kw["el_self_t"], l_s.detach(), xs.detach(),
+                          b.spill_dst_local_b, *kw["dropout_masks"],
+                          band_rows=r)
+    del args["vec"]
+    # every float buffer the wrapper allocates starts as NaN: an entry the
+    # kernel leaves unwritten shows
+    empty = torch.empty
+
+    def nan_empty(*size, **kw):
+        t = empty(*size, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    with mock.patch.object(torch, "empty", nan_empty):
+        _, _, _, _, dl_sp, dxh_sp = eb.call_v2_bwd_kernel(
+            **args, dout=g.contiguous(), perm=b.band_perm.int(),
+            row_ptr=b.band_row_ptr.int(), sp_perm=b.spill_perm_d.int(),
+            sp_row_ptr=b.spill_row_ptr_d.int())
+    t_count, heads, s_max = dl_sp.shape
+    assert torch.isfinite(dl_sp).all() and torch.isfinite(dxh_sp).all()
+    dead = ~live.reshape(t_count, s_max)
+    assert not dl_sp.permute(0, 2, 1)[dead].any()
+    assert not dxh_sp[dead].any()

@@ -58,6 +58,7 @@ from bathymetric_gnn_tpu_torch.ops.ell import EllGraph
 from bathymetric_gnn_tpu_torch.utils.weights import (coo_state_dict,
                                                      state_dict_from_flax)
 
+from test_torch_knn_graph import ensure_jax_native_kit
 from test_torch_native_vr import (BUCKETS, BUDGET, MODEL, _compare, _port_cfg,
                                   _run, make_refinements, weights)  # noqa: F401
 
@@ -72,6 +73,7 @@ N = 2048
 
 
 def make_knn_ell(n_points=1500, n_pad=N, k=8, seed=0):
+    ensure_jax_native_kit()
     rg = np.random.default_rng(seed)
     pos = rg.random((n_points, 2)).astype(np.float32) * 100.0
     depth = (30 + rg.normal(0, 2, n_points)).astype(np.float32)
@@ -534,6 +536,7 @@ def test_native_vr_banded_matches_jax(weights):  # noqa: F811
     """NativeVRProcessor on the ``"banded"`` route (kernel E's plain
     version and the spill fold, band_ell per chunk) vs JAX's processor on
     the same route and grids."""
+    ensure_jax_native_kit()
     model, variables, sd = weights
     grids = make_refinements(16, seed=3, big=80)
     jcfg = JaxConfig(model=JaxModel(**MODEL, sparse_kernel="banded"),
@@ -570,6 +573,7 @@ def test_trainer_refuses_the_banded_route(tmp_path):
 
     from conftest import make_ramp_surface
 
+    ensure_jax_native_kit()
     jcfg = JaxConfig()
     for k, v in dict(hidden_channels=8, num_layers=2, heads=2,
                      sparse_kernel="banded", dropout=0.1).items():

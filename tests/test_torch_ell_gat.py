@@ -38,6 +38,8 @@ from bathymetric_gnn_tpu_torch.ops.ell import EllGraph
 from bathymetric_gnn_tpu_torch.utils.weights import (coo_state_dict,
                                                      state_dict_from_flax)
 
+from test_torch_knn_graph import ensure_jax_native_kit
+
 torch.set_num_threads(2)
 
 TOL = dict(rtol=5e-5, atol=5e-5)
@@ -45,6 +47,7 @@ TOL = dict(rtol=5e-5, atol=5e-5)
 
 @pytest.fixture(scope="module")
 def knn_case():
+    ensure_jax_native_kit()
     rg = np.random.default_rng(0)
     pos = rg.random((1500, 2)).astype(np.float32) * 100.0
     depth = (30 + rg.normal(0, 2, 1500)).astype(np.float32)

@@ -38,6 +38,8 @@ from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
 from bathymetric_gnn_tpu_torch.ops.ell import (EllGraph, EllTrainGraph,
                                                src_sorted_slots)
 
+from test_torch_knn_graph import ensure_jax_native_kit
+
 torch.set_num_threads(2)
 
 TOL = dict(rtol=5e-4, atol=5e-5)
@@ -45,6 +47,7 @@ DROP_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 def make_knn_ell(n_points=1500, n_pad=2048, k=8, seed=0):
+    ensure_jax_native_kit()
     rg = np.random.default_rng(seed)
     pos = rg.random((n_points, 2)).astype(np.float32) * 100.0
     depth = (30 + rg.normal(0, 2, n_points)).astype(np.float32)

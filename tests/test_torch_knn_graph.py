@@ -92,6 +92,13 @@ def ensure_jax_native_kit():
     assert jax_native.native_available(), "JAX graph kit did not load"
 
 
+# Every test worker imports this module while it collects, before any test
+# of any file runs: the library is whole on disk (and loads) before any JAX
+# k-NN can reach the loader's in-place ``native/build.sh`` or cache a
+# failed load. The fixtures and tests call it again (cheap once built).
+ensure_jax_native_kit()
+
+
 def _cloud(seed=0, n=1500):
     return (np.random.default_rng(seed).random((n, 2)) * 100.0
             ).astype(np.float32)

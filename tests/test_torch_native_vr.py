@@ -39,6 +39,8 @@ from bathymetric_gnn_tpu_torch.utils.weights import (coo_state_dict,
                                                      save_checkpoint,
                                                      state_dict_from_flax)
 
+from test_torch_knn_graph import ensure_jax_native_kit
+
 torch.set_num_threads(2)
 
 MODEL = dict(hidden_channels=16, num_layers=2, heads=2)
@@ -74,6 +76,7 @@ def make_refinements(n_grids, seed=0, big=None):
 def weights():
     """(JAX model, its variables, the port's state_dict): 8 input
     channels, so the uncertainty is a feature."""
+    ensure_jax_native_kit()
     jcfg = JaxConfig(model=JaxModel(**MODEL), graph=JaxGraph(knn_k=8))
     model = make_model(jcfg.model, in_channels=8, edge_dim=3)
     d = make_refinements(1, seed=5)[0][0][:20, :20]
