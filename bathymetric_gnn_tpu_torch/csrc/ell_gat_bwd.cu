@@ -28,8 +28,9 @@
 // accumulator across its sequential grid. Blocks on Hopper run in no
 // order, so the source side is a gather-free reduction instead: three
 // launches behind one C entry,
-//   (1) the attention dots of xh (kernel C's, ell_gat_common.cuh: the
-//       same logits, bit for bit);
+//   (1) the attention dots of xh (kernel C's, ell_gat_rows.cuh
+//       launch_node_dots: the same logits, bit for bit), skipped when the
+//       caller hands in the dots kernel C wrote (the training layer does);
 //   (2) the destination pass: a grid-stride loop, one warp per destination
 //       node, as many 4-warp blocks as stay resident (16 warps an SM at
 //       128 registers a thread). Once the node's sources are known the
@@ -499,23 +500,27 @@ int launch_bwd(const void* xh, const void* att, const void* nbr,
                const void* nmask, const void* el, const void* el_self,
                const void* node_mask, const void* dy, const Drop& drop,
                const void* perm, const void* row_ptr, void* dots,
-               void* alpha, void* dl, void* inv, void* dsc, void* dxh,
-               void* del_self, void* part, long long n, int k, int heads,
-               int c, float slope, int has_self, int width, int blocks,
-               cudaStream_t s) {
+               const void* dots_in, void* alpha, void* dl, void* inv,
+               void* dsc, void* dxh, void* del_self, void* part, long long n,
+               int k, int heads, int c, float slope, int has_self, int width,
+               int blocks, cudaStream_t s) {
   const int hc = heads * c;
   const T* txh = static_cast<const T*>(xh);
   const T* tatt = static_cast<const T*>(att);
-  cudaError_t err = launch_dots<T>(txh, tatt, static_cast<float*>(dots), n,
-                                   heads, c, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  if (dots_in == nullptr) {
+    err = rows::launch_node_dots<T>(txh, tatt, static_cast<float*>(dots), n,
+                                    heads, c, s);
+    if (err != cudaSuccess) return (int)err;
+    dots_in = dots;
+  }
   const int wpb = bwd_warps(k, heads, hc);
   const size_t smem = bwd_smem(wpb, k, heads, hc);
   const int seg = rows::head_lanes(c, width);
   err = with_bwd_kernel_v<T>(width, hc, [&](auto kernel) {
     if (!rows::allow_smem(kernel, smem)) return cudaErrorInvalidValue;
     kernel<<<(unsigned)blocks, wpb * WARP, smem, s>>>(
-        txh, static_cast<const float*>(dots), tatt,
+        txh, static_cast<const float*>(dots_in), tatt,
         static_cast<const int*>(nbr), static_cast<const uint8_t*>(nmask),
         static_cast<const float*>(el), static_cast<const float*>(el_self),
         static_cast<const uint8_t*>(node_mask), static_cast<const T*>(dy),
@@ -545,7 +550,11 @@ int launch_bwd(const void* xh, const void* att, const void* nbr,
 // as ell_gat_fwd (xh, att, nbr, nmask, el, el_self, node_mask, the dropout
 // arguments), the output cotangent dy [n, HC], and the source-sorted slot
 // tables perm [n * k] / row_ptr [n + 1] (ops/ell.py src_sorted_slots).
-// Scratch: dots [n, 2 * heads], alpha and dl [n * k, heads] (f32), inv
+// dots_in [n, 2 * heads] f32: the attention dots kernel C wrote for the
+// same xh and att (ell_gat_fwd's dots), or null: then they are computed
+// here into the scratch dots (the same bits either way).
+// Scratch: dots [n, 2 * heads] (unused when dots_in is given), alpha and
+// dl [n * k, heads] (f32), inv
 // [n, heads] f32 (bf16 only; null for float32), dsc [n, 3, heads] f32 (the
 // destination side's scalars). Outputs: dxh [n, HC] (the whole input
 // cotangent of xh), del_self [n, heads], part [blocks, 3, HC] (per-block
@@ -563,7 +572,8 @@ extern "C" int ell_gat_bwd(int dtype, const void* xh, const void* att,
                            const void* dy, int drop_mode, const void* dmask,
                            const void* seed, unsigned thresh, float keep_inv,
                            const void* perm, const void* row_ptr, void* dots,
-                           void* alpha, void* dl, void* inv, void* dsc,
+                           const void* dots_in, void* alpha, void* dl,
+                           void* inv, void* dsc,
                            void* dxh, void* del_self, void* part, long long n,
                            int k, int heads, int c, float slope, int has_self,
                            int vec, int blocks, void* stream) {
@@ -578,13 +588,13 @@ extern "C" int ell_gat_bwd(int dtype, const void* xh, const void* att,
   const int width = rows::row_width(dtype == 1, vec, c);
   if (dtype == 1)
     return launch_bwd<bf16>(xh, att, nbr, nmask, el, el_self, node_mask, dy,
-                            drop, perm, row_ptr, dots, alpha, dl, inv, dsc,
-                            dxh, del_self, part, n, k, heads, c, slope,
-                            has_self, width, blocks, s);
+                            drop, perm, row_ptr, dots, dots_in, alpha, dl,
+                            inv, dsc, dxh, del_self, part, n, k, heads, c,
+                            slope, has_self, width, blocks, s);
   return launch_bwd<float>(xh, att, nbr, nmask, el, el_self, node_mask, dy,
-                           drop, perm, row_ptr, dots, alpha, dl, inv, dsc,
-                           dxh, del_self, part, n, k, heads, c, slope,
-                           has_self, width, blocks, s);
+                           drop, perm, row_ptr, dots, dots_in, alpha, dl,
+                           inv, dsc, dxh, del_self, part, n, k, heads, c,
+                           slope, has_self, width, blocks, s);
 }
 
 extern "C" const char* ell_gat_bwd_error_string(int err) {

@@ -130,7 +130,9 @@ struct VecT<bf16, 4> {
 // dots[i, h] = <xh[i, h, :], att[0, h, :]>, dots[i, heads + h] = <xh[i, h,
 // :], att[1, h, :]>; att is [2, HC] (att_src then att_dst, flattened),
 // xh and att of type T, dots f32. One warp per node; the lanes stride
-// over each head's C channels.
+// over each head's C channels. The generic form of kernels C's and C''s
+// dots (ell_gat_rows.cuh launch_node_dots runs node_dots_kernel, with the
+// same bits, where a head has at most 64 channels).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 dots_kernel(const T* __restrict__ xh, const T* __restrict__ att,
@@ -155,17 +157,6 @@ dots_kernel(const T* __restrict__ xh, const T* __restrict__ att,
       dots[i * 2 * heads + heads + h] = d;
     }
   }
-}
-
-// Launches dots_kernel for n nodes on stream s.
-template <typename T>
-inline cudaError_t launch_dots(const T* xh, const T* att, float* dots,
-                               long long n, int heads, int c,
-                               cudaStream_t s) {
-  const int nodes_per_block = THREADS / WARP;
-  dots_kernel<T><<<(unsigned)((n + nodes_per_block - 1) / nodes_per_block),
-                THREADS, 0, s>>>(xh, att, dots, n, heads, c);
-  return cudaGetLastError();
 }
 
 // Attention-dropout multipliers of the post-softmax weights. Mode 0: none

@@ -43,43 +43,81 @@
 // slot; the two agree unless a spilled logit exceeds the in-band max by
 // more than 60 (where the TPU kernel clamps the exponent).
 //
-// Design (simple and correct first). Two kernels behind one C entry:
-//   (1) dots: one warp per node; the lanes stride over each head's C
-//       channels and reduce with shuffles -> dots [N, 2 * heads] (a_src
-//       then a_dst).
-//   (2) aggregate: one warp per destination node. Lanes own slots for the
-//       softmax (logits, warp max, exponentials, warp sum), the K x heads
-//       weights and K sources are staged in the warp's slice of shared
-//       memory, then the lanes own output columns and gather each live
-//       neighbour's row with 16-byte loads (HC 256: two float4 a lane),
-//       accumulating in f32. Hilbert node order keeps most neighbour rows
-//       in L2.
+// Design. Two kernels behind one C entry:
+//   (1) the attention dots (ell_gat_rows.cuh node_dots_kernel): one node
+//       a warp, every head's loads of the node requested before the first
+//       FMA; the same bits as ellgat::dots_kernel, which took the heads one
+//       after another. In the training form the caller keeps them for C'
+//       (ell_gat_bwd takes them), so a train step computes them once a
+//       layer.
+//   (2) the aggregate: a grid-stride loop over nodes, as many 4-warp
+//       blocks as stay resident, a lane group per node (ell_gat_rows.cuh,
+//       "the forward passes"): the fewest lanes that hold the HC row at
+//       two 16-byte chunks a lane (4 floats or 8 bf16 a load), so that a
+//       warp holds 32 / lanes nodes at once (HC 256: one node in f32, two
+//       in bf16; HC 64: four and eight), and wider rows take column tiles.
+//       The node mask and the first slots of a group's next node are
+//       fetched one node ahead. The group compacts its live slots with a
+//       ballot over nbr_mask into a dense list (sources and slot numbers
+//       in shared memory): dead slots cost no iteration and their rows,
+//       NaN or not, are never read. It requests the softmax's terms (the
+//       a_src of each pair's source, the edge logits, the self terms),
+//       then the self row and the first 8 live rows, all in flight
+//       together, and takes the softmax over (slot, head) pairs, every
+//       head at once: lane p of the group owns pair (live slot p / hp, head
+//       p % hp) (hp = heads rounded up to a power of two), forms its logit
+//       and reduces the max and the sum among the group's lanes of its
+//       head (xor offsets >= hp); more pairs than lanes take several pair
+//       tiles, carrying max and sum. Every lane of a head forms the self
+//       logit from the same (broadcast) loads rather than a lane of its
+//       own: at K 8 x 4 heads the pairs fill the warp, and a self lane would
+//       cost a second pair tile. In the dropout form each pair lane draws
+//       its own multiplier with the counter ((i (K+1) + s) heads + h), and
+//       each lane its head's self multiplier: the bits kernel C'
+//       regenerates. The weights go to shared memory, and the gather sums
+//       the rows already in flight.
+// Why several nodes a warp and the softmax's loads first: each node waits
+// for its round trips to memory, and what hides them is the number of
+// nodes in flight an SM (on the H100, one node a warp with the softmax's
+// loads behind the rows' was slower at HC 64 than the one-head-at-a-time
+// kernel before it, PERF.md).
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 non-tensor).
 // At N = 65,536, K = 8, HC 256, 4 heads the layer must read xh (67.1 MB),
 // el (8.4 MB), nbr_src and the mask (2.6 MB), el_self, and write out
 // (67.1 MB): ~150 MB, ~0.045 ms; its operations (~0.44 GFLOP, dots and
 // the 9-way weighted sum) take ~0.007 ms at the FP32 rate, so it is bound
-// by bytes (bf16 halves the xh and out streams: ~82 MB, ~0.025 ms). This
-// version moves more: xh is read by both kernels, and each
-// node's K neighbour rows are gathered (from L2 when they are close).
-// Fusing the dots into the producer of xh, wider rows per warp and
-// tensor-core/TMA staging are later work.
+// by bytes (bf16 halves the xh and out streams: ~82 MB, ~0.025 ms). It
+// moves more: xh is read by both kernels, and each node's 9 rows are
+// gathered through L2 (604 MB at HC 256 f32, which L2 serves in ~0.1 ms:
+// the f32 aggregate's floor in this design; the warps walk the nodes
+// interleaved, so the nodes in flight at once are neighbours in the
+// Hilbert order and their rows stay in L2). Fusing the dots into the
+// producer of xh, or sharing neighbour rows between the nodes of a block,
+// is later work.
 
 #include "ell_gat_common.cuh"
+#include "ell_gat_rows.cuh"
 
 using namespace ellgat;
+using rows::FwdGeom;
+using rows::FwdRow;
 
 namespace {
 
-// One warp per destination node. Shared memory per warp: weights [K,
-// heads], self weights [heads] (floats), then (after all warps' floats)
-// the K sources (ints, -1 for a dead slot). VEC = 4 needs C % 4 == 0 and
-// 16-byte aligned xh / out / bias (checked by the caller). The weights
-// are multiplied by ``drop``'s multipliers after the normalization. xh,
-// bias and out are of type T (float or bf16).
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
+// 32-bit words of one warp's slice of shared memory: the self weights
+// [hp], the entries' logits then weights [K, hp], the live sources [K]
+// and their slot numbers [K].
+__host__ __device__ inline int fwd_warp_words(int k, int hp) {
+  return (k + 1) * hp + 2 * k;
+}
+
+// A lane group of 1 << gm.lg_lpr lanes per destination node, 32 >> lg_lpr
+// nodes a warp (grid-stride). xh, bias and out of type T, V columns a
+// chunk, rows::FWD_NV chunks a lane of a column tile.
+template <typename T, int V>
+__global__ void
+__launch_bounds__(rows::FWD_WARPS * WARP, rows::FWD_MIN_BLOCKS)
 aggregate_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
                  const int* __restrict__ nbr,
                  const uint8_t* __restrict__ nmask,
@@ -87,97 +125,135 @@ aggregate_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
                  const float* __restrict__ el_self,
                  const T* __restrict__ bias,
                  const uint8_t* __restrict__ node_mask,
-                 T* __restrict__ out, long long n, int k, int heads,
-                 int c, float slope, int has_self, Drop drop) {
+                 T* __restrict__ out, long long n, int k, int heads, int c,
+                 float slope, int has_self, Drop drop, FwdGeom gm, int hp,
+                 int lg_hp) {
   constexpr bool LOWP = sizeof(T) == 2;
   extern __shared__ float smem[];
   const int wpb = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x & (WARP - 1);
-  const int per_warp = (k + 1) * heads;
-  float* w_s = smem + warp * per_warp;       // [K, heads]
-  float* wself_s = w_s + k * heads;          // [heads]
-  int* src_s = reinterpret_cast<int*>(smem + wpb * per_warp) + warp * k;
-  const long long i = (long long)blockIdx.x * wpb + warp;
-  if (i >= n) return;  // the whole warp leaves together
+  const int lg_lpr = gm.lg_lpr;
+  const int lpr = 1 << lg_lpr;
+  const int groups = WARP >> lg_lpr;
+  const int g = lane >> lg_lpr;          // the lane's node of the warp's
+  const int lr = lane & (lpr - 1);       // and its lane in that group
+  float* ws = smem + (warp * groups + g) * fwd_warp_words(k, hp);  // [hp]
+  float* we = ws + hp;                               // [K, hp]
+  int* src = reinterpret_cast<int*>(we + k * hp);    // [K]
+  int* slot = src + k;                               // [K]
   const int hc = heads * c;
-  T* orow = out + i * hc;
-  if (node_mask != nullptr && !node_mask[i]) {
-    for (int j = lane; j < hc; j += WARP) orow[j] = from_f<T>(0.f);
-    return;
-  }
-  const long long slot0 = i * k;
-  for (int s = lane; s < k; s += WARP)
-    src_s[s] = nmask[slot0 + s] ? nbr[slot0 + s] : -1;
+  const int h = lr & (hp - 1);
+  const bool hv = h < heads;
+  const int hh = hv ? h : 0;     // an address inside the row for h >= heads
+  constexpr int NV = rows::FWD_NV;
+  FwdRow<T, V> row;
 
-  const float* di = dots + i * 2 * heads;
-  for (int h = 0; h < heads; ++h) {
-    const float a_dst = di[heads + h];
-    float self_l = -INFINITY;
-    if (has_self)
-      self_l = leaky(di[h] + a_dst +
-                         (el_self != nullptr ? el_self[i * heads + h] : 0.f),
-                     slope);
-    // lane-private slots: each lane reads back only what it wrote
-    float m = self_l;
-    for (int s = lane; s < k; s += WARP) {
-      const int j = src_s[s];
-      float l = -INFINITY;
-      if (j >= 0) {
-        l = leaky(dots[(long long)j * 2 * heads + h] + a_dst +
-                      (el != nullptr ? el[(slot0 + s) * heads + h] : 0.f),
-                  slope);
-        m = fmaxf(m, l);
-      }
-      w_s[s * heads + h] = l;
+  // The node mask and the first lpr slots of the group's next node,
+  // fetched one node ahead: a node's only wait is then for its rows, dots
+  // and edge logits, requested together.
+  uint8_t pre_node = 0, pre_live = 0;
+  int pre_src = 0;
+  const auto prefetch = [&](long long node) {
+    pre_node = 0;
+    if (node >= n) return;
+    pre_node = node_mask != nullptr ? node_mask[node] : 1;
+    if (lr < k) {
+      pre_live = nmask[node * k + lr];
+      pre_src = nbr[node * k + lr];
     }
-    m = warp_max(m);
-    float den = 0.f;
-    for (int s = lane; s < k; s += WARP) {
-      const float e = src_s[s] >= 0 ? expf(w_s[s * heads + h] - m) : 0.f;
-      w_s[s * heads + h] = e;
-      den += e;
+  };
+  const long long total = (long long)gridDim.x * wpb * groups;
+  long long i = ((long long)blockIdx.x * wpb + warp) * groups + g;
+  prefetch(i);
+  // every lane runs the loop as long as any node of its warp does: the
+  // ballots and shuffles take the whole warp
+  for (long long base = i - g; base < n; base += total, i += total) {
+    const bool act = i < n;
+    const bool keep = pre_node != 0;   // live and inside the graph
+    const int j0 = keep && lr < k && pre_live ? pre_src : -1;
+    prefetch(i + total);
+    T* orow = out + i * hc;
+    if (act && !keep)   // padded: zeros
+      for (int j = lr; j < hc; j += lpr) orow[j] = from_f<T>(0.f);
+    // ---- the live slots, compacted ---------------------------------------
+    const long long slot0 = i * k;
+    int nl = rows::append_live(j0, lr, lane, lg_lpr, 0, src, slot);
+    for (int s0 = lpr; s0 < k; s0 += lpr) {
+      const int s = s0 + lr;
+      const int j = keep && s < k && nmask[slot0 + s] ? nbr[slot0 + s] : -1;
+      nl = rows::append_live(j, s, lane, lg_lpr, nl, src, slot);
     }
-    den = warp_sum(den);
-    const float e_self = has_self ? expf(self_l - m) : 0.f;
+    __syncwarp();
+    // ---- the loads: the softmax's first (its pair tile 0 and the self
+    // terms), then the first tile's rows, all in flight together ----------
+    const int np = nl << lg_hp;
+    const auto pair_terms = [&](int p, float& a_j, float& e_j) {
+      const int u = p >> lg_hp;
+      a_j = dots[(long long)src[u] * 2 * heads + hh];
+      e_j = el != nullptr ? el[(slot0 + slot[u]) * heads + hh] : 0.f;
+    };
+    float a_j = 0.f, e_j = 0.f, a_dst = 0.f, a_self = 0.f, e_self_in = 0.f;
+    if (lr < np) pair_terms(lr, a_j, e_j);
+    if (keep) {
+      const float* di = dots + i * 2 * heads;
+      a_dst = di[heads + hh];
+      a_self = di[hh];
+      if (el_self != nullptr) e_self_in = el_self[i * heads + hh];
+    }
+    const long long self = keep && has_self ? i : -1;
+    row.tile(0, lr, lg_lpr, hc, c);
+    row.request(xh, self, src, 0, nl, hc);
+
+    // ---- the softmax over (live slot, head) pairs, every head at once ----
+    float self_l = -INFINITY, dself = 1.f;
+    if (keep && has_self && hv) {
+      self_l = leaky(a_self + a_dst + e_self_in, slope);
+      dself = drop.mult(i, k, h, k, heads);
+    }
+    float m = self_l, e0;
+    float den = rows::pair_softmax(
+        np, lg_hp, hv, lr, lg_lpr, leaky(a_j + a_dst + e_j, slope),
+        [&](int p) {
+          float a, e;
+          pair_terms(p, a, e);
+          return leaky(a + a_dst + e, slope);
+        },
+        we, m, e0);
+    const float e_self = self >= 0 && hv ? expf(self_l - m) : 0.f;
     den = fmaxf(den + e_self, 1e-16f);
-    for (int s = lane; s < k; s += WARP)
-      w_s[s * heads + h] = src_s[s] >= 0 ? w_s[s * heads + h] / den *
-                                               drop.mult(i, s, h, k, heads)
-                                         : 0.f;
-    if (lane == 0)
-      wself_s[h] = has_self ? e_self / den * drop.mult(i, k, h, k, heads)
-                            : 0.f;
-  }
-  __syncwarp();
+    if (hv && lr < np)
+      we[lr] = e0 / den * drop.mult(i, slot[lr >> lg_hp], h, k, heads);
+    for (int p = lr + lpr; p < np; p += lpr)
+      if (hv)
+        we[p] = we[p] / den * drop.mult(i, slot[p >> lg_hp], h, k, heads);
+    if (lr < hp) ws[h] = self >= 0 && hv ? e_self / den * dself : 0.f;
+    __syncwarp();
 
-  for (int col = lane * VEC; col < hc; col += WARP * VEC) {
-    const int h = col / c;
-    float acc[VEC], v[VEC];
-    if (has_self) {
-      const float ws = wself_s[h];
-      VecT<T, VEC>::load(xh + i * hc + col, v);
+    // ---- the weighted gather-sum, bias, store -----------------------------
+    for (int t = 0; t < gm.tiles; ++t) {
+      if (t > 0) {
+        row.tile(t, lr, lg_lpr, hc, c);
+        row.request(xh, self, src, 0, nl, hc);
+      }
+      float acc[NV][V];
+      row.sum(acc, xh, src, we, self >= 0 ? ws : nullptr, nl, hp, hc);
+      if (keep) {
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[q] = ws * v[q];
-    } else {
+        for (int q = 0; q < NV; ++q) {
+          if (!row.in(q)) continue;
+          if (bias != nullptr) {
+            rows::Raw<T, V> b;
+            b.load(bias + row.col[q]);
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+            for (int v = 0; v < V; ++v)
+              acc[q][v] = (LOWP ? round_bf(acc[q][v]) : acc[q][v]) + b.at(v);
+          }
+          rows::store<T, V>(orow + row.col[q], acc[q]);
+        }
+      }
     }
-    for (int s = 0; s < k; ++s) {
-      const int j = src_s[s];
-      if (j < 0) continue;
-      const float w = w_s[s * heads + h];
-      VecT<T, VEC>::load(xh + (long long)j * hc + col, v);
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[q] = fmaf(w, v[q], acc[q]);
-    }
-    if (bias != nullptr) {
-      VecT<T, VEC>::load(bias + col, v);
-#pragma unroll
-      for (int q = 0; q < VEC; ++q)
-        acc[q] = (LOWP ? round_bf(acc[q]) : acc[q]) + v[q];
-    }
-    VecT<T, VEC>::store(orow + col, acc);
+    __syncwarp();   // the next nodes' lists overwrite these
   }
 }
 
@@ -197,18 +273,20 @@ drop_mask_kernel(float* __restrict__ out, Drop drop, long long n, int k,
 
 }  // namespace
 
-// Shared memory of one aggregate block with `wpb` warps.
-static size_t agg_smem(int wpb, int k, int heads) {
-  return (size_t)wpb * ((size_t)(k + 1) * heads * sizeof(float) +
-                        (size_t)k * sizeof(int));
+// Bytes of one node's lists.
+static size_t agg_node_bytes(int k, int heads) {
+  return (size_t)fwd_warp_words(k, rows::pair_stride(heads)) * sizeof(float);
 }
 
-// The largest number of warps (<= 8) per aggregate block whose shared
-// memory fits in 48 KB, or 0 when not even one warp fits.
+// The number of warps per aggregate block at one node a warp: the largest
+// (<= 4) whose lists fit in 48 KB, else 1 when one node's fit in the 227
+// KB a block can have; 0 when not even those fit (no K the kernel's first
+// version took).
 extern "C" int ell_gat_fwd_warps_per_block(int k, int heads) {
-  for (int wpb = THREADS / WARP; wpb >= 1; --wpb)
-    if (agg_smem(wpb, k, heads) <= 48 * 1024) return wpb;
-  return 0;
+  if (k < 1 || heads < 1) return 0;
+  for (int wpb = rows::FWD_WARPS; wpb >= 1; --wpb)
+    if (wpb * agg_node_bytes(k, heads) <= 48 * 1024) return wpb;
+  return agg_node_bytes(k, heads) <= 227 * 1024 ? 1 : 0;
 }
 
 template <typename T>
@@ -219,34 +297,48 @@ int launch_fwd(const void* xh, const void* att, const void* nbr,
                int has_self, int vec, const Drop& drop, int wpb,
                cudaStream_t s) {
   const T* txh = static_cast<const T*>(xh);
-  cudaError_t err = launch_dots<T>(txh, static_cast<const T*>(att),
-                                   static_cast<float*>(dots), n, heads, c, s);
+  cudaError_t err = rows::launch_node_dots<T>(
+      txh, static_cast<const T*>(att), static_cast<float*>(dots), n, heads,
+      c, s);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((n + wpb - 1) / wpb);
-  const size_t smem = agg_smem(wpb, k, heads);
-#define AGG_ARGS                                                            \
-  txh, static_cast<const float*>(dots), static_cast<const int*>(nbr),       \
-      static_cast<const uint8_t*>(nmask), static_cast<const float*>(el),    \
-      static_cast<const float*>(el_self), static_cast<const T*>(bias),      \
-      static_cast<const uint8_t*>(node_mask), static_cast<T*>(out), n, k,   \
-      heads, c, slope, has_self, drop
-  if (vec == 4)
-    aggregate_kernel<T, 4><<<blocks, wpb * WARP, smem, s>>>(AGG_ARGS);
-  else
-    aggregate_kernel<T, 1><<<blocks, wpb * WARP, smem, s>>>(AGG_ARGS);
-#undef AGG_ARGS
-  return (int)cudaGetLastError();
+  const int hc = heads * c;
+  const int hp = rows::pair_stride(heads);
+  int lg_hp = 0;
+  while ((1 << lg_hp) < hp) ++lg_hp;
+  const size_t node_bytes = agg_node_bytes(k, heads);
+  err = rows::with_fwd_form<T>(vec, c, [&](auto v_c) {
+    constexpr int V = decltype(v_c)::value;
+    auto* kernel = aggregate_kernel<T, V>;
+    const rows::FwdGeom gm = rows::fwd_geom(hc, V, hp, node_bytes);
+    const int groups = WARP >> gm.lg_lpr;
+    const size_t smem = (size_t)wpb * groups * node_bytes;
+    if (!rows::allow_smem(kernel, smem)) return cudaErrorInvalidValue;
+    const long long cap = (n + (long long)wpb * groups - 1) / (wpb * groups);
+    const int blocks = rows::resident_blocks(kernel, wpb * WARP, smem, cap);
+    kernel<<<(unsigned)blocks, wpb * WARP, smem, s>>>(
+        txh, static_cast<const float*>(dots), static_cast<const int*>(nbr),
+        static_cast<const uint8_t*>(nmask), static_cast<const float*>(el),
+        static_cast<const float*>(el_self), static_cast<const T*>(bias),
+        static_cast<const uint8_t*>(node_mask), static_cast<T*>(out), n, k,
+        heads, c, slope, has_self, drop, gm, hp, lg_hp);
+    return cudaGetLastError();
+  });
+  return (int)err;
 }
 
 // Kernel C. dtype: 0 = float32, 1 = bfloat16 (xh, att, bias, out). xh
 // [n, heads * c]; att [2, heads * c]; nbr [n, k] int32; nmask [n, k]
 // uint8; el [n, k, heads] f32 or null; el_self [n, heads] f32 or null
 // (zeros); bias [heads * c] or null; node_mask [n] uint8 or null; dots
-// [n, 2 * heads] f32 scratch; out [n, heads * c]. Dropout (training form):
+// [n, 2 * heads] f32 (written: the attention dots, a_src then a_dst, that
+// ell_gat_bwd takes); out [n, heads * c]. Dropout (training form):
 // drop_mode 0 none, 1 dmask [n, k + 1, heads] f32, 2 Philox from the int64
 // at seed with threshold thresh and scale keep_inv. vec 4 needs c % 4 == 0
-// and 16-byte aligned xh, out and bias. Launches on `stream`; returns the
-// CUDA error code of the launches (0 when both were accepted).
+// and 16-byte aligned xh, out and bias (the rows then go in 16-byte chunks
+// when c is a multiple of 4 floats or 8 bf16, else in single columns). Any
+// HC; K and heads as ell_gat_fwd_warps_per_block takes them. Launches on
+// `stream`; returns the CUDA error code of the launches (0 when both were
+// accepted).
 extern "C" int ell_gat_fwd(int dtype, const void* xh, const void* att,
                            const void* nbr, const void* nmask, const void* el,
                            const void* el_self, const void* bias,
@@ -284,6 +376,26 @@ extern "C" int ell_gat_drop_mask(void* out, const void* seed, unsigned thresh,
   drop_mask_kernel<<<1024, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), drop, n, k, heads);
   return (int)cudaGetLastError();
+}
+
+// The attention dots alone (the first kernel of ell_gat_fwd, and of
+// ell_gat_bwd when it is not given them): dots [n, 2 * heads] f32 of xh
+// [n, heads * c] and att [2, heads * c] of type dtype. generic 1 runs
+// ellgat::dots_kernel, the form every shape had before node_dots_kernel,
+// for holding the two against each other bit for bit.
+extern "C" int ell_gat_dots(int dtype, const void* xh, const void* att,
+                            void* dots, long long n, int heads, int c,
+                            int generic, void* stream) {
+  if (n < 1 || heads < 1 || c < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)rows::launch_node_dots<bf16>(
+        static_cast<const bf16*>(xh), static_cast<const bf16*>(att),
+        static_cast<float*>(dots), n, heads, c, s, generic != 0);
+  return (int)rows::launch_node_dots<float>(
+      static_cast<const float*>(xh), static_cast<const float*>(att),
+      static_cast<float*>(dots), n, heads, c, s, generic != 0);
 }
 
 extern "C" const char* ell_gat_fwd_error_string(int err) {

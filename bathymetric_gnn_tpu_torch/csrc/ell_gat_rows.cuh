@@ -1,12 +1,13 @@
-// Row layout shared by the ELL-GAT backward kernels (ell_gat_bwd.cu, kernel
-// C' and its source pass in segment_reduce.cuh; ell_gat_v2_bwd.cu, kernel
-// D'): one warp owns one [HC] row at a time, each lane NV chunks of V
-// consecutive columns, chunk j of lane l at column (j * 32 + l) * V. With
-// V * sizeof(T) = 16 (4 floats, 8 bf16) a warp-wide load of a whole row,
-// all heads at once, is one coalesced 16-byte access a lane per chunk row.
-// V divides C, so a chunk never straddles two heads; the per-head dot
-// products of a row are reduced among the lanes of each head only
-// (head_sum).
+// Row layout shared by the ELL-GAT kernels (ell_gat_bwd.cu, kernel C' and
+// its source pass in segment_reduce.cuh; ell_gat_v2_bwd.cu, kernel D';
+// the forwards ell_gat_fwd.cu, kernel C, and ell_gat_band.cu, kernel E,
+// through FwdRow below): one warp owns one [HC] row at a time, each lane NV
+// chunks of V consecutive columns, chunk j of lane l at column (j * 32 + l)
+// * V. With V * sizeof(T) = 16 (4 floats, 8 bf16) a warp-wide load of a
+// whole row, all heads at once, is one coalesced 16-byte access a lane per
+// chunk row. V divides C, so a chunk never straddles two heads; the
+// per-head dot products of a row are reduced among the lanes of each head
+// only (head_sum).
 #pragma once
 
 #include <mutex>
@@ -241,17 +242,21 @@ __device__ __forceinline__ void load_group(Raw<T, V> (&r)[GROUP][NV],
   }
 }
 
-// Max / sum over the lanes that share lane % heads (heads divides 32):
-// the per-head reductions when the lanes own (slot, head) pairs s * heads
-// + h, every head at once. The same bits in every lane of a head.
-__device__ __forceinline__ float pair_max(float v, int heads) {
-  for (int o = WARP / 2; o >= heads; o >>= 1)
+// Max / sum over the lanes that share lane % heads (heads divides 32)
+// within each aligned group of `width` lanes (a power of two >= heads; the
+// whole warp by default): the per-head reductions when the lanes own
+// (slot, head) pairs s * heads + h, every head at once. The same bits in
+// every lane of a head.
+__device__ __forceinline__ float pair_max(float v, int heads,
+                                          int width = WARP) {
+  for (int o = width / 2; o >= heads; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-__device__ __forceinline__ float pair_sum(float v, int heads) {
-  for (int o = WARP / 2; o >= heads; o >>= 1)
+__device__ __forceinline__ float pair_sum(float v, int heads,
+                                          int width = WARP) {
+  for (int o = width / 2; o >= heads; o >>= 1)
     v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
@@ -424,6 +429,314 @@ inline cudaError_t launch_mat_dots(const T* xh, const T* acat, float* ac,
   kernel<<<(unsigned)blocks, ellgat::THREADS, smem, s>>>(xh, acat, ac, n, hc,
                                                         m_cols);
   return cudaGetLastError();
+}
+
+// ---- the forward passes of kernels C and E --------------------------------
+//
+// One lane group of lpr lanes (a power of two) owns one destination at a
+// time, each lane FWD_NV chunks of its row; a warp holds G = 32 / lpr of
+// them. The nodes a warp has in flight hide each other's round trips to
+// memory, which bound these passes (on the H100, one node a warp was
+// slower at HC 64, most lanes idle). A group
+// lists its destination's live slots densely (append_live: a dead slot
+// costs no iteration and its row, NaN or not, is never read), takes the
+// softmax over (entry, head) pairs inside the group (pair_softmax), then
+// sums the weighted rows,
+//   acc[col] = w_self[h] x[self, col] + sum_u w[u * hp + h] x[src[u], col]
+// (h the head of col): the group's lanes own a column tile of lpr * FWD_NV
+// chunks of V columns, chunk q of lane r at chunk (t * FWD_NV + q) * lpr +
+// r of tile t; a row wider than a tile takes its tiles one after the other
+// (no width limit). The self row and the first FWD_GROUP entries' rows are
+// requested together, before the first FMA.
+
+// Entries whose rows one lane group requests at once, and the chunks a
+// lane holds of each.
+constexpr int FWD_GROUP = 8;
+constexpr int FWD_NV = 2;
+// Warps a forward block holds at most, and the blocks an SM should hold:
+// the register budget the forward kernels are built for (128 a thread).
+constexpr int FWD_WARPS = 4;
+constexpr int FWD_MIN_BLOCKS = 4;
+// Shared memory a warp's node lists may take before its nodes fall back to
+// one a warp (rows of a few channels with thousands of slots).
+constexpr size_t FWD_WARP_LISTS = 8 * 1024;
+
+// The lane geometry of a forward pass.
+struct FwdGeom {
+  int lg_lpr;   // log2 of the lanes per destination
+  int tiles;    // column tiles of lpr * FWD_NV chunks
+};
+
+// The geometry of rows of hc columns in chunks of v, for nodes of hp pair
+// lanes per slot whose lists take list_bytes each: the fewest lanes (a
+// power of two, at least hp, at most 32) that hold a whole row at FWD_NV
+// chunks a lane, or 32 when the lists of the 32 / lpr nodes a warp would
+// hold exceed FWD_WARP_LISTS; and the tiles a row takes.
+inline FwdGeom fwd_geom(int hc, int v, int hp, size_t list_bytes) {
+  const int chunks = (hc + v - 1) / v;
+  const int need = (chunks + FWD_NV - 1) / FWD_NV;
+  FwdGeom g;
+  g.lg_lpr = 0;
+  while (g.lg_lpr < 5 && ((1 << g.lg_lpr) < need || (1 << g.lg_lpr) < hp))
+    ++g.lg_lpr;
+  if ((size_t)(WARP >> g.lg_lpr) * list_bytes > FWD_WARP_LISTS) g.lg_lpr = 5;
+  const int tile = (1 << g.lg_lpr) * FWD_NV;
+  g.tiles = (chunks + tile - 1) / tile;
+  return g;
+}
+
+// The smallest power of two >= heads (1, 2, 4, 8): the (slot, head) pair
+// stride of the forward softmaxes, so that a lane's head is lane % hp.
+inline int pair_stride(int heads) {
+  int hp = 1;
+  while (hp < heads) hp *= 2;
+  return hp;
+}
+
+// Appends the live slots of one chunk of lpr (lane r of the group holds
+// slot s and its source j, j < 0 for a dead slot) to the group's dense
+// lists src / slot after the nl entries already there: a ballot and a
+// prefix count among the group's lanes. Returns the new count (the same in
+// every lane of the group).
+template <typename I>
+__device__ __forceinline__ int append_live(I j, int s, int lane, int lg_lpr,
+                                           int nl, I* src, int* slot) {
+  const unsigned b = __ballot_sync(FULL, j >= 0);
+  const int lpr = 1 << lg_lpr;
+  const int lr = lane & (lpr - 1);
+  const unsigned gb =
+      lpr == WARP ? b : (b >> (lane - lr)) & ((1u << lpr) - 1u);
+  if (j >= 0) {
+    const int pos = nl + __popc(gb & ((1u << lr) - 1u));
+    src[pos] = j;
+    slot[pos] = s;
+  }
+  return nl + __popc(gb);
+}
+
+// The softmax statistics of one destination over its (entry, head) pairs,
+// every head at once, in the destination's group of lpr = 1 << lg_lpr
+// lanes: pair p < np = entries * hp belongs to the group's lane p % lpr
+// (tile p / lpr) and head p % hp (hp a power of two >= heads, <= lpr;
+// lanes of heads >= the real count pass hv false). l0 is the logit of the
+// lane's pair of tile 0 (the caller loads its terms before the rows, so
+// that both round trips overlap), logit(p) gives a later tile's; m enters
+// as the lane's head's starting max (the self logit or a floor) and leaves
+// as the head's max over all its pairs. Afterwards e0 = exp(l - m) of the
+// lane's pair of tile 0 (0 when it has none), we[p] = exp(l - m) for the
+// later tiles, and the head's sum of the exponentials over every pair is
+// returned (each lane carries its tiles' max and sum; one xor tree among
+// the group's lanes of a head reduces them).
+template <class L>
+__device__ __forceinline__ float pair_softmax(int np, int lg_hp, bool hv,
+                                              int lr, int lg_lpr, float l0,
+                                              L logit, float* we, float& m,
+                                              float& e0) {
+  const int lpr = 1 << lg_lpr;
+  if (hv && lr < np) m = fmaxf(m, l0);
+  for (int p = lr + lpr; p < np; p += lpr) {
+    const float l = logit(p);
+    we[p] = l;
+    if (hv) m = fmaxf(m, l);
+  }
+  m = pair_max(m, 1 << lg_hp, lpr);
+  float sum = 0.f;
+  e0 = 0.f;
+  if (hv && lr < np) {
+    e0 = expf(l0 - m);
+    sum = e0;
+  }
+  for (int p = lr + lpr; p < np; p += lpr)
+    if (hv) {
+      const float e = expf(we[p] - m);
+      we[p] = e;
+      sum += e;
+    }
+  return pair_sum(sum, 1 << lg_hp, lpr);
+}
+
+// A lane's part of one destination's gather.
+template <typename T, int V>
+struct FwdRow {
+  static constexpr int NV = FWD_NV;
+  Raw<T, V> xs[NV];               // the self row's chunks
+  Raw<T, V> r[FWD_GROUP][NV];     // a group of entries' chunks
+  int col[NV];
+  int head[NV];
+  unsigned live;                  // bit q: chunk q lies inside the row
+
+  __device__ __forceinline__ bool in(int q) const {
+    return (live >> q) & 1u;
+  }
+  // The lane's chunks of column tile t (lr its lane in the group).
+  __device__ __forceinline__ void tile(int t, int lr, int lg_lpr, int hc,
+                                       int c) {
+    live = 0u;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      col[q] = (((t * NV + q) << lg_lpr) + lr) * V;
+      const bool inside = col[q] < hc;
+      head[q] = inside ? col[q] / c : 0;
+      live |= (inside ? 1u : 0u) << q;
+    }
+  }
+  // Requests the self row (when u0 is 0 and self >= 0) and the rows of the
+  // entries u0 .. u0 + FWD_GROUP - 1 below nl.
+  template <typename I>
+  __device__ __forceinline__ void request(const T* __restrict__ xh,
+                                          long long self, const I* src,
+                                          int u0, int nl, int hc) {
+    if (u0 == 0) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        if (self >= 0 && in(q))
+          xs[q].load(xh + self * hc + col[q]);
+        else
+          xs[q].zero();
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < FWD_GROUP; ++f) {
+      const int u = u0 + f;
+      const long long j = u < nl ? (long long)src[u] : -1;
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        if (j >= 0 && in(q))
+          r[f][q].load(xh + j * hc + col[q]);
+        else
+          r[f][q].zero();
+      }
+    }
+  }
+  // acc = ws[h] x_self + sum_u w[u * hp + h] x[src[u]] over the tile's
+  // chunks (ws null: no self term), the entries in order. The first group
+  // of rows (request with u0 = 0) must have been requested.
+  template <typename I>
+  __device__ __forceinline__ void sum(float (&acc)[NV][V],
+                                      const T* __restrict__ xh, const I* src,
+                                      const float* w, const float* ws, int nl,
+                                      int hp, int hc) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const float a = ws != nullptr ? ws[head[q]] : 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[q][v] = a * xs[q].at(v);
+    }
+    for (int u0 = 0; u0 < nl; u0 += FWD_GROUP) {
+      if (u0 > 0) request(xh, -1, src, u0, nl, hc);
+#pragma unroll
+      for (int f = 0; f < FWD_GROUP; ++f) {
+        const int u = u0 + f;
+        if (u < nl) {
+#pragma unroll
+          for (int q = 0; q < NV; ++q) {
+            const float wv = w[u * hp + head[q]];
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              acc[q][v] = fmaf(wv, r[f][q].at(v), acc[q][v]);
+          }
+        }
+      }
+    }
+  }
+};
+
+// Runs f(V) (as std::integral_constant) for the forward instance of a row:
+// V = row_width(lowp, vec, c).
+template <typename T, class F>
+inline cudaError_t with_fwd_form(int vec, int c, F&& f) {
+  constexpr int VW = sizeof(T) == 2 ? 8 : 4;
+  if (row_width(sizeof(T) == 2, vec, c) == VW)
+    return f(std::integral_constant<int, VW>{});
+  return f(std::integral_constant<int, 1>{});
+}
+
+// ---- the attention dots of kernels C and C' -------------------------------
+
+// dots[i, h] = <xh[i, h, :], att[0, h, :]>, dots[i, heads + h] = <xh[i, h,
+// :], att[1, h, :]> (att [2, HC], xh and att of type T, dots f32) for at
+// most MH heads of at most 32 * CPL channels: one node a warp, every
+// head's loads of the node (its row, att's columns) requested before the
+// first FMA, where ellgat::dots_kernel waits for one head's loads after
+// another. Each lane's FMA chains run over the columns lane, lane + 32,
+// ... of each head in order, and the 2 * heads sums take the same xor
+// tree, as dots_kernel's: the same bits (a logit at LeakyReLU's kink flips
+// its branch with the summation order). A grid-stride form with att in
+// registers measured slower: fewer nodes in flight.
+template <typename T, int CPL, int MH>
+__global__ void __launch_bounds__(ellgat::THREADS)
+node_dots_kernel(const T* __restrict__ xh, const T* __restrict__ att,
+                 float* __restrict__ dots, long long n, int heads, int c) {
+  const int lane = threadIdx.x & (WARP - 1);
+  const long long i =
+      (long long)blockIdx.x * (blockDim.x / WARP) + threadIdx.x / WARP;
+  if (i >= n) return;   // the whole warp leaves together
+  const int hc = heads * c;
+  const T* row = xh + i * hc;
+  float x[MH][CPL], as[MH][CPL], ad[MH][CPL];
+#pragma unroll
+  for (int h = 0; h < MH; ++h)
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int j = lane + WARP * t;
+      const bool in = h < heads && j < c;
+      x[h][t] = in ? ellgat::ld(row + h * c + j) : 0.f;
+      as[h][t] = in ? ellgat::ld(att + h * c + j) : 0.f;
+      ad[h][t] = in ? ellgat::ld(att + hc + h * c + j) : 0.f;
+    }
+  float s[MH], d[MH];
+#pragma unroll
+  for (int h = 0; h < MH; ++h) {
+    s[h] = 0.f;
+    d[h] = 0.f;
+#pragma unroll
+    for (int t = 0; t < CPL; ++t)
+      if (lane + WARP * t < c) {
+        s[h] = fmaf(x[h][t], as[h][t], s[h]);
+        d[h] = fmaf(x[h][t], ad[h][t], d[h]);
+      }
+  }
+  for (int o = WARP / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int h = 0; h < MH; ++h)
+      if (h < heads) {
+        s[h] += __shfl_xor_sync(FULL, s[h], o);
+        d[h] += __shfl_xor_sync(FULL, d[h], o);
+      }
+  }
+  float mine = 0.f;   // lane h < heads writes a_src, heads + h a_dst
+#pragma unroll
+  for (int h = 0; h < MH; ++h) {
+    if (h >= heads) continue;
+    if (lane == h) mine = s[h];
+    if (lane == heads + h) mine = d[h];
+  }
+  if (lane < 2 * heads) dots[i * 2 * heads + lane] = mine;
+}
+
+// Launches the attention dots of kernels C and C' on stream s:
+// node_dots_kernel where a head has at most 64 channels (generic false),
+// else ellgat::dots_kernel (the same bits).
+template <typename T>
+inline cudaError_t launch_node_dots(const T* xh, const T* att, float* dots,
+                                    long long n, int heads, int c,
+                                    cudaStream_t s, bool generic = false) {
+  const unsigned blocks = (unsigned)(
+      (n + ellgat::THREADS / WARP - 1) / (ellgat::THREADS / WARP));
+  const auto go = [&](auto kernel) {
+    kernel<<<blocks, ellgat::THREADS, 0, s>>>(xh, att, dots, n, heads, c);
+    return cudaGetLastError();
+  };
+  if (generic || heads > 8 || c > 2 * WARP) return go(ellgat::dots_kernel<T>);
+  const int mh = pair_stride(heads);
+  if (c > WARP) {
+    if (mh == 1) return go(node_dots_kernel<T, 2, 1>);
+    if (mh <= 4) return go(node_dots_kernel<T, 2, 4>);
+    return go(node_dots_kernel<T, 2, 8>);
+  }
+  if (mh == 1) return go(node_dots_kernel<T, 1, 1>);
+  if (mh <= 4) return go(node_dots_kernel<T, 1, 4>);
+  return go(node_dots_kernel<T, 1, 8>);
 }
 
 }  // namespace rows

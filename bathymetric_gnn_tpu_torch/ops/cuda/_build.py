@@ -53,11 +53,12 @@ KERNELS: Dict[str, tuple] = {
         "ell_gat_fwd": (_I, [_I] + [_VP] * 10
                         + [_LL, _I, _I, _I, _F, _I, _I] + _DROP + [_VP]),
         "ell_gat_drop_mask": (_I, [_VP, _VP, _U, _F, _LL, _I, _I, _VP]),
+        "ell_gat_dots": (_I, [_I, _VP, _VP, _VP, _LL, _I, _I, _I, _VP]),
         "ell_gat_fwd_warps_per_block": (_I, [_I, _I]),
         "ell_gat_fwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_bwd": ("ell_gat_bwd.cu", {
-        "ell_gat_bwd": (_I, [_I] + [_VP] * 8 + _DROP + [_VP] * 10
+        "ell_gat_bwd": (_I, [_I] + [_VP] * 8 + _DROP + [_VP] * 11
                         + [_LL, _I, _I, _I, _F, _I, _I, _I, _VP]),
         "ell_gat_bwd_blocks": (_I, [_I, _LL, _I, _I, _I, _I]),
         "ell_gat_bwd_error_string": (ctypes.c_char_p, [_I]),

@@ -199,8 +199,9 @@ def ell_gat_fused_train(xh, att_src, att_dst, nbr_src, nbr_mask, el=None,
 class _EllGATFused(torch.autograd.Function):
     """Kernel C (training form) forward, kernel C' backward, as the JAX
     custom VJP ``_fused_v3``: the forward keeps the layer's inputs (and
-    the dropout mask or seed), the backward recomputes the softmax in
-    kernel C' and sums its per-block d att_src / d att_dst / d bias
+    the dropout mask or seed) and the attention dots kernel C computed
+    ([N, 2 * heads] f32), the backward recomputes the softmax in kernel C'
+    from them and sums its per-block d att_src / d att_dst / d bias
     partials in a fixed order."""
 
     @staticmethod
@@ -218,12 +219,15 @@ class _EllGATFused(torch.autograd.Function):
                and perm.device == xh.device and row_ptr.device == xh.device,
                f"slot tables {tuple(perm.shape)} / {tuple(row_ptr.shape)} "
                f"vs N={n}, K={k}")
-        out = call_kernel(**kw)
+        # the attention dots kernel C computes, kept for kernel C'
+        dots = torch.empty(n, 2 * kw["heads"], device=xh.device,
+                           dtype=torch.float32)
+        out = call_kernel(**kw, dots=dots)
         ctx.save_for_backward(
             kw["xh"], kw["att"], kw["nbr"], kw["nmask"], kw["el"],
             kw["el_self"], kw["node_mask"], kw["dmask"], kw["seed"],
             perm.to(torch.int32).contiguous(),
-            row_ptr.to(torch.int32).contiguous())
+            row_ptr.to(torch.int32).contiguous(), dots)
         ctx.kw = {name: kw[name] for name in (
             "n", "k", "heads", "c", "negative_slope", "has_self",
             "drop_mode", "thresh", "keep_inv", "dtype")}
@@ -234,11 +238,12 @@ class _EllGATFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (xh, att, nbr, nmask, el, el_self, node_mask, dmask, seed, perm,
-         row_ptr) = ctx.saved_tensors
+         row_ptr, dots) = ctx.saved_tensors
         dxh, _, dl, del_self, part = call_bwd_kernel(
             xh=xh, att=att, nbr=nbr, nmask=nmask, el=el, el_self=el_self,
             node_mask=node_mask, dmask=dmask, seed=seed, perm=perm,
-            row_ptr=row_ptr, g=g.to(xh.dtype).contiguous(), **ctx.kw)
+            row_ptr=row_ptr, g=g.to(xh.dtype).contiguous(), dots=dots,
+            **ctx.kw)
         sums = part.sum(0)                                  # [3, HC]
         has_el, has_self, has_bias = ctx.has
         n, k, heads = ctx.kw["n"], ctx.kw["k"], ctx.kw["heads"]
@@ -270,6 +275,33 @@ def drop_mask(drop_seed: torch.Tensor, keep_prob: float, n: int, k: int,
             heads, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ell_gat_drop_mask failed: CUDA error {err}")
+    return out
+
+
+def attention_dots(xh: torch.Tensor, att: torch.Tensor, heads: int,
+                   generic: bool = False) -> torch.Tensor:
+    """The attention dots [N, 2 * heads] f32 (a_src then a_dst) that
+    kernels C and C' compute, of xh [N, HC] and att [2, HC] (``kernel_args``'
+    ``xh`` and ``att``). ``generic`` runs the one-node-a-warp form
+    (``ellgat::dots_kernel``) instead of ``rows::node_dots_kernel``: a debug
+    entry for holding the two against each other bit for bit. CUDA only;
+    not on any model path."""
+    from ._build import library
+
+    n, hc = xh.shape
+    _check(xh.is_cuda and att.shape == (2, hc) and att.dtype == xh.dtype
+           and xh.is_contiguous() and att.is_contiguous()
+           and hc % heads == 0, f"xh {tuple(xh.shape)} / att "
+           f"{tuple(att.shape)}")
+    out = torch.empty(n, 2 * heads, device=xh.device, dtype=torch.float32)
+    lib = library("ell_gat_fwd")
+    with torch.cuda.device(xh.device):
+        err = lib.ell_gat_dots(
+            _DTYPE_CODE[xh.dtype], xh.data_ptr(), att.data_ptr(),
+            out.data_ptr(), n, heads, hc // heads, int(generic),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ell_gat_dots failed: CUDA error {err}")
     return out
 
 
@@ -377,17 +409,25 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def call_kernel(*, xh, att, nbr, nmask, el, el_self, bias, node_mask, n, k,
                 heads, c, negative_slope, has_self, vec, dtype, drop_mode=0,
-                dmask=None, seed=None, thresh=0, keep_inv=1.0, train=False):
+                dmask=None, seed=None, thresh=0, keep_inv=1.0, train=False,
+                dots=None):
     """Launch kernel C (its dots and aggregate kernels) on prepared inputs
     (``kernel_args``) on the current stream; returns out [N, HC] in xh's
-    dtype. The only place that counts ``launches`` (inference form) and
+    dtype. ``dots``: an f32 [N, 2 * heads] tensor on the card that gets
+    the attention dots (a_src then a_dst), for kernel C' (else scratch).
+    The only place that counts ``launches`` (inference form) and
     ``train_launches`` (training form)."""
     global launches, train_launches
     from ._build import library
 
     # torch's allocator aligns both to 256 bytes (16 needed for float4)
     out = torch.empty(n, heads * c, device=xh.device, dtype=xh.dtype)
-    dots = torch.empty(n, 2 * heads, device=xh.device, dtype=torch.float32)
+    if dots is None:
+        dots = torch.empty(n, 2 * heads, device=xh.device,
+                           dtype=torch.float32)
+    _check(tuple(dots.shape) == (n, 2 * heads) and dots.is_contiguous()
+           and dots.dtype == torch.float32 and dots.device == xh.device,
+           f"dots {tuple(dots.shape)} {dots.dtype}")
     lib = library("ell_gat_fwd")
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -417,8 +457,10 @@ def _realigned(t: torch.Tensor) -> torch.Tensor:
 def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
                     seed, perm, row_ptr, g, n, k, heads, c, negative_slope,
                     has_self, drop_mode, thresh, keep_inv, dtype,
-                    source_side: bool = True):
-    """Launch kernel C' (the attention dots, the destination pass, then
+                    source_side: bool = True, dots=None):
+    """Launch kernel C' (the attention dots unless ``dots`` brings the
+    [N, 2 * heads] f32 ones kernel C computed for the same xh and att
+    (``call_kernel(dots=...)``: the same bits), the destination pass, then
     kernel F in its mode (b) with the destination side added first) on the
     inputs kernel C was given (``kernel_args``), the cotangent ``g``
     [N, HC] in xh's dtype and the source-sorted slot tables. Returns (dxh
@@ -450,7 +492,11 @@ def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
            "the kernel takes (HC <= 1024 when C is not a multiple of 4 "
            "(f32) or 8 (bf16), else 2048 (f32) or 4096 (bf16))")
     f32 = dict(device=dev, dtype=torch.float32)
-    dots = torch.empty(n, 2 * heads, **f32)
+    if dots is not None:
+        _check(tuple(dots.shape) == (n, 2 * heads) and dots.is_contiguous()
+               and dots.dtype == torch.float32 and dots.device == dev,
+               f"dots {tuple(dots.shape)} {dots.dtype}")
+    scratch = torch.empty(n, 2 * heads, **f32) if dots is None else None
     alpha = torch.empty(n * k, heads, **f32)
     dl = torch.empty(n * k, heads, **f32)
     dsc = torch.empty(n, 3, heads, **f32)
@@ -465,9 +511,10 @@ def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
             nmask.data_ptr(), _ptr(el), _ptr(el_self), _ptr(node_mask),
             g.data_ptr(), drop_mode, _ptr(dmask), _ptr(seed), thresh,
             keep_inv, _ptr(perm if source_side else None),
-            _ptr(row_ptr if source_side else None), dots.data_ptr(),
-            alpha.data_ptr(), dl.data_ptr(), _ptr(inv), dsc.data_ptr(),
-            _ptr(dxh), del_self.data_ptr(), part.data_ptr(), n, k,
+            _ptr(row_ptr if source_side else None), _ptr(scratch),
+            _ptr(dots), alpha.data_ptr(), dl.data_ptr(), _ptr(inv),
+            dsc.data_ptr(), _ptr(dxh), del_self.data_ptr(), part.data_ptr(),
+            n, k,
             heads, c, negative_slope, int(has_self), vec, blocks,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -30,7 +30,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    tiles with 5 % holes (N = 262,144) at HC 256 / 4 heads and HC 64 /
    1 head, and on the ragged K = 16 batch, with no dropout, a streamed
    mask and the Philox draw (its rate, and C + C' with the draw equal to
-   C + C' given it as a streamed mask);
+   C + C' given it as a streamed mask); C' given the attention dots kernel
+   C wrote (the training layer's path) equal, bit for bit, to C' computing
+   its own, and the dots pass equal to the generic ``dots_kernel``;
 3. the inference path through the port's CLI (``cli.inference.main``) on
    a synthetic 2304x2304 survey (9 tiles of 1024 with overlap 128: one
    batch of 8, then one single tile), with the launch counts read around
@@ -67,7 +69,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    calls it), the whole train step in f32 and bf16, kernel C per shape with the model forward of
    one 65,536-node flush, and (4d) kernel C's training form, C', F's two
    modes (``index_add_`` beside mode (a)) per k-NN training shape and the
-   k-NN train step on one merged batch with its device busy share;
+   k-NN train step on one merged batch with its device busy share and the
+   launches and time of the attention dots a step (C's only: C' takes
+   them from C);
 2e. (run after 2d) kernel E (the banded band part) on phase 2c's k-NN
    graph split into 128-row bands (HC 256 / 4 heads and HC 64 / 1 head),
    kernels D and D' (the fused banded layer and its backward, with F's
@@ -112,6 +116,7 @@ fixed seeds; nothing is read from the network.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -188,10 +193,55 @@ def phase_card_and_build(torch):
         + ", ".join(p.name for p in libs.values()) + ", "
         + native.library_path().name)
     for name in libs:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[1]   {name}: {line.strip()}")
+        kernels = ptxas_report(_build.build_log(name))
+        regs = [r for _, r, _ in kernels]
+        spilled = [b for _, _, b in kernels if b]
+        log(f"[1]   {name}: {len(kernels)} kernels, "
+            f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+            f"{len(spilled)} spill (<= {max(spilled, default=0)} B stores)")
+        for kernel, r, b in kernels:
+            if name in ("ell_gat_fwd", "ell_gat_band") and any(
+                    x in kernel for x in FWD_KERNELS):
+                log(f"[1]     {kernel}: {r} registers, {b} B spill stores")
     return card
+
+
+# The kernels of C's and E's forward passes whose ptxas lines phase 1
+# prints one by one.
+FWD_KERNELS = ("aggregate_kernel", "band_kernel", "node_dots_kernel")
+
+
+def ptxas_report(text):
+    """[(kernel, registers, spill store bytes)] from nvcc's -Xptxas -v
+    output, the kernel named by its function and template arguments
+    (``aggregate_kernel<float,4>``) read from the mangled name."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)I(.*?)EE?v",
+                          mangled)
+            if k:
+                args = k.group(2).replace("13__nv_bfloat16", "bf16,")
+                if args.startswith("f"):
+                    args = "float," + args[1:]
+                args = re.sub(r"Lb([01])E", lambda x: ("true" if x.group(1)
+                                                       == "1" else "false")
+                              + ",", args)
+                args = re.sub(r"Li(\d+)E", r"\1,", args)
+                name = f"{k.group(1)}<{args.rstrip(',')}>"
+            else:
+                name = mangled[:60]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spill))
+            name, spill = None, 0
+    return out
 
 
 # -- inputs --------------------------------------------------------------------
@@ -1561,6 +1611,23 @@ def phase_knn_train_kernels_vs_plain(torch, cases):
             f"slots max_rel {rel_a:.3e} (tol {TOL['float32']:.1e}) "
             f"{'ok' if ok else 'FAIL'}")
         check(ok, f"kernel F disagrees: {label}")
+        # C' given the dots kernel C wrote (the training layer's path) vs
+        # C' computing its own; the dots pass vs the generic dots_kernel
+        dots = torch.empty(n, 2 * heads, device=dev)
+        ef.call_kernel(**args, dots=dots)
+        given = ef.call_bwd_kernel(**bkw, perm=p32, row_ptr=r32, g=g,
+                                   dots=dots)
+        own = ef.call_bwd_kernel(**bkw, perm=p32, row_ptr=r32, g=g)
+        same_bwd = all(torch.equal(a, b) for a, b in zip(given, own))
+        same_dots = torch.equal(dots, ef.attention_dots(
+            args["xh"], args["att"], heads, generic=True))
+        log(f"[2d] {label}: C' given C's dots "
+            f"{'equals' if same_bwd else 'DIFFERS FROM'} C' computing its "
+            f"own, bit for bit; the dots pass "
+            f"{'equals' if same_dots else 'DIFFERS FROM'} the generic "
+            f"dots_kernel, bit for bit")
+        check(same_bwd and same_dots, f"dots bits: {label}")
+        del given, own, dots
         worst["f_b"] = d_b.max().item()
         worst["f_a"] = d_a.max().item()
         errs[label] = worst
@@ -1934,15 +2001,20 @@ def phase_knn_train_timings(torch, np, cases, work, samples):
         f"in a sync)")
     wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
     busy = log_profile("4d", "3 k-NN train steps", wall, prows, top=14)
+    dots_names = ("ellgat::dots_kernel", "rows::node_dots_kernel")
     names = ("aggregate_kernel", "::bwd_kernel", "segred::gat_src_kernel",
-             "segred::reduce_kernel", "ellgat::dots_kernel",
-             "drop_mask_kernel")
+             "segred::reduce_kernel", "drop_mask_kernel") + dots_names
     mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
+    dots_n = sum(r[1] for r in prows if any(x in r[2] for x in dots_names))
+    dots_ms = sum(r[0] for r in prows if any(x in r[2] for x in dots_names))
     log(f"[4d]   kernels C, C' and F: {mine / 3:.3f} ms per step of "
-        f"{sum(r[0] for r in prows) / 3:.3f} ms device time")
+        f"{sum(r[0] for r in prows) / 3:.3f} ms device time; the attention "
+        f"dots (C's and C''s dots kernels): {dots_n / 3:.1f} launches, "
+        f"{dots_ms / 3:.3f} ms per step")
     return rows, dict(ms=ms, host_ms=host_ms, busy_share=busy,
                       kernels_ms=mine / 3,
-                      device_ms=sum(r[0] for r in prows) / 3)
+                      device_ms=sum(r[0] for r in prows) / 3,
+                      dots_launches=dots_n / 3, dots_ms=dots_ms / 3)
 
 
 # -- phase 2e: kernels E, D and D' (the banded-ELL routes) ---------------------

@@ -1257,3 +1257,220 @@ def test_v2_bwd_spill_tables(dev, dtype, case):
     dead = ~live.reshape(t_count, s_max)
     assert not dl_sp.permute(0, 2, 1)[dead].any()
     assert not dxh_sp[dead].any()
+
+
+# -- the redesigned forwards: kernels C and E at the edges of what they take --
+# Kernel C takes every K its first version took (ell_gat_fwd_warps_per_block
+# >= 1: up to 1364 slots at 8 heads, 6143 at 1 head), heads 1-8 (3 and 5
+# are not powers of two), C % 4 != 0 (single columns) and any HC (rows past
+# a column tile: HC 1030 in single columns, 1200 and 4096 in 16-byte
+# chunks); kernel E K up to 64 (the wrapper's limit) and the same heads and
+# widths. Dead slots name padded nodes whose rows are NaN: a row no live
+# slot names is never read. Tolerances are TOL of the other tests.
+
+C_EDGES = [
+    (300, 1, 1, 64),      # K 1
+    (300, 5, 3, 8),       # K 5, 3 heads (pairs of stride 4)
+    (200, 16, 5, 12),     # 5 heads (stride 8): 128 pairs, 4 pair tiles
+    (300, 33, 8, 4),      # K 33: two ballots, 264 pairs
+    (64, 1364, 8, 4),     # the first version's largest K at 8 heads
+    (32, 6143, 1, 4),     # ... and at 1 head
+    (500, 8, 2, 6),       # C % 4 != 0: single columns
+    (300, 8, 1, 1030),    # C % 4 != 0, HC > 1024: 17 column tiles
+    (300, 8, 2, 600),     # HC 1200 in 16-byte chunks: several tiles
+    (200, 8, 4, 1024),    # HC 4096
+]
+
+
+def _edge_ell_inputs(dev, n, k, heads, c, seed=0, dtype=torch.float32):
+    """A random ELL graph of n nodes (the last n / 16 padded, the first 3
+    with no live slot, ~70 % of the other slots live) whose dead slots name
+    padded nodes with NaN rows; layer inputs from ``seed``."""
+    rg = np.random.default_rng(seed)
+    n_pad = max(1, n // 16)
+    n_live = n - n_pad
+    nbr = rg.integers(0, n_live, (n, k))
+    mask = rg.random((n, k)) < 0.7
+    mask[:3] = False
+    mask[n_live:] = False
+    nbr = np.where(mask, nbr, n_live + rg.integers(0, n_pad, (n, k)))
+    gen = torch.Generator().manual_seed(seed)
+    hc = heads * c
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+    xh = rnd(n, hc)
+    xh[n_live:] = float("nan")
+    return dict(xh=xh.to(dtype), att_src=rnd(1, heads, c, s=0.3),
+                att_dst=rnd(1, heads, c, s=0.3),
+                nbr_src=torch.from_numpy(nbr).int().to(dev),
+                nbr_mask=torch.from_numpy(mask).to(dev),
+                el=rnd(n, k, heads), el_self=rnd(n, heads),
+                bias=rnd(hc, s=0.1),
+                node_mask=(torch.arange(n) < n_live).to(dev))
+
+
+def _close_to_plain(out, ref, dtype, live):
+    out, ref = out.float()[live], ref.float()[live]
+    assert torch.isfinite(out).all()
+    err = ((out - ref).abs() / (1 + ref.abs())).max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", C_EDGES)
+def test_ell_kernel_edges_match_plain(dev, shape, dtype):
+    """Kernel C (inference form) vs its plain version at the edge shapes,
+    with and without a self loop; padded nodes 0, nodes with no live slot
+    and no self loop the bias alone."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    n, k, heads, c = shape
+    kw = _edge_ell_inputs(dev, n, k, heads, c, dtype=dtype)
+    live = kw["node_mask"]
+    for self_loop in (True, False):
+        with torch.no_grad():
+            n0 = ef.launches
+            out = ef.ell_gat_fused(**kw, self_loop=self_loop)
+            torch.cuda.synchronize()
+            assert ef.launches == n0 + 1
+            ref = ef.ell_gat_reference(**kw, self_loop=self_loop)
+        assert out.dtype == dtype
+        _close_to_plain(out, ref, dtype, live)
+        assert not out[~live].float().any()
+        if not self_loop:
+            assert torch.equal(out[:3], kw["bias"].to(dtype).expand(3, -1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 8, 4, 64), (4096, 8, 1, 64),
+                                   (300, 33, 8, 4), (500, 8, 3, 6)])
+def test_ell_kernel_drop_modes(dev, shape, dtype):
+    """Kernel C's training form in its three dropout modes: none and a
+    streamed mask against the plain version; the Philox draw (mode 2)
+    equal, bit for bit, to mode 1 fed the same draw as its mask
+    (``drop_mask``)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    n, k, heads, c = shape
+    kw = _edge_ell_inputs(dev, n, k, heads, c, seed=1, dtype=dtype)
+    live = kw["node_mask"]
+    seed = torch.tensor([987654321], dtype=torch.int64, device=dev)
+    mask = ef.drop_mask(seed, 0.9, n, k, heads)
+    with torch.no_grad():
+        n0 = ef.train_launches
+        out0 = ef.call_kernel(**ef.kernel_args(**kw, train=True))
+        out1 = ef.call_kernel(**ef.kernel_args(**kw, dmask=mask, train=True))
+        out2 = ef.call_kernel(**ef.kernel_args(**kw, drop_seed=seed,
+                                               keep_prob=0.9, train=True))
+        torch.cuda.synchronize()
+        assert ef.train_launches == n0 + 3
+        ref0 = ef.ell_gat_reference(**kw)
+        ref1 = ef.ell_gat_reference(**kw, dmask=mask)
+    _close_to_plain(out0, ref0, dtype, live)
+    _close_to_plain(out1, ref1, dtype, live)
+    assert torch.equal(out2, out1)
+    assert not torch.equal(out1, out0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 8, 4, 64), (4096, 8, 1, 64),
+                                   (1000, 8, 2, 6)])
+def test_ell_bwd_with_saved_dots_bit_for_bit(dev, shape, dtype):
+    """Kernel C' given the attention dots kernel C wrote returns the same
+    bits as C' computing its own, and those dots are the dots pass's."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.ell import src_sorted_slots
+
+    n, k, heads, c = shape
+    kw = _ell_inputs(dev, n, k, heads, c)
+    kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+    seed = torch.tensor([424242], dtype=torch.int64, device=dev)
+    args = ef.kernel_args(**kw, drop_seed=seed, keep_prob=0.9, train=True)
+    dots = torch.empty(n, 2 * heads, device=dev)
+    ef.call_kernel(**args, dots=dots)
+    bkw = {nm: args[nm] for nm in (
+        "xh", "att", "nbr", "nmask", "el", "el_self", "node_mask", "dmask",
+        "seed", "n", "k", "heads", "c", "negative_slope", "has_self",
+        "drop_mode", "thresh", "keep_inv", "dtype")}
+    perm, row_ptr = (torch.from_numpy(t).int().to(dev) for t in
+                     src_sorted_slots(kw["nbr_src"].cpu().numpy(),
+                                      kw["nbr_mask"].cpu().numpy(),
+                                      kw["node_mask"].cpu().numpy()))
+    g = torch.randn(n, heads * c, generator=torch.Generator().manual_seed(4)
+                    ).to(dev, dtype)
+    n0 = ef.bwd_launches
+    given = ef.call_bwd_kernel(**bkw, perm=perm, row_ptr=row_ptr, g=g,
+                               dots=dots)
+    own = ef.call_bwd_kernel(**bkw, perm=perm, row_ptr=row_ptr, g=g)
+    torch.cuda.synchronize()
+    assert ef.bwd_launches == n0 + 2
+    for a, b in zip(given, own):
+        assert torch.equal(a, b)
+    assert torch.equal(dots, ef.attention_dots(args["xh"], args["att"],
+                                               heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 8])
+def test_ell_dots_keep_the_first_versions_bits(dev, heads, dtype):
+    """The dots pass of kernels C and C' (node_dots_kernel) gives the bits
+    of the one-node-a-warp dots_kernel it replaced where a head has at most
+    64 channels (past that the generic kernel runs itself)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    gen = torch.Generator().manual_seed(heads)
+    for c in (1, 6, 32, 33, 64, 65):
+        hc = heads * c
+        xh = torch.randn(3001, hc, generator=gen).to(dev, dtype)
+        att = (0.3 * torch.randn(2, hc, generator=gen)).to(dev, dtype)
+        new = ef.attention_dots(xh, att, heads)
+        old = ef.attention_dots(xh, att, heads, generic=True)
+        torch.cuda.synchronize()
+        assert torch.equal(new, old), (c, (new - old).abs().max().item())
+        want = (xh.float().reshape(3001, heads, c)
+                * att.float().reshape(2, 1, heads, c)).sum(-1)
+        torch.testing.assert_close(new, torch.cat([want[0], want[1]], 1),
+                                   rtol=1e-4, atol=1e-4)
+
+
+E_EDGES = [
+    (1024, 1, 1, 64, 128),     # K 1
+    (1024, 5, 3, 8, 64),       # K 5, 3 heads
+    (1024, 33, 8, 4, 64),      # K 33 at 8 heads
+    (512, 64, 8, 4, 128),      # K 64 (the wrapper's limit) at 8 heads
+    (1024, 8, 2, 6, 128),      # C % 4 != 0
+    (1024, 8, 1, 1030, 128),   # C % 4 != 0, HC > 1024
+    (512, 8, 4, 1024, 128),    # HC 4096
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", E_EDGES)
+def test_band_kernel_edges_match_plain(dev, shape, dtype):
+    """Kernel E vs its plain version at the edge shapes, with and without a
+    self loop; the padded nodes' rows are NaN (no in-band slot names them;
+    their own outputs are left out of the comparison)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    n, k, heads, c, r = shape
+    live = torch.arange(n, device=dev) < n - n // 16
+    for self_loop in (True, False):
+        kw = _banded_inputs(dev, n, k, heads, c, r, self_loop=self_loop)
+        xh = kw["xh"].clone()
+        xh[~live] = float("nan")
+        args = (xh.to(dtype), kw["a_cat_mat"], kw["el_t"], kw["el_self_t"],
+                kw["banded"])
+        with torch.no_grad():
+            n0 = eb.band_launches
+            got = eb.ell_gat_band_part(*args)
+            torch.cuda.synchronize()
+            assert eb.band_launches == n0 + 1
+            want = eb.band_part_reference(*args)
+        for name, a, b in zip(("y", "m", "denom"), got, want):
+            assert a.dtype == torch.float32, name
+            a, b = a[live], b[live]
+            assert torch.isfinite(a).all(), name
+            err = ((a - b).abs() / (1 + b.abs())).max().item()
+            assert err <= TOL[torch.float32], (name, err)
