@@ -26,7 +26,7 @@
 // (from L2: Hilbert order keeps the window's rows close) and needs no
 // window. Two kernels behind one C entry:
 //   (1) the attention dots ac [N, 2 * heads] (ell_gat_rows.cuh
-//       mat_dots_kernel, shared with D and D', whose bits they keep);
+//       launch_mat_dots, shared with D and D', whose bits they keep);
 //   (2) the band pass, kernel C's aggregate on the band layout
 //       (ell_gat_rows.cuh, "the forward passes"): a grid-stride loop over
 //       destinations, a lane group per destination (the fewest lanes that

@@ -1,7 +1,8 @@
 // Device helpers shared by the banded-ELL GAT kernels (ell_gat_band.cu,
 // kernel E; ell_gat_v2_fwd.cu, kernel D; ell_gat_v2_bwd.cu, kernel D'):
-// the window source of an in-band slot and the in-band softmax of one
-// destination row (the attention dots: ell_gat_rows.cuh).
+// the window source of an in-band slot, and D''s in-band softmax of one
+// destination row one head at a time (E and D take the forward layout of
+// ell_gat_rows.cuh, which also holds the attention dots).
 //
 // Layouts (ops/ell_banded.py band_ell): loc [K, N] int32 local window
 // index (slot-major), el [K * heads, N] f32 raw edge logits (row k * heads
@@ -50,18 +51,17 @@ __device__ __forceinline__ void load_sources(const int* __restrict__ loc,
   __syncwarp();
 }
 
-// The in-band softmax of destination i, head h (all lanes of the warp;
-// lanes own slots). Logits l_s = LeakyReLU(g_s + a_dst + el) with g_s =
-// a_src of the slot's source; the self logit from a_src[i] + a_dst +
-// el_self when has_self. MASKED (kernel E): a slot with no window source
-// is left out (exp 0); otherwise (kernels D, D') it counts with g_s = 0,
+// The in-band softmax of destination i, head h, as kernel D' recomputes
+// it for head counts that do not divide 32 (all lanes of the warp; lanes
+// own slots). Logits l_s = LeakyReLU(g_s + a_dst + el) with g_s = a_src
+// of the slot's source; a slot with no window source counts with g_s = 0,
 // as the TPU kernel's one-hot gather gives, and its el must already carry
-// NEG_BIG (band_ell's negmask_t). Writes each slot's exp(l - m) to e_s
+// NEG_BIG (band_ell's negmask_t). The self logit from a_src[i] + a_dst +
+// el_self when has_self. Writes each slot's exp(l - m) to e_s
 // [s * heads + h] and, when lf_s is given, its LeakyReLU slope (1 or
 // `slope`). Returns the max m (floored at -1e4 without a self loop) and
 // sets *den (sum of the exponentials and the self term, >= 1e-16),
 // *e_self and *pre_self.
-template <bool MASKED>
 __device__ __forceinline__ float row_softmax(
     const float* __restrict__ ac, const float* __restrict__ el,
     const float* __restrict__ el_self, const long long* src_s, long long i,
@@ -76,24 +76,17 @@ __device__ __forceinline__ float row_softmax(
   float m = has_self ? self_l : -1e4f;
   for (int s = lane; s < k; s += WARP) {
     const long long j = src_s[s];
-    float l = NEG_BIG;
-    if (!MASKED || j >= 0) {
-      const float pre = (j >= 0 ? ac[j * h2 + h] : 0.f) + a_dst +
-                        el[((long long)s * heads + h) * n + i];
-      l = leaky(pre, slope);
-      if (lf_s != nullptr) lf_s[s * heads + h] = pre >= 0.f ? 1.f : slope;
-    } else if (lf_s != nullptr) {
-      lf_s[s * heads + h] = 0.f;
-    }
+    const float pre = (j >= 0 ? ac[j * h2 + h] : 0.f) + a_dst +
+                      el[((long long)s * heads + h) * n + i];
+    const float l = leaky(pre, slope);
+    if (lf_s != nullptr) lf_s[s * heads + h] = pre >= 0.f ? 1.f : slope;
     m = fmaxf(m, l);
     e_s[s * heads + h] = l;
   }
   m = warp_max(m);
   float d = 0.f;
   for (int s = lane; s < k; s += WARP) {
-    const float e = (MASKED && src_s[s] < 0)
-                        ? 0.f
-                        : expf(e_s[s * heads + h] - m);
+    const float e = expf(e_s[s * heads + h] - m);
     e_s[s * heads + h] = e;
     d += e;
   }
@@ -103,29 +96,6 @@ __device__ __forceinline__ float row_softmax(
   *e_self = es;
   *pre_self = ps;
   return m;
-}
-
-// Sum over band t's spill entries whose local destination row is `row` of
-// exp(min(l_spill - m, 60)) for head h (lanes own entries). l_spill [T,
-// heads, S], dst_loc [T, S].
-__device__ __forceinline__ float spill_denominator(
-    const float* __restrict__ l_spill, const int* __restrict__ dst_loc,
-    long long t, int row, int heads, int h, int s_max, float m, int lane) {
-  float d = 0.f;
-  for (int sp = lane; sp < s_max; sp += WARP)
-    if (dst_loc[t * s_max + sp] == row)
-      d += expf(fminf(l_spill[(t * heads + h) * s_max + sp] - m, 60.f));
-  return warp_sum(d);
-}
-
-// Ballot of the entries of band t's spill table in [base, base + 32)
-// whose local destination row is `row` (bit b: entry base + b).
-__device__ __forceinline__ unsigned spill_ballot(
-    const int* __restrict__ dst_loc, long long t, int row, int s_max,
-    int base, int lane) {
-  const int sp = base + lane;
-  const int v = sp < s_max ? dst_loc[t * s_max + sp] : -1;
-  return __ballot_sync(FULL, v == row);
 }
 
 }  // namespace band

@@ -1,7 +1,7 @@
 // Row layout shared by the ELL-GAT kernels (ell_gat_bwd.cu, kernel C' and
 // its source pass in segment_reduce.cuh; ell_gat_v2_bwd.cu, kernel D';
-// the forwards ell_gat_fwd.cu, kernel C, and ell_gat_band.cu, kernel E,
-// through FwdRow below): one warp owns one [HC] row at a time, each lane NV
+// the forwards ell_gat_fwd.cu, kernel C, ell_gat_band.cu, kernel E, and
+// ell_gat_v2_fwd.cu, kernel D, through FwdRow below): one warp owns one [HC] row at a time, each lane NV
 // chunks of V consecutive columns, chunk j of lane l at column (j * 32 + l)
 // * V. With V * sizeof(T) = 16 (4 floats, 8 bf16) a warp-wide load of a
 // whole row, all heads at once, is one coalesced 16-byte access a lane per
@@ -350,15 +350,19 @@ inline int resident_blocks(K kernel, int threads, size_t smem,
 
 // The attention dots of kernels D, D' and E: ac[i, m] = <xh[i, :],
 // acat[:, m]> for the m < M = 2 * heads columns of a full acat [HC, M] of
-// type T. One warp per node. STAGED: a grid-stride loop, as many blocks as
-// stay resident, acat staged once per block in shared memory, transposed,
-// as f32; else one node a warp, acat read from global memory column by
-// column (the form these kernels had before the staging, faster for narrow
-// rows, see launch_mat_dots). The sums are taken in the order these
-// kernels have always taken them: each lane an FMA chain over the columns
-// lane, lane + 32, ..., then a xor tree over the warp; so both forms give
-// the same bits, D and D' see the same logits, and decide LeakyReLU's kink
-// alike. The M sums are reduced together.
+// type T. The sums are taken in the order these kernels have always taken
+// them: each lane an FMA chain over the columns lane, lane + 32, ... in
+// ascending order, then a xor tree over the warp (offsets 16, 8, 4, 2, 1);
+// so every form below gives the same bits, D and D' see the same logits,
+// and decide LeakyReLU's kink alike (a logit there flips its branch with
+// the summation order).
+//
+// mat_dots_kernel is the generic form (every HC and M <= 16): one warp per
+// node. STAGED: a grid-stride loop, as many blocks as stay resident, acat
+// staged once per block in shared memory, transposed, as f32; else one
+// node a warp, acat read from global memory column by column (faster for
+// narrow rows, see launch_mat_dots). Each product reads acat from shared
+// or global memory, and the M sums take M separate xor trees.
 template <typename T, bool STAGED>
 __global__ void __launch_bounds__(ellgat::THREADS)
 mat_dots_kernel(const T* __restrict__ xh, const T* __restrict__ acat,
@@ -403,19 +407,150 @@ mat_dots_kernel(const T* __restrict__ xh, const T* __restrict__ acat,
   }
 }
 
-// Rows at least this wide take the staged form of mat_dots_kernel. On the
-// H100 the staging made D's and E's dots faster at HC 256 and slower at HC
-// 64 (PERF.md); the widths between were not measured.
+// The register form, for rows of HC <= 32 * CPL and M <= MM (CPL * MM <=
+// 64 f32 registers a lane): each lane holds its columns lane + 32 t of
+// acat, all M of them, as f32 in registers, loaded once per warp, so the
+// inner loop is FMAs only. A grid-stride loop over nodes (as many blocks
+// as stay resident), the rows of the next two nodes requested before the
+// current node's FMAs and kept as loaded (a bf16 is widened where it is
+// used: widened at the load, it stalled the warp there, and the bf16 form
+// ran 2.6x slower than the f32 one on the H100). The M sums are reduced
+// together by a reduce-scatter butterfly: at each of the first log2(MM)
+// xor offsets (16, 8, ...) a lane keeps the half of its remaining sums
+// that its lane bit selects and sends the other half to its partner,
+// which adds it to the same sum; the rest of the offsets run a plain
+// butterfly on the one sum left. Every level
+// adds the same two partials as the generic form's xor trees (lane's own
+// plus partner's), so the bits are the same; M = 8 takes 9 shuffles where
+// M xor trees take 40. Afterwards lane l holds sum l >> (5 - log2(MM)).
+template <typename T, int CPL, int MM>
+__global__ void __launch_bounds__(ellgat::THREADS)
+mat_dots_reg_kernel(const T* __restrict__ xh, const T* __restrict__ acat,
+                    float* __restrict__ ac, long long n, int hc,
+                    int m_cols) {
+  static_assert(MM >= 2 && MM <= 16 && (MM & (MM - 1)) == 0, "MM");
+  constexpr int LG = MM == 2 ? 1 : MM == 4 ? 2 : MM == 8 ? 3 : 4;
+  const int lane = threadIdx.x & (WARP - 1);
+  float a[CPL][MM];
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    const int col = lane + WARP * t;
+#pragma unroll
+    for (int m = 0; m < MM; ++m)
+      a[t][m] = col < hc && m < m_cols
+                    ? ellgat::ld(acat + (long long)col * m_cols + m)
+                    : 0.f;
+  }
+  const int wpb = blockDim.x / WARP;
+  const long long total = (long long)gridDim.x * wpb;
+  long long i = (long long)blockIdx.x * wpb + threadIdx.x / WARP;
+  Raw<T, 1> x[CPL], x1[CPL];
+  const auto load = [&](long long node, Raw<T, 1> (&v)[CPL]) {
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int col = lane + WARP * t;
+      if (node < n && col < hc)
+        v[t].load(xh + node * hc + col);
+      else
+        v[t].zero();
+    }
+  };
+  load(i, x);
+  load(i + total, x1);
+  for (; i < n; i += total) {
+    Raw<T, 1> x2[CPL];
+    load(i + 2 * total, x2);
+    float p[MM];
+#pragma unroll
+    for (int m = 0; m < MM; ++m) p[m] = 0.f;
+#pragma unroll
+    for (int t = 0; t < CPL; ++t)
+      if (lane + WARP * t < hc) {
+        const float xv = x[t].at(0);
+#pragma unroll
+        for (int m = 0; m < MM; ++m) p[m] = fmaf(xv, a[t][m], p[m]);
+      }
+    // reduce-scatter over the offsets 16, ..., 32 >> LG
+#pragma unroll
+    for (int lv = 0; lv < LG; ++lv) {
+      const int o = (WARP / 2) >> lv;
+      const int half = MM >> (lv + 1);
+      const bool up = (lane & o) != 0;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const float send = up ? p[j] : p[j + half];
+        const float keep = up ? p[j + half] : p[j];
+        p[j] = keep + __shfl_xor_sync(FULL, send, o);
+      }
+    }
+#pragma unroll
+    for (int o = (WARP / 2) >> LG; o > 0; o >>= 1)
+      p[0] += __shfl_xor_sync(FULL, p[0], o);
+    const int m = lane >> (5 - LG);
+    if ((lane & ((WARP >> LG) - 1)) == 0 && m < m_cols)
+      ac[i * m_cols + m] = p[0];
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      x[t] = x1[t];
+      x1[t] = x2[t];
+    }
+  }
+}
+
+// Rows at least this wide take the staged generic form. On the H100 the
+// staging made D's and E's dots faster at HC 256 and slower at HC 64
+// (PERF.md); the widths between were not measured.
 constexpr int STAGE_MIN_HC = 128;
 
-// Launches mat_dots_kernel on stream s.
+// The register form's columns a lane holds for a row of hc: 2, 4 or 8
+// (HC <= 64, 128, 256), and the sums it holds for M: 2, 4, 8 or 16; 0 when
+// the row or M is too wide for 64 registers of acat a lane.
+inline int dots_cpl(int hc) {
+  for (int cpl = 2; cpl <= 8; cpl *= 2)
+    if (hc <= WARP * cpl) return cpl;
+  return 0;
+}
+inline int dots_mm(int m_cols) {
+  for (int mm = 2; mm <= 16; mm *= 2)
+    if (m_cols <= mm) return mm;
+  return 0;
+}
+
+// Launches the attention dots of kernels D, D' and E on stream s: the
+// register form where it takes the row (generic false), else the generic
+// form (staged at HC >= STAGE_MIN_HC), which gives the same bits.
 template <typename T>
 inline cudaError_t launch_mat_dots(const T* xh, const T* acat, float* ac,
                                    long long n, int hc, int m_cols,
-                                   cudaStream_t s) {
-  if (m_cols > 16) return cudaErrorInvalidValue;
+                                   cudaStream_t s, bool generic = false) {
+  if (m_cols < 1 || m_cols > 16) return cudaErrorInvalidValue;
   const long long node_blocks =
       (n + ellgat::THREADS / WARP - 1) / (ellgat::THREADS / WARP);
+  const int cpl = dots_cpl(hc), mm = dots_mm(m_cols);
+  if (!generic && cpl > 0 && cpl * mm <= 64) {
+    const auto go = [&](auto kernel) {
+      const int blocks =
+          resident_blocks(kernel, ellgat::THREADS, 0, node_blocks);
+      kernel<<<(unsigned)blocks, ellgat::THREADS, 0, s>>>(xh, acat, ac, n,
+                                                         hc, m_cols);
+      return cudaGetLastError();
+    };
+    const auto with_mm = [&](auto cpl_c) {
+      constexpr int CPL = decltype(cpl_c)::value;
+      switch (mm) {
+        case 2: return go(mat_dots_reg_kernel<T, CPL, 2>);
+        case 4: return go(mat_dots_reg_kernel<T, CPL, 4>);
+        case 8: return go(mat_dots_reg_kernel<T, CPL, 8>);
+        default:
+          if constexpr (CPL * 16 <= 64)
+            return go(mat_dots_reg_kernel<T, CPL, 16>);
+          return cudaErrorInvalidValue;
+      }
+    };
+    if (cpl == 2) return with_mm(std::integral_constant<int, 2>{});
+    if (cpl == 4) return with_mm(std::integral_constant<int, 4>{});
+    return with_mm(std::integral_constant<int, 8>{});
+  }
   if (hc < STAGE_MIN_HC) {
     mat_dots_kernel<T, false><<<(unsigned)node_blocks, ellgat::THREADS, 0,
                                 s>>>(xh, acat, ac, n, hc, m_cols);
@@ -431,7 +566,7 @@ inline cudaError_t launch_mat_dots(const T* xh, const T* acat, float* ac,
   return cudaGetLastError();
 }
 
-// ---- the forward passes of kernels C and E --------------------------------
+// ---- the forward passes of kernels C, D and E -----------------------------
 //
 // One lane group of lpr lanes (a power of two) owns one destination at a
 // time, each lane FWD_NV chunks of its row; a warp holds G = 32 / lpr of

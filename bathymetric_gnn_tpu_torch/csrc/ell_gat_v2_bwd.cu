@@ -29,8 +29,9 @@
 // in no order, so the source side is a reduction in source-sorted order
 // instead, as kernel C' (ell_gat_bwd.cu) does it: three launches behind one
 // C entry,
-//   (1) the attention dots ac (rows::mat_dots_kernel, as kernel D takes
-//       them: the same logits, bit for bit);
+//   (1) the attention dots ac (rows::launch_mat_dots, as kernel D takes
+//       them: the same logits, bit for bit), skipped when the caller hands
+//       in the dots kernel D wrote (the training layer does);
 //   (2) the destination pass: a grid-stride loop, one warp per destination
 //       row, as many 4-warp blocks as stay resident (16 warps an SM at 128
 //       registers a thread). Once the row's sources are known the warp
@@ -258,7 +259,7 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
     // ---- the forward's softmax, recomputed ------------------------------
     if (pairs) {
       // lanes own (slot, head) pairs o = s * heads + h, every head at once
-      // (row_softmax<false>'s arithmetic): a lane's pairs have head
+      // (row_softmax's arithmetic): a lane's pairs have head
       // lane % heads
       const int h = lane % heads;
       const float a_dst = ac[i * h2 + heads + h];
@@ -308,9 +309,9 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
       // other head counts: one head at a time, lanes own slots
       for (int h = 0; h < heads; ++h) {
         float den, es, ps;
-        const float m = row_softmax<false>(ac, el, el_self, src_s, i, n, k,
-                                           heads, h, slope, lane, e_s, lf_s,
-                                           &den, &es, &ps);
+        const float m = row_softmax(ac, el, el_self, src_s, i, n, k, heads,
+                                    h, slope, lane, e_s, lf_s, &den, &es,
+                                    &ps);
         if (hi > lo) {   // the row's own spill entries
           float d = 0.f;
           for (int e = lo + lane; e < hi; e += WARP) {
@@ -693,13 +694,16 @@ int launch_v2_bwd(const void* xh, const void* acat, const void* loc,
                   void* del, void* del_self, void* dl_spill, void* dxh_spill,
                   void* part, long long n, int k, int heads, int c, int r,
                   int s_max, float slope, int width, int blocks,
-                  cudaStream_t s) {
+                  bool ac_given, cudaStream_t s) {
   const int hc = heads * c, h2 = 2 * heads;
   const T* txh = static_cast<const T*>(xh);
   const T* tacat = static_cast<const T*>(acat);
-  cudaError_t err = rows::launch_mat_dots<T>(
-      txh, tacat, static_cast<float*>(ac), n, hc, h2, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  if (!ac_given) {
+    err = rows::launch_mat_dots<T>(txh, tacat, static_cast<float*>(ac), n,
+                                   hc, h2, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int wpb = dst_warps(k, heads, hc);
   const size_t dsmem = dst_smem(wpb, k, heads, hc);
   const size_t ssmem = (size_t)hc * h2 * sizeof(float);
@@ -742,7 +746,10 @@ int launch_v2_bwd(const void* xh, const void* acat, const void* loc,
 // spill_row_ptr_d), the output cotangent dout [n, HC] and the in-band
 // slots' source-sorted tables band_perm [n * k] / band_row_ptr [n + 1]
 // int32. Scratch: ac [n, 2 * heads], alpha and dl [n * k, heads], cself
-// [n, heads], dac [n, 2 * heads], f32. Outputs: dxh [n, HC], del [k *
+// [n, heads], dac [n, 2 * heads], f32; ac [n, 2 * heads] f32 holds, when
+// ac_given is 1, the attention dots kernel D wrote for the same xh and acat
+// (ell_gat_v2_fwd's ac: the dots launch is then skipped; the same bits
+// either way), else it is scratch for them. Outputs: dxh [n, HC], del [k *
 // heads, n], del_self [heads, n] (null without a self loop), dl_spill [T,
 // heads, S] and dxh_spill [T, S, HC] (f32, every entry written: 0 at dead
 // entries), part [blocks, HC, 2 * heads] f32 (partials of d acat;
@@ -761,7 +768,7 @@ extern "C" int ell_gat_v2_bwd(
     void* ac, void* alpha, void* dl, void* cself, void* dac, void* dxh,
     void* del, void* del_self, void* dl_spill, void* dxh_spill, void* part,
     long long n, int k, int heads, int c, int r, int s_max, float slope,
-    int vec, int blocks, void* stream) {
+    int vec, int blocks, int ac_given, void* stream) {
   if (n < 1 || k < 1 || heads < 1 || heads > MAX_HEADS || c < 1 || r < 1 ||
       n % r != 0 || s_max < 1 || blocks < 1 || (vec != 1 && vec != 4) ||
       (vec == 4 && c % 4 != 0) ||
@@ -776,12 +783,12 @@ extern "C" int ell_gat_v2_bwd(
         xh, acat, loc, el, el_self, l_spill, xh_spill, dst_loc, sp_perm,
         sp_row_ptr, dmask, dmask_sp, dout, band_perm, band_row_ptr, ac,
         alpha, dl, cself, dac, dxh, del, del_self, dl_spill, dxh_spill, part,
-        n, k, heads, c, r, s_max, slope, width, blocks, s);
+        n, k, heads, c, r, s_max, slope, width, blocks, ac_given != 0, s);
   return launch_v2_bwd<float>(
       xh, acat, loc, el, el_self, l_spill, xh_spill, dst_loc, sp_perm,
       sp_row_ptr, dmask, dmask_sp, dout, band_perm, band_row_ptr, ac, alpha,
       dl, cself, dac, dxh, del, del_self, dl_spill, dxh_spill, part, n, k,
-      heads, c, r, s_max, slope, width, blocks, s);
+      heads, c, r, s_max, slope, width, blocks, ac_given != 0, s);
 }
 
 extern "C" const char* ell_gat_v2_bwd_error_string(int err) {

@@ -69,13 +69,15 @@ KERNELS: Dict[str, tuple] = {
         "ell_gat_band_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_v2_fwd": ("ell_gat_v2_fwd.cu", {
-        "ell_gat_v2_fwd": (_I, [_I] + [_VP] * 12 + [_LL] + [_I] * 5
+        "ell_gat_v2_fwd": (_I, [_I] + [_VP] * 14 + [_LL] + [_I] * 5
                            + [_F, _I, _VP]),
+        "ell_gat_mat_dots": (_I, [_I] + [_VP] * 3 + [_LL] + [_I] * 3
+                             + [_VP]),
         "ell_gat_v2_fwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "ell_gat_v2_bwd": ("ell_gat_v2_bwd.cu", {
         "ell_gat_v2_bwd": (_I, [_I] + [_VP] * 26 + [_LL] + [_I] * 5
-                           + [_F, _I, _I, _VP]),
+                           + [_F, _I, _I, _I, _VP]),
         "ell_gat_v2_bwd_blocks": (_I, [_I, _LL, _I, _I, _I, _I]),
         "ell_gat_v2_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),

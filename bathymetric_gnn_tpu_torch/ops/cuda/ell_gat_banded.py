@@ -294,10 +294,12 @@ def ell_gat_fused_v2(xh, a_src, a_dst, a_cat_mat, el_t, el_self_t, m_edge,
 class _FusedV2(torch.autograd.Function):
     """Kernel D forward, kernel D' backward, as the JAX custom VJP
     ``_fused_v2``: the forward keeps the layer's inputs (and the dropout
-    masks), the backward recomputes the softmax in D' and sums its d acat
-    partials in a fixed order. D' reads the in-band slots by source
-    (band_perm / band_row_ptr) and the spill entries by destination
-    (spill_perm_d / spill_row_ptr_d), the BandedEll's own tables."""
+    masks) and the attention dots kernel D computed ([N, 2 * heads] f32),
+    the backward recomputes the softmax in D' from them and sums its d acat
+    partials in a fixed order. D visits the spill entries by destination
+    (spill_perm_d / spill_row_ptr_d); D' reads the in-band slots by source
+    (band_perm / band_row_ptr) and the spill entries by destination: the
+    BandedEll's own tables."""
 
     @staticmethod
     def forward(ctx, xh_flat, a_cat_mat, el_t, el_self_t, l_spill_b,
@@ -307,7 +309,8 @@ class _FusedV2(torch.autograd.Function):
         kw = kernel_args(xh_flat, a_cat_mat, loc_t, el_t, el_self_t,
                          l_spill_b, xh_spill_b, dst_loc_b, dmask_t,
                          dmask_sp_b, band_rows=band_rows,
-                         negative_slope=slope)
+                         negative_slope=slope, spill_perm_d=spill_perm_d,
+                         spill_row_ptr_d=spill_row_ptr_d)
         n, k = kw["n"], kw["k"]
         _check(tuple(band_perm.shape) == (n * k,)
                and tuple(band_row_ptr.shape) == (n + 1,)
@@ -315,19 +318,16 @@ class _FusedV2(torch.autograd.Function):
                and band_row_ptr.device == xh_flat.device,
                f"band tables {tuple(band_perm.shape)} / "
                f"{tuple(band_row_ptr.shape)} vs N={n}, K={k}")
-        _check(tuple(spill_row_ptr_d.shape) == (n + 1,)
-               and spill_perm_d.device == xh_flat.device
-               and spill_row_ptr_d.device == xh_flat.device,
-               f"spill tables {tuple(spill_perm_d.shape)} / "
-               f"{tuple(spill_row_ptr_d.shape)} vs N={n}")
-        out = call_v2_kernel(**kw)
+        # the attention dots kernel D computes, kept for kernel D'
+        ac = torch.empty(n, 2 * kw["heads"], device=xh_flat.device,
+                         dtype=torch.float32)
+        out = call_v2_kernel(**kw, ac=ac)
         ctx.save_for_backward(
             kw["xh"], kw["acat"], kw["loc"], kw["el"], kw["el_self"],
             kw["l_spill"], kw["xh_spill"], kw["dst_loc"], kw["dmask"],
             kw["dmask_sp"], band_perm.to(torch.int32).contiguous(),
-            band_row_ptr.to(torch.int32).contiguous(),
-            spill_perm_d.to(torch.int32).contiguous(),
-            spill_row_ptr_d.to(torch.int32).contiguous())
+            band_row_ptr.to(torch.int32).contiguous(), kw["sp_perm"],
+            kw["sp_row_ptr"], ac)
         ctx.kw = {name: kw[name] for name in (
             "n", "k", "heads", "c", "r", "s_max", "negative_slope", "dtype")}
         ctx.has_self = el_self_t is not None
@@ -337,13 +337,13 @@ class _FusedV2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (xh, acat, loc, el, el_self, l_spill, xh_spill, dst_loc, dmask,
-         dmask_sp, perm, row_ptr, sp_perm, sp_row_ptr) = ctx.saved_tensors
+         dmask_sp, perm, row_ptr, sp_perm, sp_row_ptr, ac) = ctx.saved_tensors
         dxh, dacat, del_t, del_self, dl_spill, dxh_spill = call_v2_bwd_kernel(
             xh=xh, acat=acat, loc=loc, el=el, el_self=el_self,
             l_spill=l_spill, xh_spill=xh_spill, dst_loc=dst_loc,
             dmask=dmask, dmask_sp=dmask_sp, dout=g.to(xh.dtype).contiguous(),
             perm=perm, row_ptr=row_ptr, sp_perm=sp_perm,
-            sp_row_ptr=sp_row_ptr, **ctx.kw)
+            sp_row_ptr=sp_row_ptr, ac=ac, **ctx.kw)
         return (dxh, dacat, del_t, del_self if ctx.has_self else None,
                 dl_spill, dxh_spill.to(ctx.spill_dtype), None, None, None,
                 None, None, None, None, None, None)
@@ -361,12 +361,16 @@ def _aligned(t: torch.Tensor) -> bool:
 def kernel_args(xh_flat, a_cat_mat, loc_t, el_t, el_self_t=None,
                 l_spill_b=None, xh_spill_b=None, dst_loc_b=None,
                 dmask_t=None, dmask_sp_b=None, *, band_rows: int,
-                negative_slope: float = 0.2) -> dict:
+                negative_slope: float = 0.2, spill_perm_d=None,
+                spill_row_ptr_d=None) -> dict:
     """Check a CUDA call and prepare the inputs of kernel E (without the
     spill arguments) or kernels D and D' (with them): contiguous tensors
     (xh, a_cat_mat and the spill rows in xh's dtype, float32 or bfloat16;
-    the other floats f32; indices int32) and the sizes. Raises ValueError
-    on anything the kernels do not take."""
+    the other floats f32; indices int32) and the sizes. Kernel D also
+    takes the spill entries by destination (``spill_perm_d`` /
+    ``spill_row_ptr_d``, the BandedEll's; they become ``sp_perm`` /
+    ``sp_row_ptr``). Raises ValueError on anything the kernels do not
+    take."""
     f32 = torch.float32
     _check(xh_flat.dim() == 2, f"xh must be [N, HC], got "
            f"{tuple(xh_flat.shape)}")
@@ -437,6 +441,19 @@ def kernel_args(xh_flat, a_cat_mat, loc_t, el_t, el_self_t=None,
                       t_count, s_max).contiguous(),
                   dmask=cf(dmask_t), dmask_sp=cf(dmask_sp_b), s_max=s_max)
         vec_ts.append(kw["xh_spill"])
+    if spill_perm_d is not None or spill_row_ptr_d is not None:
+        _check(l_spill_b is not None and spill_perm_d is not None
+               and spill_row_ptr_d is not None,
+               "the spill tables go with the spill arguments, perm and "
+               "row_ptr together")
+        _check(spill_perm_d.dim() == 1
+               and tuple(spill_row_ptr_d.shape) == (n + 1,)
+               and spill_perm_d.device == xh_flat.device
+               and spill_row_ptr_d.device == xh_flat.device,
+               f"spill tables {tuple(spill_perm_d.shape)} / "
+               f"{tuple(spill_row_ptr_d.shape)} vs N={n}")
+        kw.update(sp_perm=spill_perm_d.to(torch.int32).contiguous(),
+                  sp_row_ptr=spill_row_ptr_d.to(torch.int32).contiguous())
     kw["vec"] = 4 if kw["c"] % 4 == 0 and all(
         _aligned(t) for t in vec_ts) else 1
     return kw
@@ -479,26 +496,38 @@ def call_band_kernel(*, xh, acat, loc, el, el_self, n, k, heads, c, r,
     return y, m, den
 
 
+def _check_ac(ac, n, heads, device):
+    _check(ac.dtype == torch.float32 and tuple(ac.shape) == (n, 2 * heads)
+           and ac.is_contiguous() and ac.device == device,
+           f"attention dots {tuple(ac.shape)} {ac.dtype}: want a contiguous "
+           f"float32 [{n}, {2 * heads}] on {device}")
+
+
 def call_v2_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
-                   dst_loc, dmask, dmask_sp, n, k, heads, c, r, s_max,
-                   negative_slope, vec, dtype):
+                   dst_loc, dmask, dmask_sp, sp_perm, sp_row_ptr, n, k,
+                   heads, c, r, s_max, negative_slope, vec, dtype, ac=None):
     """Launch kernel D (its dots and row kernels) on prepared inputs
-    (``kernel_args``) on the current stream; returns out [N, HC] in xh's
-    dtype. The only place that counts ``v2_launches``."""
+    (``kernel_args`` with the spill tables) on the current stream; returns
+    out [N, HC] in xh's dtype. ``ac`` (f32 [N, 2 * heads]), when given,
+    receives the attention dots, which kernel D' can take
+    (``call_v2_bwd_kernel(ac=...)``). The only place that counts
+    ``v2_launches``."""
     global v2_launches
     from ._build import library
 
-    ac = torch.empty(n, 2 * heads, device=xh.device, dtype=torch.float32)
+    if ac is None:
+        ac = torch.empty(n, 2 * heads, device=xh.device, dtype=torch.float32)
+    _check_ac(ac, n, heads, xh.device)
     out = torch.empty(n, heads * c, device=xh.device, dtype=xh.dtype)
     lib = library("ell_gat_v2_fwd")
     with torch.cuda.device(xh.device):
         err = lib.ell_gat_v2_fwd(
             dtype, xh.data_ptr(), acat.data_ptr(), loc.data_ptr(),
             el.data_ptr(), _ptr(el_self), l_spill.data_ptr(),
-            xh_spill.data_ptr(), dst_loc.data_ptr(), _ptr(dmask),
-            _ptr(dmask_sp), ac.data_ptr(), out.data_ptr(), n, k, heads, c,
-            r, s_max, negative_slope, vec,
-            torch.cuda.current_stream().cuda_stream)
+            xh_spill.data_ptr(), dst_loc.data_ptr(), sp_perm.data_ptr(),
+            sp_row_ptr.data_ptr(), _ptr(dmask), _ptr(dmask_sp),
+            ac.data_ptr(), out.data_ptr(), n, k, heads, c, r, s_max,
+            negative_slope, vec, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _raise(lib, "ell_gat_v2_fwd", "kernel D (ell_gat_v2_fwd)", err)
     v2_launches += 1
@@ -508,7 +537,7 @@ def call_v2_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
 def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
                        dst_loc, dmask, dmask_sp, dout, perm, row_ptr,
                        sp_perm, sp_row_ptr, n, k, heads, c, r, s_max,
-                       negative_slope, dtype):
+                       negative_slope, dtype, ac=None):
     """Launch kernel D' (dots, the destination pass with d acat folded in,
     the source walk) on the inputs kernel D was given (``kernel_args``),
     the cotangent ``dout`` [N, HC] in xh's dtype, the in-band slots'
@@ -518,7 +547,10 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
     xh's dtype, d acat [HC, 2 * heads], d el_t [K * heads, N], d el_self_t
     [heads, N] or None, d l_spill [T, heads, S], d xh_spill [T, S, HC]),
     f32 but dxh; the kernel writes every entry of the spill cotangents
-    (0 at dead entries). The only place that counts ``v2_bwd_launches``."""
+    (0 at dead entries). ``ac``: the attention dots kernel D wrote for the
+    same xh and acat (``call_v2_kernel(ac=...)``), or None: D' computes
+    them itself (the same bits). The only place that counts
+    ``v2_bwd_launches``."""
     global v2_bwd_launches
     from ._build import library
 
@@ -541,7 +573,11 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
            "8 (bf16), else 2048 (f32) or 4096 (bf16)), or a d acat "
            "accumulator over 227 KB")
     f32 = dict(device=xh.device, dtype=torch.float32)
-    ac = torch.empty(n, 2 * heads, **f32)
+    ac_given = ac is not None
+    if ac_given:
+        _check_ac(ac, n, heads, xh.device)
+    else:
+        ac = torch.empty(n, 2 * heads, **f32)
     alpha = torch.empty(n * k, heads, **f32)
     dl = torch.empty(n * k, heads, **f32)
     cself = torch.empty(n, heads, **f32)
@@ -564,9 +600,38 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
             cself.data_ptr(), dac.data_ptr(), dxh.data_ptr(),
             del_t.data_ptr(), _ptr(del_self), dl_spill.data_ptr(),
             dxh_spill.data_ptr(), part.data_ptr(), n, k, heads, c, r, s_max,
-            negative_slope, vec, blocks,
+            negative_slope, vec, blocks, int(ac_given),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _raise(lib, "ell_gat_v2_bwd", "kernel D' (ell_gat_v2_bwd)", err)
     v2_bwd_launches += 1
     return dxh, part.sum(0), del_t, del_self, dl_spill, dxh_spill
+
+
+def mat_dots(xh: torch.Tensor, acat: torch.Tensor,
+             generic: bool = False) -> torch.Tensor:
+    """The attention dots [N, M] f32 that kernels D, D' and E compute, of
+    xh [N, HC] and acat [HC, M] (``kernel_args``' ``xh`` and ``acat``, M <=
+    16). ``generic`` runs the generic form (``rows::mat_dots_kernel``)
+    instead of the register form: a debug entry for holding the two
+    against each other bit for bit and for timing the dots alone. CUDA
+    only; not on any model path."""
+    from ._build import library
+
+    n, hc = xh.shape
+    _check(xh.is_cuda and acat.dim() == 2 and acat.shape[0] == hc
+           and acat.dtype == xh.dtype and xh.dtype in _DTYPE_CODE
+           and xh.is_contiguous() and acat.is_contiguous()
+           and 1 <= acat.shape[1] <= 16, f"xh {tuple(xh.shape)} / acat "
+           f"{tuple(acat.shape)}")
+    out = torch.empty(n, acat.shape[1], device=xh.device,
+                      dtype=torch.float32)
+    lib = library("ell_gat_v2_fwd")
+    with torch.cuda.device(xh.device):
+        err = lib.ell_gat_mat_dots(
+            _DTYPE_CODE[xh.dtype], xh.data_ptr(), acat.data_ptr(),
+            out.data_ptr(), n, hc, acat.shape[1], int(generic),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        _raise(lib, "ell_gat_v2_fwd", "ell_gat_mat_dots", err)
+    return out

@@ -9,7 +9,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every CUDA source of the port is compiled from ``csrc/``, one nvcc per
    source, all in parallel, into ``build/torch_kernels/``, and the native
-   graph kit (``native/graphkit.cpp``) with g++ beside them;
+   graph kit (``native/graphkit.cpp``) with g++ beside them; ptxas's
+   registers and spills of each library, and of the forward passes of C,
+   E and D and D's dots one by one;
 2. kernel A (inference form) against its plain PyTorch version on the
    card, at the shapes the inference path gives it (full width: hidden
    64 x 4 heads, 1024^2 tiles);
@@ -76,23 +78,29 @@ Run from the root of a checkout. Phases, each printing its own lines:
    graph split into 128-row bands (HC 256 / 4 heads and HC 64 / 1 head),
    kernels D and D' (the fused banded layer and its backward, with F's
    mode (a) behind its spill gathers) on phase 2d's merged batch, with no
-   dropout and a streamed mask, against their plain versions;
+   dropout and a streamed mask, against their plain versions; D' given
+   the attention dots kernel D wrote (the training layer's path) equal,
+   bit for bit, to D' computing its own, and those dots equal to the
+   generic ``mat_dots_kernel``'s;
 3e. (run after 3d) ``NativeVRProcessor`` with ``sparse_kernel="banded"``
    (kernel E and the spill fold) on phase 3c's grids from the same
    checkpoint: E's launch count is 4 x the graph chunks, kernel C and the
    plain versions are not called, the results agree with 3c's; grids/s
    and the device's busy share;
-4e. (run after 4d) CUDA-event times of E, D and D' against their bounds and
-   plain versions, the D + D' layer beside C + C' on the same batch, and
-   one k-NN train step with every layer on route D (``wide_kernel=False``):
-   its launches, ms and busy share;
+4e. (run after 4d) CUDA-event times of E, D and D' (given D's dots, and
+   computing its own) against their bounds and plain versions, the D + D'
+   layer beside C + C' on the same batch, the attention dots of D, D' and
+   E alone (``mat_dots``, beside its generic form and ``torch.matmul``) at
+   N 65,536 and 262,144, HC 256 and 64, and one k-NN train step with every
+   layer on route D (``wide_kernel=False``): its launches (4 dots launches
+   a step: D' takes D's), ms and busy share;
 2f. (run after 2e) the bf16 forms (``compute_dtype="bfloat16"``) against
    their plain versions on the same bf16 inputs: kernels C and E on phase
    2c's graph (HC 256 / 4 heads and HC 64 / 1 head), C's training form
    (no dropout, a streamed mask, the Philox draw) with C' and F (b), F (a)
    on a bf16 cotangent, and D and D' (F (a) on the bf16 spill rows) on
-   phase 2d's batch; tolerances TOL / GRAD_TOL bf16 (E's f32 outputs:
-   BAND_FWD_TOL);
+   phase 2d's batch, D' given D's dots bit for bit as in 2e; tolerances
+   TOL / GRAD_TOL bf16 (E's f32 outputs: BAND_FWD_TOL);
 3f. (run after 3e) the bf16 model at full width serving the 65,536-node
    flush on routes C, D and E: 4 launches of the route's kernel, no other
    kernel and no plain version, classes against the f32 model of the same
@@ -101,7 +109,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    math under autograd, no kernel) on the card against the same step on
    the CPU;
 4f. (run after 4e) CUDA-event times of every bf16 form against its bound
-   (bf16 streams at 2 bytes) and its plain version, the bf16 flush forward
+   (bf16 streams at 2 bytes) and its plain version, the bf16 dots alone
+   as in 4e, the bf16 flush forward
    beside 4c's f32 one, and one bf16 train step on routes C and D (dropout
    0.1, f32 master weights) beside the f32 steps of 4d and 4e: launches,
    ms and the device's busy share.
@@ -200,15 +209,22 @@ def phase_card_and_build(torch):
             f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
             f"{len(spilled)} spill (<= {max(spilled, default=0)} B stores)")
         for kernel, r, b in kernels:
-            if name in ("ell_gat_fwd", "ell_gat_band") and any(
-                    x in kernel for x in FWD_KERNELS):
+            if (name in ("ell_gat_fwd", "ell_gat_band") and any(
+                    x in kernel for x in FWD_KERNELS)) or (
+                    name == "ell_gat_v2_fwd" and any(
+                        kernel.startswith(x) for x in V2_KERNELS)):
                 log(f"[1]     {kernel}: {r} registers, {b} B spill stores")
     return card
 
 
-# The kernels of C's and E's forward passes whose ptxas lines phase 1
-# prints one by one.
+# The kernels of C's and E's forward passes, and of D's with the forms of
+# the dots its main path runs (HC 256 / 4 heads, HC 64 / 1 head), whose
+# ptxas lines phase 1 prints one by one.
 FWD_KERNELS = ("aggregate_kernel", "band_kernel", "node_dots_kernel")
+V2_KERNELS = ("v2_fwd_kernel", "mat_dots_reg_kernel<float,8,8>",
+              "mat_dots_reg_kernel<bf16,8,8>",
+              "mat_dots_reg_kernel<float,2,2>",
+              "mat_dots_reg_kernel<bf16,2,2>")
 
 
 def ptxas_report(text):
@@ -220,17 +236,20 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            k = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)I(.*?)EE?v",
-                          mangled)
+            # the kernel's name: the <length><name> part that ends in
+            # _kernel and is followed by its template arguments
+            k = next((x for x in re.finditer(
+                r"(?=(\d{1,2})([a-z][a-z0-9_]*_kernel)I(.*?)EE?v)", mangled)
+                if len(x.group(2)) == int(x.group(1))), None)
             if k:
-                args = k.group(2).replace("13__nv_bfloat16", "bf16,")
+                args = k.group(3).replace("13__nv_bfloat16", "bf16,")
                 if args.startswith("f"):
                     args = "float," + args[1:]
-                args = re.sub(r"Lb([01])E", lambda x: ("true" if x.group(1)
-                                                       == "1" else "false")
+                args = re.sub(r"Lb([01])E?", lambda x: ("true" if x.group(1)
+                                                        == "1" else "false")
                               + ",", args)
-                args = re.sub(r"Li(\d+)E", r"\1,", args)
-                name = f"{k.group(1)}<{args.rstrip(',')}>"
+                args = re.sub(r"Li(\d+)E?", r"\1,", args)
+                name = f"{k.group(2)}<{args.rstrip(',E')}>"
             else:
                 name = mangled[:60]
             continue
@@ -2156,7 +2175,65 @@ def phase_banded_kernels_vs_plain(torch, ecases, dcases):
             del out, grads, ref, rgrads
         errs[("D", label)] = worst["out"]
         errs[("Dp", label)] = max(v for n_, v in worst.items() if n_ != "out")
+        same_bwd, same_dots = saved_dots_bits(torch, kw, banded)
+        log(f"[2e] {label}: D' given D's dots "
+            f"{'equals' if same_bwd else 'DIFFERS FROM'} D' computing its "
+            f"own, bit for bit; D's dots "
+            f"{'equal' if same_dots else 'DIFFER FROM'} the generic "
+            f"mat_dots_kernel's, bit for bit")
+        check(same_bwd and same_dots, f"D's dots bits: {label}")
     return errs
+
+
+def v2_kernel_args(torch, kw, banded, dtype=None):
+    """kernel_args of kernels D and D' (with the spill tables) on a band
+    case's layer inputs, xh in ``dtype`` (its own when None), and D''s
+    keyword arguments (those of D without vec, with the in-band source
+    tables)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    xh = kw["xh"] if dtype is None else kw["xh"].to(dtype)
+    n, heads, c = xh.shape
+    with torch.no_grad():
+        l_spill, xh_spill = eb._spill_inputs(
+            xh.reshape(n, heads * c), kw["a_src"], kw["a_dst"], kw["m_edge"],
+            banded, 0.2, eb._plain_gather)
+        kargs = eb.kernel_args(
+            xh.reshape(n, heads * c), kw["a_cat_mat"], banded.loc_t,
+            kw["el_t"], kw["el_self_t"], l_spill, xh_spill,
+            banded.spill_dst_local_b, band_rows=banded.band_rows,
+            spill_perm_d=banded.spill_perm_d,
+            spill_row_ptr_d=banded.spill_row_ptr_d)
+    bkw = {nm: v for nm, v in kargs.items() if nm != "vec"}
+    bkw.update(perm=banded.band_perm.int().contiguous(),
+               row_ptr=banded.band_row_ptr.int().contiguous())
+    return kargs, bkw
+
+
+def saved_dots_bits(torch, kw, banded):
+    """(D' given the dots kernel D wrote returns what D' computing its own
+    returns, bit for bit; those dots are the generic mat_dots_kernel's,
+    bit for bit) on one band case, NaN counted equal to itself."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    kargs, bkw = v2_kernel_args(torch, kw, banded)
+    n, heads = kargs["n"], kargs["heads"]
+    g = torch.randn(n, heads * kargs["c"], generator=torch.Generator(
+        ).manual_seed(SEED + 95)).to(kargs["xh"].device, kargs["xh"].dtype)
+    ac = torch.empty(n, 2 * heads, device=g.device)
+    eb.call_v2_kernel(**kargs, ac=ac)
+    given = eb.call_v2_bwd_kernel(**bkw, dout=g, ac=ac)
+    own = eb.call_v2_bwd_kernel(**bkw, dout=g)
+    generic = eb.mat_dots(kargs["xh"], kargs["acat"], generic=True)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        ints = torch.int16 if a is not None and a.element_size() == 2 \
+            else torch.int32
+        return (a is None and b is None) or torch.equal(a.view(ints),
+                                                        b.view(ints))
+    return (all(same(a, b) for a, b in zip(given, own)),
+            same(ac, generic))
 
 
 # -- phase 3e: k-NN serving on the "banded" route ---------------------------------
@@ -2332,26 +2409,16 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
         xh = kw["xh"]
         n, heads, c = xh.shape
         with torch.no_grad():
-            l_spill, xh_spill = eb._spill_inputs(
-                xh.reshape(n, heads * c), kw["a_src"], kw["a_dst"],
-                kw["m_edge"], banded, 0.2, eb._plain_gather)
-            kargs = eb.kernel_args(
-                xh.reshape(n, heads * c), kw["a_cat_mat"], banded.loc_t,
-                kw["el_t"], kw["el_self_t"], l_spill, xh_spill,
-                banded.spill_dst_local_b, band_rows=banded.band_rows)
+            kargs, bkw = v2_kernel_args(torch, kw, banded)
             g = torch.randn(n, heads * c, generator=torch.Generator(
                 ).manual_seed(SEED + 94)).to(xh.device)
-            bkw = {nm: kargs[nm] for nm in (
-                "xh", "acat", "loc", "el", "el_self", "l_spill", "xh_spill",
-                "dst_loc", "dmask", "dmask_sp", "n", "k", "heads", "c", "r",
-                "s_max", "negative_slope", "dtype")}
-            perm = banded.band_perm.int().contiguous()
-            row_ptr = banded.band_row_ptr.int().contiguous()
-            d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs), 10)
+            ac = torch.empty(n, 2 * heads, device=xh.device)
+            d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs, ac=ac),
+                           10)
             dp_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
-                **bkw, dout=g, perm=perm, row_ptr=row_ptr,
-                sp_perm=banded.spill_perm_d.int().contiguous(),
-                sp_row_ptr=banded.spill_row_ptr_d.int().contiguous()), 10)
+                **bkw, dout=g), 10)
+            dpg_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
+                **bkw, dout=g, ac=ac), 10)
             pd_ms = cuda_ms(torch, lambda: eb.fused_v2_reference(
                 **kw, banded=banded), 3, warmup=1)
         leaves = {nm: kw[nm].detach().clone().requires_grad_()
@@ -2378,19 +2445,22 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
         bd = band_bounds(dims)
         drows.append(dict(
             shape=label, d_ms=d_ms, d_plain_ms=pd_ms, d_bound_ms=bd["D"][0],
-            d_bound_by=bd["D"][1], dp_ms=dp_ms, dp_plain_ms=pdp_ms,
-            dp_bound_ms=bd["Dp"][0], dp_bound_by=bd["Dp"][1],
+            d_bound_by=bd["D"][1], dp_ms=dpg_ms, dp_own_dots_ms=dp_ms,
+            dp_plain_ms=pdp_ms, dp_bound_ms=bd["Dp"][0],
+            dp_bound_by=bd["Dp"][1],
             layer_d_fwd_bwd_ms=ld_ms, layer_c_fwd_bwd_ms=lc_ms,
             **{f"{nm}_bytes": bd[nm][2] for nm in ("D", "Dp")},
             **{f"{nm}_flops": bd[nm][3] for nm in ("D", "Dp")}))
         log(f"[4e] D {label}: {d_ms:.4f} ms (plain {pd_ms:.4f}, bound "
             f"{bd['D'][0]:.4f} by {bd['D'][1]}, {bd['D'][0] / d_ms:.3f} of "
-            f"bound); D' {dp_ms:.4f} ms (plain autograd backward "
-            f"{pdp_ms:.4f}, bound {bd['Dp'][0]:.4f} by {bd['Dp'][1]}, "
-            f"{bd['Dp'][2] / 1e6:.1f} MB, {bd['Dp'][0] / dp_ms:.3f} of "
-            f"bound); layer forward + backward: D + D' (+ spill gathers and "
-            f"F (a)) {ld_ms:.4f} ms, C + C' (+ F (b)) {lc_ms:.4f} ms")
-        del kargs, bkw, g, l_spill, xh_spill, leaves, cleaves
+            f"bound); D' given D's dots {dpg_ms:.4f} ms, computing its own "
+            f"{dp_ms:.4f} ms (plain autograd backward {pdp_ms:.4f}, bound "
+            f"{bd['Dp'][0]:.4f} by {bd['Dp'][1]}, {bd['Dp'][2] / 1e6:.1f} "
+            f"MB, {bd['Dp'][0] / dpg_ms:.3f} of bound); layer forward + "
+            f"backward: D + D' (+ spill gathers and F (a)) {ld_ms:.4f} ms, "
+            f"C + C' (+ F (b)) {lc_ms:.4f} ms")
+        del kargs, bkw, g, ac, leaves, cleaves
+    dots = dots_timings(torch, ecases + dcases, "4e")
 
     trainer, state, g, targets = knn_step_setup(torch, np, work, samples,
                                                 dropout=1.0 - KEEP)
@@ -2423,14 +2493,61 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
     wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
     busy = log_profile("4e", "3 route-D k-NN train steps", wall, prows,
                        top=14)
-    names = ("v2_fwd_kernel", "v2_bwd_", "rows::mat_dots_kernel",
+    names = ("v2_fwd_kernel", "v2_bwd_", "rows::mat_dots",
              "segred::reduce_kernel")
     mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
+    dots_n = sum(r[1] for r in prows if "rows::mat_dots" in r[2]) / 3
+    dots_ms = sum(r[0] for r in prows if "rows::mat_dots" in r[2]) / 3
     log(f"[4e]   kernels D, D' and F (a): {mine / 3:.3f} ms per step of "
-        f"{sum(r[0] for r in prows) / 3:.3f} ms device time")
+        f"{sum(r[0] for r in prows) / 3:.3f} ms device time; the attention "
+        f"dots: {dots_n:.1f} launches, {dots_ms:.3f} ms per step (D's only: "
+        f"D' takes them)")
+    # with a profile, D' launched no dots pass of its own
+    check(not prows or dots_n == MODEL_LAYERS,
+          f"route D step: {dots_n} dots launches a step, want {MODEL_LAYERS}")
     return erows, drows, dict(ms=ms, busy_share=busy, counts=counts,
                               kernels_ms=mine / 3,
-                              device_ms=sum(r[0] for r in prows) / 3)
+                              device_ms=sum(r[0] for r in prows) / 3,
+                              dots_launches=dots_n, dots_ms=dots_ms), dots
+
+
+def dots_timings(torch, cases, tag, dtype=None):
+    """CUDA-event times of the attention dots of kernels D, D' and E alone
+    (``mat_dots``: the register form, and the generic form it replaced) on
+    each band case's xh (in ``dtype`` when given) and acat, beside one
+    ``torch.matmul`` of the same product (f32 only: in bf16 it rounds its
+    output) and their bound: xh and acat read once, ac written once, 2 HC
+    M operations a node."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    out = []
+    with torch.no_grad():
+        for label, kw, _, dims in cases:
+            xh = kw["xh"] if dtype is None else kw["xh"].to(dtype)
+            n, heads, c = xh.shape
+            hc, m = heads * c, 2 * heads
+            xf = xh.reshape(n, hc).contiguous()
+            acat = kw["a_cat_mat"].to(xf.dtype).contiguous()
+            ms = cuda_ms(torch, lambda: eb.mat_dots(xf, acat), 20)
+            gms = cuda_ms(torch, lambda: eb.mat_dots(xf, acat, generic=True),
+                          20)
+            lib = (cuda_ms(torch, lambda: torch.matmul(xf, acat), 20)
+                   if xf.dtype == torch.float32 else None)
+            nbytes = xf.element_size() * (n * hc + hc * m) + 4 * n * m
+            flops = 2 * n * hc * m
+            t_b = nbytes / PEAK_BYTES * 1e3
+            t_o = flops / PEAK_FLOPS[str(xf.dtype).split(".")[1]] * 1e3
+            lbl = label if dtype is None else bf16_label(label)
+            out.append(dict(shape=lbl, ms=ms, generic_ms=gms, library_ms=lib,
+                            bound_ms=max(t_b, t_o),
+                            bound_by="bytes" if t_b >= t_o else "operations",
+                            bytes=nbytes, flops=flops))
+            log(f"[{tag}] mat_dots {lbl}: {ms:.4f} ms, generic form "
+                f"{gms:.4f} ms, torch.matmul "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{max(t_b, t_o):.4f} ms ({nbytes / 1e6:.1f} MB), "
+                f"{max(t_b, t_o) / ms:.3f} of bound")
+    return out
 
 
 # -- phase 2f: the bf16 forms of C, C', D, D', E and F ------------------------
@@ -2609,6 +2726,13 @@ def phase_bf16_kernels_vs_plain(torch, ecases, kcases, becases, bdcases):
             del out, grads, ref, rgrads
         errs[("D", lbl)] = worst["out"]
         errs[("Dp", lbl)] = max(v for nm, v in worst.items() if nm != "out")
+        same_bwd, same_dots = saved_dots_bits(torch, kb, banded)
+        log(f"[2f] {lbl}: D' given D's dots "
+            f"{'equals' if same_bwd else 'DIFFERS FROM'} D' computing its "
+            f"own, bit for bit; D's dots "
+            f"{'equal' if same_dots else 'DIFFER FROM'} the generic "
+            f"mat_dots_kernel's, bit for bit")
+        check(same_bwd and same_dots, f"D's dots bits (bf16): {label}")
     return errs
 
 
@@ -2952,26 +3076,16 @@ def phase_bf16_timings(torch, np, ecases, kcases, becases, bdcases, kmodel,
         kb = bf16_kw(kw)
         n, heads, c = xh.shape
         with torch.no_grad():
-            l_spill, xh_spill = eb._spill_inputs(
-                xh.reshape(n, heads * c), kw["a_src"], kw["a_dst"],
-                kw["m_edge"], banded, 0.2, eb._plain_gather)
-            kargs = eb.kernel_args(
-                xh.reshape(n, heads * c), kw["a_cat_mat"], banded.loc_t,
-                kw["el_t"], kw["el_self_t"], l_spill, xh_spill,
-                banded.spill_dst_local_b, band_rows=banded.band_rows)
+            kargs, bkw = v2_kernel_args(torch, kb, banded)
             g = torch.randn(n, heads * c, generator=torch.Generator(
                 ).manual_seed(SEED + 97)).to(xh.device).bfloat16()
-            bkw = {nm: kargs[nm] for nm in (
-                "xh", "acat", "loc", "el", "el_self", "l_spill", "xh_spill",
-                "dst_loc", "dmask", "dmask_sp", "n", "k", "heads", "c", "r",
-                "s_max", "negative_slope", "dtype")}
-            perm = banded.band_perm.int().contiguous()
-            row_ptr = banded.band_row_ptr.int().contiguous()
-            d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs), 10)
+            ac = torch.empty(n, 2 * heads, device=xh.device)
+            d_ms = cuda_ms(torch, lambda: eb.call_v2_kernel(**kargs, ac=ac),
+                           10)
             dp_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
-                **bkw, dout=g, perm=perm, row_ptr=row_ptr,
-                sp_perm=banded.spill_perm_d.int().contiguous(),
-                sp_row_ptr=banded.spill_row_ptr_d.int().contiguous()), 10)
+                **bkw, dout=g), 10)
+            dpg_ms = cuda_ms(torch, lambda: eb.call_v2_bwd_kernel(
+                **bkw, dout=g, ac=ac), 10)
             pd_ms = cuda_ms(torch, lambda: eb.fused_v2_reference(
                 **kb, banded=banded), 3, warmup=1)
         leaves = {nm: kb[nm].detach().clone().requires_grad_()
@@ -2983,16 +3097,19 @@ def phase_bf16_timings(torch, np, ecases, kcases, becases, bdcases, kmodel,
         bd = band_bounds(dims, dtype=bf)
         rows["D"].append(dict(
             shape=bf16_label(label), d_ms=d_ms, d_plain_ms=pd_ms,
-            d_bound_ms=bd["D"][0], d_bound_by=bd["D"][1], dp_ms=dp_ms,
-            dp_plain_ms=pdp_ms, dp_bound_ms=bd["Dp"][0],
-            dp_bound_by=bd["Dp"][1],
+            d_bound_ms=bd["D"][0], d_bound_by=bd["D"][1], dp_ms=dpg_ms,
+            dp_own_dots_ms=dp_ms, dp_plain_ms=pdp_ms,
+            dp_bound_ms=bd["Dp"][0], dp_bound_by=bd["Dp"][1],
             **{f"{nm}_bytes": bd[nm][2] for nm in ("D", "Dp")}))
         log(f"[4f] D {bf16_label(label)}: {d_ms:.4f} ms (plain {pd_ms:.4f}, "
             f"bound {bd['D'][0]:.4f} by {bd['D'][1]}, {bd['D'][0] / d_ms:.3f}"
-            f" of bound); D' {dp_ms:.4f} ms (plain autograd backward "
-            f"{pdp_ms:.4f}, bound {bd['Dp'][0]:.4f} by {bd['Dp'][1]}, "
-            f"{bd['Dp'][0] / dp_ms:.3f} of bound)")
-        del kargs, bkw, g, l_spill, xh_spill
+            f" of bound); D' given D's dots {dpg_ms:.4f} ms, computing its "
+            f"own {dp_ms:.4f} ms (plain autograd backward {pdp_ms:.4f}, "
+            f"bound {bd['Dp'][0]:.4f} by {bd['Dp'][1]}, "
+            f"{bd['Dp'][0] / dpg_ms:.3f} of bound)")
+        del kargs, bkw, g, ac
+    rows["dots"] = dots_timings(torch, becases + bdcases, "4f",
+                                torch.bfloat16)
 
     mb = routed_model(torch, kmodel, "banded_pallas", True, bf)
     m32 = routed_model(torch, kmodel, "banded_pallas", True, "float32")
@@ -3073,7 +3190,7 @@ def bf16_entries(errs, bmod, rows, flush_ms, steps):
         "plain_ms": d["d_plain_ms"], "bound_ms": d["d_bound_ms"],
         "bound_by": d["d_bound_by"], "at": d["shape"], "shapes": rows["D"],
         "serving_flush_launches": bmod["flush"]["D"]["launches"],
-        "train_step": sd, **common,
+        "train_step": sd, "mat_dots": rows["dots"], **common,
     }, {
         "name": "ell_gat_v2_bwd_bf16", "source": src + "ell_gat_v2_bwd.cu",
         "replaces": rep + "ell_gat_fused.py:625",
@@ -3082,6 +3199,8 @@ def bf16_entries(errs, bmod, rows, flush_ms, steps):
         "plain_ms": d["dp_plain_ms"], "bound_ms": d["dp_bound_ms"],
         "bound_by": d["dp_bound_by"],
         "share_of_bound": d["dp_bound_ms"] / d["dp_ms"], "at": d["shape"],
+        "timed": "the whole call given D's attention dots (the main path's)",
+        "ms_computing_its_own_dots": d["dp_own_dots_ms"],
         **common,
     }, {
         "name": "segment_reduce_bf16", "source": src + "segment_reduce.cu",
@@ -3188,7 +3307,7 @@ def main() -> int:
         krows, kstep = phase_knn_train_timings(torch, np, kcases, work,
                                                ksamples)
         phase = "4e kernels E, D and D' timings"
-        berows, bdrows, dstep = phase_banded_timings(
+        berows, bdrows, dstep, dots = phase_banded_timings(
             torch, np, becases, bdcases, kcases, work, ksamples)
         phase = "4f bf16 timings"
         frows, bflush_ms, bsteps = phase_bf16_timings(
@@ -3354,9 +3473,12 @@ def main() -> int:
         "ms": bdrow["dp_ms"], "plain_ms": bdrow["dp_plain_ms"],
         "bound_ms": bdrow["dp_bound_ms"], "bound_by": bdrow["dp_bound_by"],
         "share_of_bound": bdrow["dp_bound_ms"] / bdrow["dp_ms"],
+        "timed": "the whole call given D's attention dots (the main path's)",
+        "ms_computing_its_own_dots": bdrow["dp_own_dots_ms"],
         "segment_reduce_mode_a_launches": dstep["counts"]["segment_reduce"],
         **dcommon,
     }]
+    kernels[-2]["mat_dots"] = dots
     kernels += bf16_entries(ferrs, bmod, frows, bflush_ms, bsteps)
     log(card)
     print(json.dumps({"kernels": kernels}))

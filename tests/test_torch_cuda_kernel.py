@@ -1474,3 +1474,175 @@ def test_band_kernel_edges_match_plain(dev, shape, dtype):
             assert torch.isfinite(a).all(), name
             err = ((a - b).abs() / (1 + b.abs())).max().item()
             assert err <= TOL[torch.float32], (name, err)
+
+
+# -- the redesigned kernel D and its dots, at the edges of what they take -----
+# Kernel D (ell_gat_v2_fwd.cu, on E's forward layout, the spills visited by
+# destination) takes every shape its first version took: K up to the
+# wrapper's 64 (at 8 heads), heads 1-8 (3 and 5 not powers of two), C % 4
+# != 0 (single columns), any HC (column tiles: HC 1030 in single columns,
+# 1200 and 4096 in 16-byte chunks), any s_max. The graphs of
+# test_torch_ell_v2_fwd_design.spill_graph hold a band filled to s_max,
+# bands with no spill, a row whose every slot spilled, rows with no live
+# slot, and dead slots naming padded nodes whose rows are NaN. Tolerances
+# are TOL of the other tests.
+
+V2_EDGES = [
+    (1024, 1, 1, 64, 64),      # K 1
+    (1024, 5, 3, 8, 64),       # K 5, 3 heads (pairs of stride 4)
+    (1024, 16, 4, 64, 64),     # K 16 at HC 256
+    (1024, 33, 8, 4, 64),      # K 33 at 8 heads: several pair tiles
+    (512, 64, 8, 4, 64),       # K 64 (the wrapper's limit) at 8 heads
+    (1024, 8, 2, 6, 128),      # C % 4 != 0: single columns
+    (1024, 8, 1, 1030, 128),   # C % 4 != 0, HC > 1024: column tiles
+    (512, 8, 2, 600, 64),      # HC 1200 in 16-byte chunks: several tiles
+    (512, 8, 4, 1024, 64),     # HC 4096
+]
+
+
+def _v2_edge_inputs(dev, shape, dtype, self_loop, drop, full_band=True):
+    from test_torch_ell_v2_fwd_design import v2_inputs
+
+    n, k, heads, c, r = shape
+    args, banded, live = v2_inputs(k, heads, c, dtype, self_loop=self_loop,
+                                   drop=drop, n=n, r=r, full_band=full_band)
+    args = {nm: (t.to(dev) if torch.is_tensor(t) else t)
+            for nm, t in args.items()}
+    return args, banded.to(dev), live.to(dev)
+
+
+def _v2_call(args, banded, **extra):
+    """Kernel D through call_v2_kernel on the _v2_plain arguments."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    kw = eb.kernel_args(
+        args["xh_flat"], args["a_cat_mat"], args["loc_t"], args["el_t"],
+        args["el_self_t"], args["l_spill_b"], args["xh_spill_b"],
+        args["dst_loc_b"], args["dmask_t"], args["dmask_sp_b"],
+        band_rows=banded.band_rows, spill_perm_d=extra.pop(
+            "sp_perm", banded.spill_perm_d),
+        spill_row_ptr_d=extra.pop("sp_row_ptr", banded.spill_row_ptr_d))
+    return eb.call_v2_kernel(**kw, **extra), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", V2_EDGES)
+def test_v2_kernel_edges_match_plain(dev, shape, dtype):
+    """Kernel D vs _v2_plain at the edge shapes, with and without a self
+    loop and streamed dropout masks, the spill tables as wide as the
+    fullest band; the padded nodes' own outputs are left out."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    for self_loop in (True, False):
+        for drop in (False, True):
+            args, banded, live = _v2_edge_inputs(dev, shape, dtype,
+                                                 self_loop, drop)
+            with torch.no_grad():
+                n0 = eb.v2_launches
+                out, _ = _v2_call(args, banded)
+                torch.cuda.synchronize()
+                assert eb.v2_launches == n0 + 1
+                ref = eb._v2_plain(**args, band_rows=banded.band_rows)
+            assert out.dtype == dtype
+            _close_to_plain(out, ref, dtype, live)
+            if not self_loop:
+                assert not out[:3].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["no spill", "crowded row",
+                                  "stray entries", "default s_max"])
+def test_v2_kernel_spill_tables(dev, dtype, case):
+    """Kernel D's spill entries by destination: no spill entry at all; a
+    row with 2K + 3 entries (K listed, the rest visited one by one); tables
+    that list for a row an entry whose dst_loc names another row and one
+    from another band (skipped); band_ell's power-of-two s_max."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from test_torch_ell_v2_fwd_design import spill_case_tables
+
+    n, k, r = 2048, 8, 64
+    args, banded, live = _v2_edge_inputs(
+        dev, (n, k, 4, 64, r), dtype, True, True,
+        full_band=case != "default s_max")
+    extra = {}
+    if case != "default s_max":
+        dl, perm, row_ptr = spill_case_tables(args["dst_loc_b"].cpu(), case,
+                                              k, r)
+        args["dst_loc_b"] = dl.to(dev)
+        extra = dict(sp_perm=perm.to(dev), sp_row_ptr=row_ptr.to(dev))
+    with torch.no_grad():
+        out, _ = _v2_call(args, banded, **extra)
+        ref = eb._v2_plain(**args, band_rows=r)
+    _close_to_plain(out, ref, dtype, live)
+
+
+def _same_bits(a, b):
+    """a and b hold the same bits (NaN included: the padded nodes' rows)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
+                                              b.view(ints[b.dtype]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v2_kernel_repeat_bit_for_bit(dev, dtype):
+    """Kernel D over two calls on the same inputs (streamed dropout, the
+    model's HC 256 / 4 heads): the same bits."""
+    args, banded, _ = _v2_edge_inputs(dev, (8192, 8, 4, 64, 128), dtype,
+                                      True, True)
+    with torch.no_grad():
+        a, _ = _v2_call(args, banded)
+        b, _ = _v2_call(args, banded)
+    assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,c", [(4, 64), (1, 64), (2, 6), (8, 4)])
+def test_v2_bwd_with_saved_dots_bit_for_bit(dev, heads, c, dtype):
+    """Kernel D' given the attention dots kernel D wrote returns every
+    gradient with the same bits as D' computing its own, and those dots
+    are the generic dots pass's."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    args, banded, _ = _v2_edge_inputs(dev, (2048, 8, heads, c, 64), dtype,
+                                      True, True)
+    ac = torch.empty(2048, 2 * heads, device=dev)
+    _, kw = _v2_call(args, banded, ac=ac)
+    bkw = {nm: kw[nm] for nm in (
+        "xh", "acat", "loc", "el", "el_self", "l_spill", "xh_spill",
+        "dst_loc", "dmask", "dmask_sp", "sp_perm", "sp_row_ptr", "n", "k",
+        "heads", "c", "r", "s_max", "negative_slope", "dtype")}
+    g = torch.randn(2048, heads * c, generator=torch.Generator(
+        ).manual_seed(5)).to(dev, dtype)
+    tables = dict(perm=banded.band_perm.int(),
+                  row_ptr=banded.band_row_ptr.int())
+    n0 = eb.v2_bwd_launches
+    given = eb.call_v2_bwd_kernel(**bkw, **tables, dout=g, ac=ac)
+    own = eb.call_v2_bwd_kernel(**bkw, **tables, dout=g)
+    torch.cuda.synchronize()
+    assert eb.v2_bwd_launches == n0 + 2
+    for a, b in zip(given, own):
+        assert (a is None and b is None) or _same_bits(a, b)
+    assert _same_bits(ac, eb.mat_dots(kw["xh"], kw["acat"], generic=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 4, 8])
+def test_mat_dots_keep_the_first_versions_bits(dev, heads, dtype):
+    """The attention dots of kernels D, D' and E (the register form where
+    it takes the row) give the bits of the generic form they replaced
+    (mat_dots_kernel, staged at HC >= 128), at HC 64, 256 and 1024 and
+    widths between (HC 6: most lanes hold no column; 40, 100 and 200:
+    partial column steps of each register form)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+
+    gen = torch.Generator().manual_seed(heads)
+    for hc in (64, 256, 1024, 6, 40, 100, 200):
+        xh = torch.randn(3001, hc, generator=gen).to(dev, dtype)
+        acat = (0.3 * torch.randn(hc, 2 * heads, generator=gen)
+                ).to(dev, dtype)
+        new = eb.mat_dots(xh, acat)
+        old = eb.mat_dots(xh, acat, generic=True)
+        torch.cuda.synchronize()
+        assert torch.equal(new, old), (hc, (new - old).abs().max().item())
+        torch.testing.assert_close(new, xh.float() @ acat.float(),
+                                   rtol=1e-4, atol=1e-4)
