@@ -4,14 +4,17 @@ bucketed refinement batching, in-place copy-and-modify output,
 finest-resolution sidecar GeoTIFF.
 
     python -m bathymetric_gnn_tpu_torch.cli.inference_native \\
-        --input in.bag --output out.bag --model CHECKPOINT_DIR --knn-k 8 \\
-        [--device cpu]
+        --input in.bag --output out.bag --model CHECKPOINT_DIR \\
+        [--knn-k 8] [--device cpu]
 
 ``--model`` is a port checkpoint directory (``utils/weights.py``) of
-graph-trained weights (``trained_layout`` "coo"). Only the k-NN route is
-ported: ``--knn-k`` (or ``graph.knn_k`` in the config) must be > 0. Runs on
-the CUDA card unless ``--device cpu`` is given; fails without a card.
-Prints the stats JSON on stdout and returns the stats.
+graph-trained weights (``trained_layout`` "coo"). Without ``--knn-k`` the
+configuration's ``graph.knn_k`` (default 0) picks the route: 0 is the
+default VR route (small refinements in slabs through the dense grid model,
+bf16 on the card; larger grids on grid-connectivity graphs), > 0 the k-NN
+route (``inference/native_vr``). Runs on the CUDA card unless ``--device
+cpu`` is given; fails without a card. Prints the stats JSON on stdout and
+returns the stats.
 """
 
 from __future__ import annotations
@@ -43,13 +46,13 @@ def parse_args(argv=None):
     p.add_argument("--batch-node-budget", type=int, default=50000)
     p.add_argument("--knn-k", type=int,
                    help="override graph.knn_k: >0 builds k-NN graphs over "
-                        "valid cells (the only route ported)")
+                        "valid cells; 0 is the default VR route")
     p.add_argument("--sparse-kernel",
                    choices=["auto", "xla", "banded", "banded_pallas"],
                    help="override model.sparse_kernel (auto = "
                         "banded_pallas, kernel C, for k-NN GAT; banded = "
                         "kernel E and the spill fold on 128-row bands; xla "
-                        "= plain PyTorch gathers)")
+                        "= GATConvELL, also kernel C; knn_k 0 takes xla)")
     p.add_argument("--no-sidecar", action="store_true")
     p.add_argument("--no-uncertainty-scaling", action="store_true")
     p.add_argument("--device", default=None,
@@ -67,7 +70,6 @@ def main(argv=None):
     cfg = resolve_config(args.config, args.model)
 
     from ..config.constants import CLASS_NOISE
-    from ..inference.native_vr import DEFAULT_ROUTE_NOT_PORTED
     from ..inference.pipeline import (apply_confidence_calibration,
                                       load_confidence_calibration)
     from ..utils.weights import load_state_dict
@@ -88,8 +90,6 @@ def main(argv=None):
     cfg.model = resolve_config(None, args.model).model
     if args.knn_k is not None:
         cfg.graph.knn_k = args.knn_k
-    if cfg.graph.knn_k <= 0:
-        raise SystemExit(DEFAULT_ROUTE_NOT_PORTED)
     if args.sparse_kernel is not None:
         cfg.model.sparse_kernel = args.sparse_kernel
 

@@ -10,11 +10,13 @@ modes: ``--ground-truth-dir`` (5-band GT rasters) or ``--data-dir`` (clean
 surveys + synthetic noise). Two trainers: ``--trainer graph`` with
 ``--knn-k K`` (K > 0) trains the ELL model on k-NN tile graphs
 (``training/trainer.Trainer``); ``--trainer grid`` trains the batched
-dense-grid model. Not ported: the graph trainer on grid-connectivity
-graphs (``knn_k == 0``) or with ``--sparse-kernel xla`` (the COO path),
-k-NN graphs with the grid trainer, and the non-GAT layer types; they exit
-naming ROADMAP queue 1 item 11. Runs on the CUDA card unless ``--device
-cpu`` is given; fails without a card.
+dense-grid GAT model, which reads neither ``graph.knn_k`` nor
+``model.gnn_type`` (the JAX CLI builds its grid trainer without them; a
+log line says each set one is ignored). Not ported: the graph trainer on
+grid-connectivity graphs (``knn_k == 0``) or with ``--sparse-kernel xla``
+(the COO path), and its non-GAT layer types; they exit naming ROADMAP
+queue 1 item 11. Runs on the CUDA card unless ``--device cpu`` is given;
+fails without a card.
 """
 
 from __future__ import annotations
@@ -108,10 +110,10 @@ def main(argv=None):
         cfg.synthetic_noise.feature_enabled = True
     cfg.validate()
 
-    if cfg.model.gnn_type != "GAT":
-        raise SystemExit(NOT_PORTED.format(
-            what=f"--gnn-type {cfg.model.gnn_type}"))
     if args.trainer == "graph":
+        if cfg.model.gnn_type != "GAT":
+            raise SystemExit(NOT_PORTED.format(
+                what=f"--gnn-type {cfg.model.gnn_type}"))
         if cfg.graph.knn_k <= 0:
             raise SystemExit(NOT_PORTED.format(
                 what="--trainer graph on grid-connectivity graphs (knn_k 0)"))
@@ -119,8 +121,13 @@ def main(argv=None):
             raise SystemExit(NOT_PORTED.format(
                 what="--trainer graph --sparse-kernel xla"))
         return _train_graph(args, cfg)
+    # the grid model is always GAT on the grid's connectivity
     if cfg.graph.knn_k > 0:
-        raise SystemExit(NOT_PORTED.format(what="--trainer grid --knn-k > 0"))
+        logger.info("--trainer grid: graph.knn_k=%d is ignored (the grid "
+                    "model trains on grid connectivity)", cfg.graph.knn_k)
+    if cfg.model.gnn_type != "GAT":
+        logger.info("--trainer grid: model.gnn_type=%s is ignored (the grid "
+                    "model is GAT)", cfg.model.gnn_type)
 
     from ..training.grid_trainer import (GridTrainer, GroundTruthGridDataset,
                                          SyntheticGridDataset)

@@ -59,6 +59,10 @@
 //       once, so the [N * K, HC] cotangent of the neighbour gather is
 //       never written (2.15 GB per layer at the k-NN train step's N =
 //       262,144, HC 256).
+// Rows wider than the untiled instances hold (HC > 2048 f32 / 4096 bf16 in
+// 16-byte chunks, > 1024 in single columns) run (2) and (3) in column
+// tiles (rows::TILE_NV chunks a lane): (2) one warp a block, its P sums
+// added tile by tile per head, its accumulators in its block's partials.
 // No atomics: the sums are taken in a fixed order and repeat bit for bit.
 //
 // bf16 form: xh, the attention vectors and the cotangent dy are read as
@@ -108,20 +112,22 @@ __host__ __device__ inline int bwd_warp_floats(int k, int heads) {
   return 5 * (k + 1) * heads + 5 * heads;
 }
 
-// The tables and sources of wpb warps, then wpb [HC] rows for the block's
-// final sum of its warps' accumulators.
-size_t bwd_smem(int wpb, int k, int heads, int hc) {
+// The tables and sources of wpb warps, then (untiled rows) wpb [HC] rows
+// for the block's final sum of its warps' accumulators.
+size_t bwd_smem(int wpb, int k, int heads, int hc, bool tiled) {
   size_t b = (size_t)wpb * bwd_warp_floats(k, heads) * sizeof(float) +
              (size_t)wpb * k * sizeof(int);
   b = (b + 15) / 16 * 16;
-  return b + (size_t)wpb * hc * sizeof(float);
+  return tiled ? b : b + (size_t)wpb * hc * sizeof(float);
 }
 
 // The largest number of warps (<= DST_WARPS) per destination-pass block
-// whose shared memory fits in 48 KB, else 1 (then up to 227 KB).
-int bwd_warps(int k, int heads, int hc) {
+// whose shared memory fits in 48 KB, else 1 (then up to 227 KB). Tiled
+// rows take one warp a block: it accumulates in its block's partials.
+int bwd_warps(int k, int heads, int hc, bool tiled) {
+  if (tiled) return 1;
   for (int wpb = DST_WARPS; wpb > 1; --wpb)
-    if (bwd_smem(wpb, k, heads, hc) <= 48 * 1024) return wpb;
+    if (bwd_smem(wpb, k, heads, hc, false) <= 48 * 1024) return wpb;
   return 1;
 }
 
@@ -129,7 +135,15 @@ int bwd_warps(int k, int heads, int hc) {
 // to alpha_out are the unnormalized e * d, and inv_out [N, heads] gets
 // 1 / D (kernel F's rows need both). dsc [N, 3, heads] f32: the
 // destination side's at_s, dst_r and dls_r (see the header).
-template <typename T, int V, int NV>
+//
+// TILED (rows wider than rows::chunks_for takes): the lanes hold NV chunks
+// of one column tile at a time and take a node's tiles one after the
+// other, in each phase that reads rows: the dot products add each tile's
+// per-head sums into the warp's tables (pp, psv: one lane a head and
+// tile, rows::Lanes::first), S is formed per head from them, and the
+// accumulators of d att_src, d att_dst and d bias live in the block's
+// partials in global memory (one warp a block), not in registers.
+template <typename T, int V, int NV, bool TILED>
 __global__ void
 __launch_bounds__(DST_WARPS * WARP, rows::DST_MIN_BLOCKS)
 bwd_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
@@ -164,8 +178,23 @@ bwd_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
   int* src = reinterpret_cast<int*>(smem + wpb * per_warp) + warp * k;
   float* red = smem + ((size_t)wpb * per_warp * sizeof(float) +
                        (size_t)wpb * k * sizeof(int) + 15) / 16 * 4;
+  constexpr int TILE = WARP * NV * V;   // columns of a tile
+  const int tiles = TILED ? (hc + TILE - 1) / TILE : 1;
+  // tiled: the warp's d att_src, d att_dst and d bias rows
+  float* accg = part + (long long)blockIdx.x * 3 * hc;
 
   rows::Lanes<V, NV> ln;
+  if constexpr (TILED) {
+    for (int t = 0; t < tiles; ++t) {
+      ln.init(lane, hc, c, t * TILE);
+#pragma unroll
+      for (int q = 0; q < NV; ++q)
+        if (ln.in(q))
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            for (int a = 0; a < 3; ++a) accg[a * hc + ln.col[q] + v] = 0.f;
+    }
+  }
   ln.init(lane, hc, c);
   // the warp's d att_src, d att_dst and d bias over its whole loop
   float acc_s[NV][V], acc_d[NV][V], acc_b[NV][V];
@@ -192,20 +221,25 @@ bwd_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
     for (int s = lane; s < k; s += WARP)
       src[s] = nmask[slot0 + s] ? nbr[slot0 + s] : -1;
     __syncwarp();
+    if constexpr (TILED) ln.init(lane, hc, c);
 
     // the loads that need only the sources, in flight during the softmax:
-    // dy and xh of the node, the first group of neighbour rows
+    // dy and xh of the node, the first group of neighbour rows (their
+    // first tile when tiled)
     rows::Raw<T, V> rg[NV], rx[NV];
+    const auto load_own = [&]() {
 #pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      if (ln.in(q)) {
-        rg[q].load(dy + i * hc + ln.col[q]);
-        rx[q].load(xh + i * hc + ln.col[q]);
-      } else {
-        rg[q].zero();
-        rx[q].zero();
+      for (int q = 0; q < NV; ++q) {
+        if (ln.in(q)) {
+          rg[q].load(dy + i * hc + ln.col[q]);
+          rx[q].load(xh + i * hc + ln.col[q]);
+        } else {
+          rg[q].zero();
+          rx[q].zero();
+        }
       }
-    }
+    };
+    load_own();
     rows::Raw<T, V> r[GROUP][NV];
     rows::load_group(r, xh, src, 0, k, hc, ln);
 
@@ -313,57 +347,121 @@ bwd_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
 
     // ---- the dot products (lanes own the row, all heads at once) -------
     float g[NV][V], x[NV][V], gr[NV][V];
-    float ps[1][NV], S[NV];
+    if constexpr (TILED) {
+      // each tile's per-head sums added into P_self and P, then S per head
+      for (int o = lane; o < k * heads; o += WARP) pp[o] = 0.f;
+      for (int h = lane; h < heads; h += WARP) psv[h] = 0.f;
+      __syncwarp();
+      for (int t = 0; t < tiles; ++t) {
+        const int col0 = t * TILE;
+        if (t > 0) {
+          ln.init(lane, hc, c, col0);
+          load_own();
+          rows::load_group(r, xh, src, 0, k, hc, ln);
+        }
+        float ps[1][NV];
 #pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      const float inv = iv[ln.head[q]];
-      ps[0][q] = 0.f;
+        for (int q = 0; q < NV; ++q) {
+          const float inv = iv[ln.head[q]];
+          ps[0][q] = 0.f;
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        g[q][v] = rg[q].at(v);
-        x[q][v] = rx[q].at(v);
-        gr[q][v] = LOWP ? round_bf(g[q][v] * inv) : g[q][v];
-        ps[0][q] = fmaf(g[q][v], x[q][v], ps[0][q]);
+          for (int v = 0; v < V; ++v) {
+            g[q][v] = rg[q].at(v);
+            gr[q][v] = LOWP ? round_bf(g[q][v] * inv) : g[q][v];
+            ps[0][q] = fmaf(g[q][v], rx[q].at(v), ps[0][q]);
+          }
+        }
+        rows::head_sum(ps, ln, seg, heads);
+#pragma unroll
+        for (int q = 0; q < NV; ++q)
+          if (ln.first(q, c, col0)) psv[ln.head[q]] += ps[0][q];
+        for (int s0 = 0; s0 < k; s0 += GROUP) {
+          if (s0 > 0) rows::load_group(r, xh, src, s0, k, hc, ln);
+          float p[GROUP][NV];
+#pragma unroll
+          for (int u = 0; u < GROUP; ++u)
+#pragma unroll
+            for (int q = 0; q < NV; ++q) {
+              p[u][q] = 0.f;
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                p[u][q] = fmaf(gr[q][v], r[u][q].at(v), p[u][q]);
+            }
+          rows::head_sum(p, ln, seg, heads);
+#pragma unroll
+          for (int u = 0; u < GROUP; ++u) {
+            const int s = s0 + u;
+            if (s >= k || src[s] < 0) continue;   // the same for every lane
+#pragma unroll
+            for (int q = 0; q < NV; ++q)
+              if (ln.first(q, c, col0)) pp[s * heads + ln.head[q]] += p[u][q];
+          }
+        }
+        __syncwarp();
       }
-    }
-    rows::head_sum(ps, ln, seg, heads);
+      for (int o = lane; o < k * heads; o += WARP)   // P on the unrounded scale
+        if (LOWP) pp[o] /= iv[o % heads];
+      __syncwarp();
+      for (int h = lane; h < heads; h += WARP) {
+        float sh = ad[k * heads + h] * psv[h];
+        for (int s = 0; s < k; ++s)
+          if (src[s] >= 0) sh = fmaf(ad[s * heads + h], pp[s * heads + h], sh);
+        sv[h] = sh;
+      }
+      __syncwarp();
+    } else {
+      float ps[1][NV], S[NV];
 #pragma unroll
-    for (int q = 0; q < NV; ++q) S[q] = ad[k * heads + ln.head[q]] * ps[0][q];
+      for (int q = 0; q < NV; ++q) {
+        const float inv = iv[ln.head[q]];
+        ps[0][q] = 0.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          g[q][v] = rg[q].at(v);
+          x[q][v] = rx[q].at(v);
+          gr[q][v] = LOWP ? round_bf(g[q][v] * inv) : g[q][v];
+          ps[0][q] = fmaf(g[q][v], x[q][v], ps[0][q]);
+        }
+      }
+      rows::head_sum(ps, ln, seg, heads);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) S[q] = ad[k * heads + ln.head[q]] * ps[0][q];
 
-    for (int s0 = 0; s0 < k; s0 += GROUP) {
-      if (s0 > 0) rows::load_group(r, xh, src, s0, k, hc, ln);
-      float p[GROUP][NV];
+      for (int s0 = 0; s0 < k; s0 += GROUP) {
+        if (s0 > 0) rows::load_group(r, xh, src, s0, k, hc, ln);
+        float p[GROUP][NV];
 #pragma unroll
-      for (int u = 0; u < GROUP; ++u)
+        for (int u = 0; u < GROUP; ++u)
 #pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          p[u][q] = 0.f;
+          for (int q = 0; q < NV; ++q) {
+            p[u][q] = 0.f;
 #pragma unroll
-          for (int v = 0; v < V; ++v)
-            p[u][q] = fmaf(gr[q][v], r[u][q].at(v), p[u][q]);
-        }
-      rows::head_sum(p, ln, seg, heads);
+            for (int v = 0; v < V; ++v)
+              p[u][q] = fmaf(gr[q][v], r[u][q].at(v), p[u][q]);
+          }
+        rows::head_sum(p, ln, seg, heads);
 #pragma unroll
-      for (int u = 0; u < GROUP; ++u) {
-        const int s = s0 + u;
-        if (s >= k || src[s] < 0) continue;   // the same for every lane
+        for (int u = 0; u < GROUP; ++u) {
+          const int s = s0 + u;
+          if (s >= k || src[s] < 0) continue;   // the same for every lane
 #pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          const int h = ln.head[q];
-          // P on the scale of the unrounded path
-          const float pv = LOWP ? p[u][q] / iv[h] : p[u][q];
-          S[q] = fmaf(ad[s * heads + h], pv, S[q]);
-          if (ln.in(q)) pp[s * heads + h] = pv;  // a head's lanes agree
+          for (int q = 0; q < NV; ++q) {
+            const int h = ln.head[q];
+            // P on the scale of the unrounded path
+            const float pv = LOWP ? p[u][q] / iv[h] : p[u][q];
+            S[q] = fmaf(ad[s * heads + h], pv, S[q]);
+            if (ln.in(q)) pp[s * heads + h] = pv;  // a head's lanes agree
+          }
         }
       }
+#pragma unroll
+      for (int q = 0; q < NV; ++q)
+        if (ln.in(q)) {
+          sv[ln.head[q]] = S[q];
+          psv[ln.head[q]] = ps[0][q];
+        }
+      __syncwarp();
     }
-#pragma unroll
-    for (int q = 0; q < NV; ++q)
-      if (ln.in(q)) {
-        sv[ln.head[q]] = S[q];
-        psv[ln.head[q]] = ps[0][q];
-      }
-    __syncwarp();
 
     // ---- per (slot, head): dl, the weights, d el (lanes own pairs) ------
     for (int o = lane; o < k * heads; o += WARP) {
@@ -394,6 +492,48 @@ bwd_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
     __syncwarp();
 
     // ---- the accumulators: d att_src from the rows held, d att_dst, d bias
+    if constexpr (TILED) {
+      for (int t = 0; t < tiles; ++t) {
+        ln.init(lane, hc, c, t * TILE);
+        load_own();
+        float sa[NV][V];
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          const float dls = dlsv[ln.head[q]];
+#pragma unroll
+          for (int v = 0; v < V; ++v) sa[q][v] = dls * rx[q].at(v);
+        }
+        for (int s0 = 0; s0 < k; s0 += GROUP) {
+          rows::load_group(r, xh, src, s0, k, hc, ln);
+#pragma unroll
+          for (int u = 0; u < GROUP; ++u) {
+            const int s = s0 + u;
+            if (s >= k || src[s] < 0) continue;
+#pragma unroll
+            for (int q = 0; q < NV; ++q) {
+              const float d = dd[s * heads + ln.head[q]];
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                sa[q][v] = fmaf(d, r[u][q].at(v), sa[q][v]);
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          if (!ln.in(q)) continue;
+          const float dst_l = dstv[ln.head[q]];
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            float* a = accg + ln.col[q] + v;
+            a[0] += sa[q][v];
+            a[hc] = fmaf(dst_l, rx[q].at(v), a[hc]);
+            a[2 * hc] += rg[q].at(v);
+          }
+        }
+      }
+      __syncwarp();
+      continue;
+    }
     float sa[NV][V];
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
@@ -430,6 +570,7 @@ bwd_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
   }
 
   // the block's partial sums: its warps' accumulators in warp order
+  if constexpr (TILED) return;
   for (int a = 0; a < 3; ++a) {
     __syncthreads();
 #pragma unroll
@@ -448,13 +589,14 @@ bwd_kernel(const T* __restrict__ xh, const float* __restrict__ dots,
   }
 }
 
-// Runs f(bwd_kernel instance, NV) for the form of a call; returns f's
-// result, or cudaErrorInvalidValue for a row wider than the templates.
+// Runs f(bwd_kernel instance) for the form of a call (rows::with_row_form:
+// the untiled instance that holds the row, else the tiled one); returns
+// f's result.
 template <typename T, int V, class F>
 cudaError_t with_bwd_kernel(int hc, F&& f) {
-  return rows::with_chunks<V>(hc, [&](auto nv) {
+  return rows::with_row_form<V>(hc, [&](auto nv, auto tiled) {
     constexpr int NV = decltype(nv)::value;
-    return f(bwd_kernel<T, V, NV>);
+    return f(bwd_kernel<T, V, NV, decltype(tiled)::value>);
   });
 }
 
@@ -476,17 +618,19 @@ cudaError_t with_bwd_form(int dtype, int width, int hc, F&& f) {
 // The number of destination-pass blocks kernel C' launches for a call of
 // this form (as many as stay resident on the current card, at most one
 // per warp's node), i.e. the rows of its partial sums; 0 when it cannot
-// take the call (a row wider than rows::chunks_for takes).
+// take the call (the warps' tables over 227 KB of shared memory).
 extern "C" int ell_gat_bwd_blocks(int dtype, long long n, int k, int heads,
                                   int c, int vec) {
   if (n < 1 || k < 1 || heads < 1 || c < 1 || (dtype != 0 && dtype != 1))
     return 0;
   const int hc = heads * c;
-  const int wpb = bwd_warps(k, heads, hc);
-  const size_t smem = bwd_smem(wpb, k, heads, hc);
+  const int width = rows::row_width(dtype == 1, vec, c);
+  const bool tiled = rows::row_tiled(hc, width);
+  const int wpb = bwd_warps(k, heads, hc, tiled);
+  const size_t smem = bwd_smem(wpb, k, heads, hc, tiled);
   int blocks = 0;
   const cudaError_t err = with_bwd_form(
-      dtype, rows::row_width(dtype == 1, vec, c), hc, [&](auto kernel) {
+      dtype, width, hc, [&](auto kernel) {
         if (!rows::allow_smem(kernel, smem)) return cudaErrorInvalidValue;
         blocks = rows::resident_blocks(kernel, wpb * WARP, smem,
                                        (n + wpb - 1) / wpb);
@@ -514,8 +658,9 @@ int launch_bwd(const void* xh, const void* att, const void* nbr,
     if (err != cudaSuccess) return (int)err;
     dots_in = dots;
   }
-  const int wpb = bwd_warps(k, heads, hc);
-  const size_t smem = bwd_smem(wpb, k, heads, hc);
+  const bool tiled = rows::row_tiled(hc, width);
+  const int wpb = bwd_warps(k, heads, hc, tiled);
+  const size_t smem = bwd_smem(wpb, k, heads, hc, tiled);
   const int seg = rows::head_lanes(c, width);
   err = with_bwd_kernel_v<T>(width, hc, [&](auto kernel) {
     if (!rows::allow_smem(kernel, smem)) return cudaErrorInvalidValue;
@@ -561,8 +706,9 @@ int launch_bwd(const void* xh, const void* att, const void* nbr,
 // d att_src, d att_dst, d bias), f32 but dxh. `blocks` must be
 // ell_gat_bwd_blocks of the same form. vec 4 (16-byte row chunks) needs
 // 16-byte aligned xh, dy, att and dxh; the chunks are 4 floats (c % 4 ==
-// 0) or 8 bf16 (c % 8 == 0), HC <= 2048 (f32) or 4096 (bf16), else single
-// columns (HC <= 1024). With perm or
+// 0) or 8 bf16 (c % 8 == 0), else single columns; rows wider than
+// HC 2048 (f32) or 4096 (bf16), 1024 in single columns, run in column
+// tiles (rows::TILE_NV). With perm or
 // row_ptr null, kernel F is not launched and dxh is not written (for
 // timing the destination pass on its own). Launches on `stream`; returns
 // the CUDA error code of the launches.

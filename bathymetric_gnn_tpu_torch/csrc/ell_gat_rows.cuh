@@ -111,8 +111,9 @@ __device__ __forceinline__ void store<bf16, 1>(bf16* p, const float* v) {
   p[0] = __float2bfloat16_rn(v[0]);
 }
 
-// The lane's chunks of an HC row: first column and head of each, and
-// which lie inside the row (the others are skipped: their values are 0).
+// The lane's chunks of an HC row, or of the column tile that starts at
+// column col0: first column and head of each, and which lie inside the
+// row (the others are skipped: their values are 0).
 template <int V, int NV>
 struct Lanes {
   int col[NV];
@@ -121,11 +122,12 @@ struct Lanes {
 
   static_assert(NV <= 32, "live holds one bit a chunk");
 
-  __device__ __forceinline__ void init(int lane, int hc, int c) {
+  __device__ __forceinline__ void init(int lane, int hc, int c,
+                                       int col0 = 0) {
     live = 0u;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      col[j] = (j * WARP + lane) * V;
+      col[j] = col0 + (j * WARP + lane) * V;
       const bool in = col[j] < hc;
       head[j] = in ? col[j] / c : 0;
       live |= (in ? 1u : 0u) << j;
@@ -133,6 +135,13 @@ struct Lanes {
   }
   __device__ __forceinline__ bool in(int j) const {
     return (live >> j) & 1u;
+  }
+  // Chunk j is the first of its head in the tile that starts at col0:
+  // one chunk a head present in the tile, the one lane that adds the
+  // tile's per-head sum (head_sum's, the same in all the head's lanes) to
+  // the head's total over the tiles.
+  __device__ __forceinline__ bool first(int j, int c, int col0) const {
+    return in(j) && (col[j] % c == 0 || col[j] == col0);
   }
 };
 
@@ -264,8 +273,8 @@ __device__ __forceinline__ float pair_sum(float v, int heads,
 // The chunks a lane holds for an HC row at vector width V: the least of
 // 1, 2, 4, 8, 16 that covers the row for the 16-byte widths (HC <= 2048 in
 // f32, 4096 in bf16), of 8, 16, 32 for scalar columns (V = 1, the shapes
-// the vector widths do not take: HC <= 1024); 0 when the row is wider.
-// Past 8 chunks the rows no longer fit in registers and spill to local
+// the vector widths do not take: HC <= 1024); 0 when the row is wider
+// (those rows run in column tiles, TILE_NV below). Past 8 chunks the rows no longer fit in registers and spill to local
 // memory: those instances serve wide rows correctly, not fast.
 inline int chunks_for(int hc, int v) {
   const int need = (hc + WARP * v - 1) / (WARP * v);
@@ -273,6 +282,14 @@ inline int chunks_for(int hc, int v) {
     if (need <= nv) return nv;
   return 0;
 }
+
+// Rows wider than chunks_for takes run in column tiles in the backward
+// passes (C', D', F (b)): TILE_NV chunks a lane, a tile of 32 * TILE_NV *
+// V columns, the tiles one after the other, so any HC runs. The rows that
+// chunks_for takes keep their untiled instances and their sums' order.
+constexpr int TILE_NV = 8;
+
+inline bool row_tiled(int hc, int v) { return chunks_for(hc, v) == 0; }
 
 // Calls f(std::integral_constant<int, NV>) with chunks_for(hc, V);
 // returns f's result, or cudaErrorInvalidValue for a row wider than that.
@@ -295,6 +312,16 @@ inline cudaError_t with_chunks(int hc, F&& f) {
       default: return cudaErrorInvalidValue;
     }
   }
+}
+
+// Calls f(std::integral_constant<int, NV>, std::bool_constant<TILED>):
+// the untiled instance of chunks_for(hc, V) chunks when it takes the row,
+// else the tiled one of TILE_NV chunks a tile.
+template <int V, class F>
+inline cudaError_t with_row_form(int hc, F&& f) {
+  if (row_tiled(hc, V))
+    return f(std::integral_constant<int, TILE_NV>{}, std::true_type{});
+  return with_chunks<V>(hc, [&](auto nv) { return f(nv, std::false_type{}); });
 }
 
 // Sets the dynamic shared-memory limit of `kernel` when it needs more than

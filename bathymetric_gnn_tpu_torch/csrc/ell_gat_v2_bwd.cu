@@ -60,8 +60,10 @@
 //       in shared memory ([2 * heads, HC] f32): walks its in-band slots in
 //       source-sorted order (BandedEll.band_perm / band_row_ptr) for its
 //       dac and its message rows alpha * u[dst], and writes d xh.
-// No atomics: every sum is taken in a fixed order and the gradients repeat
-// bit for bit. The spill rows' own gathers (xh_spill, and a_src / a_dst of
+// Rows wider than the untiled instances hold run (2) and (3) in column
+// tiles (rows::TILE_NV chunks a lane; (2) one warp a block, d acat in its
+// block's partials). No atomics: every sum is taken in a fixed order and
+// the gradients repeat bit for bit. The spill rows' own gathers (xh_spill, and a_src / a_dst of
 // the spill logits) are torch gathers whose backward is kernel F mode (a)
 // (ops/ell_banded.gather_rows_reduce_bwd).
 //
@@ -119,16 +121,19 @@ __host__ __device__ inline size_t dst_tables_bytes(int wpb, int k,
   return (b + 15) / 16 * 16;
 }
 
-size_t dst_smem(int wpb, int k, int heads, int hc) {
+// Tiled rows keep d acat in the block's partials, not in shared memory.
+size_t dst_smem(int wpb, int k, int heads, int hc, bool tiled) {
   return dst_tables_bytes(wpb, k, heads) +
-         (size_t)wpb * 2 * heads * hc * sizeof(float);
+         (tiled ? 0 : (size_t)wpb * 2 * heads * hc * sizeof(float));
 }
 
 // The largest number of warps (<= DST_WARPS) per destination-pass block
-// whose shared memory fits in 48 KB, else 1 (then up to 227 KB).
-int dst_warps(int k, int heads, int hc) {
+// whose shared memory fits in 48 KB, else 1 (then up to 227 KB). Tiled
+// rows take one warp a block: it accumulates in its block's partials.
+int dst_warps(int k, int heads, int hc, bool tiled) {
+  if (tiled) return 1;
   for (int wpb = DST_WARPS; wpb > 1; --wpb)
-    if (dst_smem(wpb, k, heads, hc) <= 48 * 1024) return wpb;
+    if (dst_smem(wpb, k, heads, hc, false) <= 48 * 1024) return wpb;
   return 1;
 }
 
@@ -143,7 +148,14 @@ __device__ __forceinline__ long long own_entry(int f,
   return (sp >= 0 && sp < s_max && dst_loc[f] == row) ? sp : -1;
 }
 
-template <typename T, int V, int NV>
+// TILED (rows wider than rows::chunks_for takes): the lanes hold NV chunks
+// of one column tile at a time and take a row's tiles one after the other
+// in each phase that reads rows: b, A and the spill entries' c_s add each
+// tile's per-head sums into the warp's tables (one lane a head and tile,
+// rows::Lanes::first), ddenom and the entries' terms are formed per head
+// and pair from them, and d acat accumulates in the block's partials in
+// global memory (one warp a block), not in shared memory.
+template <typename T, int V, int NV, bool TILED>
 __global__ void
 __launch_bounds__(DST_WARPS * WARP, rows::DST_MIN_BLOCKS)
 v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
@@ -195,9 +207,23 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
   float* aw = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) +
                                        dst_tables_bytes(wpb, k, heads)) +
               (size_t)warp * h2 * hc;    // d acat [2 * heads, HC]
-  for (int j = lane; j < h2 * hc; j += WARP) aw[j] = 0.f;
+  constexpr int TILE = WARP * NV * V;   // columns of a tile
+  const int tiles = TILED ? (hc + TILE - 1) / TILE : 1;
+  // tiled: the warp's d acat [HC, 2 * heads], its block's partials
+  float* pw = part + (long long)blockIdx.x * hc * h2;
   const bool has_self = el_self != nullptr;
   rows::Lanes<V, NV> ln;
+  if constexpr (TILED) {
+    for (int tt = 0; tt < tiles; ++tt) {
+      ln.init(lane, hc, c, tt * TILE);
+#pragma unroll
+      for (int q = 0; q < NV; ++q)
+        if (ln.in(q))
+          for (int j = 0; j < V * h2; ++j) pw[(long long)ln.col[q] * h2 + j] = 0.f;
+    }
+  } else {
+    for (int j = lane; j < h2 * hc; j += WARP) aw[j] = 0.f;
+  }
   ln.init(lane, hc, c);
   __syncwarp();
 
@@ -212,12 +238,16 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
       for (int h = lane; h < heads; h += WARP)
         dl_spill[(t * heads + h) * s_max + sp] = 0.f;
       const float zero[V] = {};
+      for (int tt = 0; tt < tiles; ++tt) {
+        if (TILED) ln.init(lane, hc, c, tt * TILE);
 #pragma unroll
-      for (int q = 0; q < NV; ++q)
-        if (ln.in(q))
-          rows::store<float, V>(dxh_spill + (t * s_max + sp) * hc + ln.col[q],
-                                zero);
+        for (int q = 0; q < NV; ++q)
+          if (ln.in(q))
+            rows::store<float, V>(
+                dxh_spill + (t * s_max + sp) * hc + ln.col[q], zero);
+      }
     }
+    if constexpr (TILED) ln.init(lane, hc, c);
     const int lo = sp_row_ptr[i], hi = sp_row_ptr[i + 1];
     load_sources(loc, i, n, k, r, lane, src_s);
     const bool pairs = WARP % heads == 0;
@@ -225,19 +255,25 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
     // the loads that need only the sources, in flight during the softmax:
     // dout and xh of the row, the first group of in-band rows, the row's
     // first spill row and the spill logit of the lane's first (entry,
-    // head) pair
+    // head) pair (their first tile when tiled)
     rows::Raw<T, V> ru[NV], rx[NV], xs0[NV];
     const int f0 = hi > lo ? sp_perm[lo] : -1;   // the same in every lane
     const bool f0_in = f0 >= 0 && f0 < (n / r) * s_max;
+    const auto load_own = [&]() {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        if (ln.in(q)) {
+          ru[q].load(dout + i * hc + ln.col[q]);
+          rx[q].load(xh + i * hc + ln.col[q]);
+        } else {
+          ru[q].zero();
+          rx[q].zero();
+        }
+      }
+    };
+    load_own();
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
-      if (ln.in(q)) {
-        ru[q].load(dout + i * hc + ln.col[q]);
-        rx[q].load(xh + i * hc + ln.col[q]);
-      } else {
-        ru[q].zero();
-        rx[q].zero();
-      }
       if (f0_in && ln.in(q))
         xs0[q].load(xh_spill + (long long)f0 * hc + ln.col[q]);
       else
@@ -338,106 +374,258 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
     __syncwarp();
 
     // ---- the dot products (lanes own the row, all heads at once) -------
-    float u[NV][V], x[NV][V], bq[1][NV], sea[NV];
-#pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      bq[0][q] = 0.f;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        u[q][v] = ru[q].at(v);
-        x[q][v] = rx[q].at(v);
-        bq[0][q] = fmaf(u[q][v], x[q][v], bq[0][q]);
+    float u[NV][V], x[NV][V];
+    if constexpr (TILED) {
+      // each tile's per-head sums added into b, A and the spill entries'
+      // c_s (past K: in dl_spill), then ddenom and the entries' terms
+      for (int o = lane; o < kh; o += WARP) {
+        a_s[o] = 0.f;
+        wcs_s[o] = 0.f;
       }
-    }
-    rows::head_sum(bq, ln, seg, heads);
-#pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      const int h = ln.head[q];
-      const float b = bq[0][q] * inv_s[h];
-      sea[q] = has_self ? es_s[h] * dms_s[h] * b : 0.f;
-      if (ln.in(q)) b_s[h] = b;   // a head's lanes agree
-    }
-
-    for (int s0 = 0; s0 < k; s0 += GROUP) {
-      if (s0 > 0) rows::load_group(rw, xh, src_s, s0, k, hc, ln);
-      float p[GROUP][NV];
-#pragma unroll
-      for (int w = 0; w < GROUP; ++w)
-#pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          p[w][q] = 0.f;
-#pragma unroll
-          for (int v = 0; v < V; ++v)
-            p[w][q] = fmaf(u[q][v], rw[w][q].at(v), p[w][q]);
-        }
-      rows::head_sum(p, ln, seg, heads);
-#pragma unroll
-      for (int w = 0; w < GROUP; ++w) {
-        const int s = s0 + w;
-        if (s >= k) continue;   // the same for every lane
-#pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          const int h = ln.head[q], o = s * heads + h;
-          const float pv = p[w][q] * inv_s[h];   // 0 with no source
-          sea[q] = fmaf(e_s[o] * dm_s[o], pv, sea[q]);
-          if (ln.in(q)) a_s[o] = pv;
+      for (int h = lane; h < heads; h += WARP) b_s[h] = 0.f;
+      for (int e = lo; e < hi; ++e) {
+        const int f = e == lo ? f0 : sp_perm[e];   // the same for every lane
+        const long long sp = own_entry(f, dst_loc, t, row, s_max);
+        const int el_ = e - lo;
+        if (el_ < k) {
+          if (lane == 0) spf_s[el_] = (float)sp;
+        } else if (sp >= 0) {
+          for (int h = lane; h < heads; h += WARP)
+            dl_spill[(t * heads + h) * s_max + sp] = 0.f;
         }
       }
-    }
-
-    // the row's spill entries: c_s, d xh_spill, and d l_spill's first term
-    // (kept with the exponential for the second, in the entry tables)
-    for (int e = lo; e < hi; ++e) {
-      const int f = e == lo ? f0 : sp_perm[e];   // the same for every lane
-      const long long sp = own_entry(f, dst_loc, t, row, s_max);
-      const int el_ = e - lo;
-      if (el_ < k && lane == 0) spf_s[el_] = (float)sp;
-      if (sp < 0) continue;
-      float cq[1][NV];
-      rows::Raw<T, V> xs[NV];
+      __syncwarp();
+      for (int tt = 0; tt < tiles; ++tt) {
+        const int col0 = tt * TILE;
+        if (tt > 0) {
+          ln.init(lane, hc, c, col0);
+          load_own();
+          rows::load_group(rw, xh, src_s, 0, k, hc, ln);
+        }
+        float bq[1][NV];
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          bq[0][q] = 0.f;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            u[q][v] = ru[q].at(v);
+            bq[0][q] = fmaf(u[q][v], rx[q].at(v), bq[0][q]);
+          }
+        }
+        rows::head_sum(bq, ln, seg, heads);
+#pragma unroll
+        for (int q = 0; q < NV; ++q)
+          if (ln.first(q, c, col0)) b_s[ln.head[q]] += bq[0][q];
+        for (int s0 = 0; s0 < k; s0 += GROUP) {
+          if (s0 > 0) rows::load_group(rw, xh, src_s, s0, k, hc, ln);
+          float p[GROUP][NV];
+#pragma unroll
+          for (int w = 0; w < GROUP; ++w)
+#pragma unroll
+            for (int q = 0; q < NV; ++q) {
+              p[w][q] = 0.f;
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                p[w][q] = fmaf(u[q][v], rw[w][q].at(v), p[w][q]);
+            }
+          rows::head_sum(p, ln, seg, heads);
+#pragma unroll
+          for (int w = 0; w < GROUP; ++w) {
+            const int s = s0 + w;
+            if (s >= k) continue;   // the same for every lane
+#pragma unroll
+            for (int q = 0; q < NV; ++q)
+              if (ln.first(q, c, col0)) a_s[s * heads + ln.head[q]] += p[w][q];
+          }
+        }
+        for (int e = lo; e < hi; ++e) {
+          const int f = e == lo ? f0 : sp_perm[e];   // the same for every lane
+          const long long sp = own_entry(f, dst_loc, t, row, s_max);
+          const int el_ = e - lo;
+          if (sp < 0) continue;
+          float cq[1][NV];
+          rows::Raw<T, V> xs[NV];
+#pragma unroll
+          for (int q = 0; q < NV; ++q) {
+            if (e == lo && tt == 0)
+              xs[q] = xs0[q];
+            else if (ln.in(q))
+              xs[q].load(xh_spill + (long long)f * hc + ln.col[q]);
+            else
+              xs[q].zero();
+            const float inv = inv_s[ln.head[q]];
+            cq[0][q] = 0.f;
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              cq[0][q] = fmaf(LOWP ? round_bf(u[q][v] * inv) : u[q][v],
+                              xs[q].at(v), cq[0][q]);
+          }
+          rows::head_sum(cq, ln, seg, heads);
+#pragma unroll
+          for (int q = 0; q < NV; ++q) {
+            if (!ln.in(q)) continue;
+            const int h = ln.head[q];
+            const float inv = inv_s[h];
+            const long long o = (t * heads + h) * s_max + sp;
+            if (ln.first(q, c, col0)) {
+              if (el_ < k)
+                wcs_s[el_ * heads + h] += cq[0][q];
+              else
+                dl_spill[o] += cq[0][q];
+            }
+            const float w = expf(fminf(l_spill[o] - m_s[h], 60.f)) *
+                            (dm_sp != nullptr ? dm_sp[o] : 1.f);
+            float dxs[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              dxs[v] = LOWP ? w * round_bf(u[q][v] * inv) : w * u[q][v] * inv;
+            rows::store<float, V>(dxh_spill + (long long)f * hc + ln.col[q],
+                                  dxs);
+          }
+        }
+        __syncwarp();
+      }
+      // per pair and per head, from the sums over the tiles
+      for (int o = lane; o < kh; o += WARP) a_s[o] *= inv_s[o % heads];
+      for (int h = lane; h < heads; h += WARP) b_s[h] *= inv_s[h];
+      for (int o = lane; o < (hi - lo) * heads; o += WARP) {
+        const int el_ = o / heads, h = o % heads;
+        const long long sp =
+            el_ < k ? (long long)spf_s[el_]
+                    : own_entry(sp_perm[lo + el_], dst_loc, t, row, s_max);
+        if (sp < 0) continue;
+        const long long idx = (t * heads + h) * s_max + sp;
+        const float raw = el_ < k ? wcs_s[o] : dl_spill[idx];
+        const float cs = LOWP ? raw : raw * inv_s[h];
+        const float er = expf(fminf(l_spill[idx] - m_s[h], 60.f));
+        const float w = er * (dm_sp != nullptr ? dm_sp[idx] : 1.f);
+        if (el_ < k) {
+          wcs_s[o] = w * cs;
+          ew_s[o] = er;
+        } else {
+          dl_spill[idx] = w * cs;
+        }
+      }
+      __syncwarp();
+      for (int h = lane; h < heads; h += WARP) {
+        float sea = has_self ? es_s[h] * dms_s[h] * b_s[h] : 0.f;
+        for (int s = 0; s < k; ++s) {
+          const int o = s * heads + h;
+          sea = fmaf(e_s[o] * dm_s[o], a_s[o], sea);
+        }
+        for (int el_ = 0; el_ < hi - lo; ++el_) {
+          const long long sp =
+              el_ < k ? (long long)spf_s[el_]
+                      : own_entry(sp_perm[lo + el_], dst_loc, t, row, s_max);
+          if (sp < 0) continue;
+          sea += el_ < k ? wcs_s[el_ * heads + h]
+                         : dl_spill[(t * heads + h) * s_max + sp];
+        }
+        ddn_s[h] = -sea * inv_s[h];
+      }
+      __syncwarp();
+    } else {
+      float bq[1][NV], sea[NV];
 #pragma unroll
       for (int q = 0; q < NV; ++q) {
-        if (e == lo)
-          xs[q] = xs0[q];
-        else if (ln.in(q))
-          xs[q].load(xh_spill + (long long)f * hc + ln.col[q]);
-        else
-          xs[q].zero();
-        const float inv = inv_s[ln.head[q]];
-        cq[0][q] = 0.f;
+        bq[0][q] = 0.f;
 #pragma unroll
-        for (int v = 0; v < V; ++v)
-          cq[0][q] = fmaf(LOWP ? round_bf(u[q][v] * inv) : u[q][v],
-                          xs[q].at(v), cq[0][q]);
+        for (int v = 0; v < V; ++v) {
+          u[q][v] = ru[q].at(v);
+          x[q][v] = rx[q].at(v);
+          bq[0][q] = fmaf(u[q][v], x[q][v], bq[0][q]);
+        }
       }
-      rows::head_sum(cq, ln, seg, heads);
+      rows::head_sum(bq, ln, seg, heads);
 #pragma unroll
       for (int q = 0; q < NV; ++q) {
         const int h = ln.head[q];
-        const float inv = inv_s[h];
-        const long long o = (t * heads + h) * s_max + sp;
-        const float cs = LOWP ? cq[0][q] : cq[0][q] * inv;
-        const float er = expf(fminf(l_spill[o] - m_s[h], 60.f));
-        const float w = er * (dm_sp != nullptr ? dm_sp[o] : 1.f);
-        sea[q] = fmaf(w, cs, sea[q]);
-        if (!ln.in(q)) continue;
-        float dxs[V];
+        const float b = bq[0][q] * inv_s[h];
+        sea[q] = has_self ? es_s[h] * dms_s[h] * b : 0.f;
+        if (ln.in(q)) b_s[h] = b;   // a head's lanes agree
+      }
+
+      for (int s0 = 0; s0 < k; s0 += GROUP) {
+        if (s0 > 0) rows::load_group(rw, xh, src_s, s0, k, hc, ln);
+        float p[GROUP][NV];
 #pragma unroll
-        for (int v = 0; v < V; ++v)
-          dxs[v] = LOWP ? w * round_bf(u[q][v] * inv) : w * u[q][v] * inv;
-        rows::store<float, V>(dxh_spill + (long long)f * hc + ln.col[q], dxs);
-        if (el_ < k) {   // a head's lanes agree
-          wcs_s[el_ * heads + h] = w * cs;
-          ew_s[el_ * heads + h] = er;
-        } else {
-          dl_spill[o] = w * cs;
+        for (int w = 0; w < GROUP; ++w)
+#pragma unroll
+          for (int q = 0; q < NV; ++q) {
+            p[w][q] = 0.f;
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              p[w][q] = fmaf(u[q][v], rw[w][q].at(v), p[w][q]);
+          }
+        rows::head_sum(p, ln, seg, heads);
+#pragma unroll
+        for (int w = 0; w < GROUP; ++w) {
+          const int s = s0 + w;
+          if (s >= k) continue;   // the same for every lane
+#pragma unroll
+          for (int q = 0; q < NV; ++q) {
+            const int h = ln.head[q], o = s * heads + h;
+            const float pv = p[w][q] * inv_s[h];   // 0 with no source
+            sea[q] = fmaf(e_s[o] * dm_s[o], pv, sea[q]);
+            if (ln.in(q)) a_s[o] = pv;
+          }
         }
       }
-    }
+
+      // the row's spill entries: c_s, d xh_spill, and d l_spill's first term
+      // (kept with the exponential for the second, in the entry tables)
+      for (int e = lo; e < hi; ++e) {
+        const int f = e == lo ? f0 : sp_perm[e];   // the same for every lane
+        const long long sp = own_entry(f, dst_loc, t, row, s_max);
+        const int el_ = e - lo;
+        if (el_ < k && lane == 0) spf_s[el_] = (float)sp;
+        if (sp < 0) continue;
+        float cq[1][NV];
+        rows::Raw<T, V> xs[NV];
 #pragma unroll
-    for (int q = 0; q < NV; ++q)
-      if (ln.in(q)) ddn_s[ln.head[q]] = -sea[q] * inv_s[ln.head[q]];
-    __syncwarp();
+        for (int q = 0; q < NV; ++q) {
+          if (e == lo)
+            xs[q] = xs0[q];
+          else if (ln.in(q))
+            xs[q].load(xh_spill + (long long)f * hc + ln.col[q]);
+          else
+            xs[q].zero();
+          const float inv = inv_s[ln.head[q]];
+          cq[0][q] = 0.f;
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            cq[0][q] = fmaf(LOWP ? round_bf(u[q][v] * inv) : u[q][v],
+                            xs[q].at(v), cq[0][q]);
+        }
+        rows::head_sum(cq, ln, seg, heads);
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          const int h = ln.head[q];
+          const float inv = inv_s[h];
+          const long long o = (t * heads + h) * s_max + sp;
+          const float cs = LOWP ? cq[0][q] : cq[0][q] * inv;
+          const float er = expf(fminf(l_spill[o] - m_s[h], 60.f));
+          const float w = er * (dm_sp != nullptr ? dm_sp[o] : 1.f);
+          sea[q] = fmaf(w, cs, sea[q]);
+          if (!ln.in(q)) continue;
+          float dxs[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            dxs[v] = LOWP ? w * round_bf(u[q][v] * inv) : w * u[q][v] * inv;
+          rows::store<float, V>(dxh_spill + (long long)f * hc + ln.col[q], dxs);
+          if (el_ < k) {   // a head's lanes agree
+            wcs_s[el_ * heads + h] = w * cs;
+            ew_s[el_ * heads + h] = er;
+          } else {
+            dl_spill[o] = w * cs;
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NV; ++q)
+        if (ln.in(q)) ddn_s[ln.head[q]] = -sea[q] * inv_s[ln.head[q]];
+      __syncwarp();
+    }
     // d l_spill = w c_s + e_s ddenom (lanes own (entry, head) pairs)
     for (int o = lane; o < (hi - lo) * heads; o += WARP) {
       const int el_ = o / heads, h = o % heads;
@@ -485,6 +673,38 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
 
     // ---- d acat: the row's own terms with its first group of in-band
     // rows, then any further groups
+    if constexpr (TILED) {
+      for (int tt = 0; tt < tiles; ++tt) {
+        ln.init(lane, hc, c, tt * TILE);
+        load_own();
+        for (int s0 = 0; s0 < k; s0 += GROUP) {
+          rows::load_group(rw, xh, src_s, s0, k, hc, ln);
+          for (int hh = 0; hh < heads; ++hh) {
+            const float dls = dls_s[hh], dst = dst_s[hh];
+#pragma unroll
+            for (int q = 0; q < NV; ++q) {
+              if (!ln.in(q)) continue;
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                const float xv = rx[q].at(v);
+                float tq = s0 == 0 ? xv * dls : 0.f;
+#pragma unroll
+                for (int w = 0; w < GROUP; ++w) {
+                  const int s = s0 + w;
+                  if (s >= k || src_s[s] < 0) continue;
+                  tq = fmaf(dd[s * heads + hh], rw[w][q].at(v), tq);
+                }
+                float* a = pw + (long long)(ln.col[q] + v) * h2;
+                a[hh] += tq;
+                if (s0 == 0) a[heads + hh] = fmaf(xv, dst, a[heads + hh]);
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+      continue;
+    }
     for (int s0 = 0; s0 < k; s0 += GROUP) {
       if (k > GROUP) rows::load_group(rw, xh, src_s, s0, k, hc, ln);
       for (int hh = 0; hh < heads; ++hh) {
@@ -524,6 +744,7 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
   }
 
   // the block's partials of d acat [HC, 2 * heads]: its warps' in order
+  if constexpr (TILED) return;
   __syncthreads();
   const float* aw0 = reinterpret_cast<const float*>(
       reinterpret_cast<const char*>(smem) + dst_tables_bytes(wpb, k, heads));
@@ -539,8 +760,10 @@ v2_bwd_dst_kernel(const T* __restrict__ xh, const float* __restrict__ ac,
 // its in-band slots (source-sorted: perm[row_ptr[j]:row_ptr[j + 1]]), then
 // d xh[j, :] = cself[j] u[j] + sum_slots alpha u[dst] + acat @ dac[j]
 // (bf16 form: each message alpha u[dst] and dac[j] rounded to bf16 first).
-// acat [HC, 2 * heads] is staged once per block, transposed, as f32.
-template <typename T, int V, int NV>
+// acat [HC, 2 * heads] is staged once per block, transposed, as f32; TILED
+// (rows wider than rows::chunks_for takes): the row's column tiles one
+// after the other, acat read from global memory.
+template <typename T, int V, int NV, bool TILED>
 __global__ void __launch_bounds__(THREADS, rows::SRC_MIN_BLOCKS)
 v2_bwd_src_kernel(const T* __restrict__ dout, const T* __restrict__ acat,
                   const float* __restrict__ alpha,
@@ -553,13 +776,17 @@ v2_bwd_src_kernel(const T* __restrict__ dout, const T* __restrict__ acat,
   constexpr bool LOWP = sizeof(T) == 2;
   extern __shared__ float acat_t[];   // [2 * heads, HC]
   const int hc = heads * c, h2 = 2 * heads;
-  for (int j = threadIdx.x; j < hc * h2; j += blockDim.x) {
-    const int col = j / h2, jj = j - col * h2;
-    acat_t[jj * hc + col] = ld(acat + j);
+  if constexpr (!TILED) {
+    for (int j = threadIdx.x; j < hc * h2; j += blockDim.x) {
+      const int col = j / h2, jj = j - col * h2;
+      acat_t[jj * hc + col] = ld(acat + j);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const int lane = threadIdx.x & (WARP - 1);
   const int wpb = blockDim.x / WARP;
+  constexpr int TILE = WARP * NV * V;   // columns of a tile
+  const int tiles = TILED ? (hc + TILE - 1) / TILE : 1;
   rows::Lanes<V, NV> ln;
   ln.init(lane, hc, c);
   const long long total = (long long)gridDim.x * wpb;
@@ -585,66 +812,77 @@ v2_bwd_src_kernel(const T* __restrict__ dout, const T* __restrict__ acat,
     for (int h = 0; h < MAX_HEADS; ++h)
       if (h < heads) d[h] += warp_sum(ds[h]);
 
-    float acc[NV][V];
+    for (int tile = 0; tile < tiles; ++tile) {
+      if (TILED) ln.init(lane, hc, c, tile * TILE);
+      float acc[NV][V];
 #pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      rows::Raw<T, V> g;
-      if (ln.in(q))
-        g.load(dout + j * hc + ln.col[q]);
-      else
-        g.zero();
-      const float cs = cself[j * heads + ln.head[q]];
+      for (int q = 0; q < NV; ++q) {
+        rows::Raw<T, V> g;
+        if (ln.in(q))
+          g.load(dout + j * hc + ln.col[q]);
+        else
+          g.zero();
+        const float cs = cself[j * heads + ln.head[q]];
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[q][v] = cs * g.at(v);
-    }
-    for (int base = lo; base < hi; base += WARP) {
-      const int mine = base + lane < hi ? perm[base + lane] : 0;
-      const int cnt = hi - base < WARP ? hi - base : WARP;
+        for (int v = 0; v < V; ++v) acc[q][v] = cs * g.at(v);
+      }
+      for (int base = lo; base < hi; base += WARP) {
+        const int mine = base + lane < hi ? perm[base + lane] : 0;
+        const int cnt = hi - base < WARP ? hi - base : WARP;
 #pragma unroll 4
-      for (int tt = 0; tt < cnt; ++tt) {
-        const long long slot = __shfl_sync(FULL, mine, tt);
-        const long long i = slot / k;
+        for (int tt = 0; tt < cnt; ++tt) {
+          const long long slot = __shfl_sync(FULL, mine, tt);
+          const long long i = slot / k;
 #pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          if (!ln.in(q)) continue;
-          const float a = alpha[slot * heads + ln.head[q]];
-          rows::Raw<T, V> g;
-          g.load(dout + i * hc + ln.col[q]);
+          for (int q = 0; q < NV; ++q) {
+            if (!ln.in(q)) continue;
+            const float a = alpha[slot * heads + ln.head[q]];
+            rows::Raw<T, V> g;
+            g.load(dout + i * hc + ln.col[q]);
 #pragma unroll
-          for (int v = 0; v < V; ++v)
-            acc[q][v] = LOWP ? acc[q][v] + round_bf(a * g.at(v))
-                             : fmaf(a, g.at(v), acc[q][v]);
+            for (int v = 0; v < V; ++v)
+              acc[q][v] = LOWP ? acc[q][v] + round_bf(a * g.at(v))
+                               : fmaf(a, g.at(v), acc[q][v]);
+          }
         }
       }
-    }
 #pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      if (!ln.in(q)) continue;
+      for (int q = 0; q < NV; ++q) {
+        if (!ln.in(q)) continue;
 #pragma unroll
-      for (int jj = 0; jj < 2 * MAX_HEADS; ++jj) {
-        if (jj >= h2) break;
-        float a[V];
-        rows::lds<V>(acat_t + jj * hc + ln.col[q], a);
-        const float dj = LOWP ? round_bf(d[jj]) : d[jj];
+        for (int jj = 0; jj < 2 * MAX_HEADS; ++jj) {
+          if (jj >= h2) break;
+          float a[V];
+          if constexpr (TILED) {
 #pragma unroll
-        for (int v = 0; v < V; ++v) acc[q][v] = fmaf(dj, a[v], acc[q][v]);
+            for (int v = 0; v < V; ++v)
+              a[v] = ld(acat + (long long)(ln.col[q] + v) * h2 + jj);
+          } else {
+            rows::lds<V>(acat_t + jj * hc + ln.col[q], a);
+          }
+          const float dj = LOWP ? round_bf(d[jj]) : d[jj];
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[q][v] = fmaf(dj, a[v], acc[q][v]);
+        }
+        rows::store<T, V>(dxh + j * hc + ln.col[q], acc[q]);
       }
-      rows::store<T, V>(dxh + j * hc + ln.col[q], acc[q]);
     }
   }
 }
 
-// Runs f(destination kernel, source kernel) for the form of a call;
-// returns f's result, or cudaErrorInvalidValue for a row wider than the
-// templates.
+// Runs f(destination kernel, source kernel) for the form of a call (the
+// untiled instances that hold the row, else the tiled ones); returns f's
+// result.
 template <typename T, class F>
 cudaError_t with_v2_kernels(int width, int hc, F&& f) {
   constexpr int VW = sizeof(T) == 2 ? 8 : 4;
   const auto pick = [&](auto vw) {
     constexpr int V = decltype(vw)::value;
-    return rows::with_chunks<V>(hc, [&](auto nv) {
+    return rows::with_row_form<V>(hc, [&](auto nv, auto tiled) {
       constexpr int NV = decltype(nv)::value;
-      return f(v2_bwd_dst_kernel<T, V, NV>, v2_bwd_src_kernel<T, V, NV>);
+      constexpr bool TILED = decltype(tiled)::value;
+      return f(v2_bwd_dst_kernel<T, V, NV, TILED>,
+               v2_bwd_src_kernel<T, V, NV, TILED>);
     });
   };
   if (width == VW) return pick(std::integral_constant<int, VW>{});
@@ -662,19 +900,22 @@ cudaError_t with_v2_form(int dtype, int width, int hc, F&& f) {
 // The number of destination-pass blocks kernel D' launches for a call of
 // this form (as many as stay resident on the current card, at most one
 // per warp's row), i.e. the rows of its d acat partials; 0 when it cannot
-// take the call (a row wider than rows::chunks_for takes, or too much shared
-// memory).
+// take the call (one warp's tables and, untiled, its d acat accumulator
+// [2 * heads, HC] over the card's shared memory: the limit D's and the
+// dots' staged a_cat_mat have too).
 extern "C" int ell_gat_v2_bwd_blocks(int dtype, long long n, int k,
                                      int heads, int c, int vec) {
   if (n < 1 || k < 1 || heads < 1 || heads > MAX_HEADS || c < 1 ||
       (dtype != 0 && dtype != 1))
     return 0;
   const int hc = heads * c;
-  const int wpb = dst_warps(k, heads, hc);
-  const size_t smem = dst_smem(wpb, k, heads, hc);
+  const int width = rows::row_width(dtype == 1, vec, c);
+  const bool tiled = rows::row_tiled(hc, width);
+  const int wpb = dst_warps(k, heads, hc, tiled);
+  const size_t smem = dst_smem(wpb, k, heads, hc, tiled);
   int blocks = 0;
   const cudaError_t err = with_v2_form(
-      dtype, rows::row_width(dtype == 1, vec, c), hc, [&](auto dst, auto) {
+      dtype, width, hc, [&](auto dst, auto) {
         if (!rows::allow_smem(dst, smem)) return cudaErrorInvalidValue;
         blocks = rows::resident_blocks(dst, wpb * WARP, smem,
                                        (n + wpb - 1) / wpb);
@@ -704,9 +945,10 @@ int launch_v2_bwd(const void* xh, const void* acat, const void* loc,
                                    hc, h2, s);
     if (err != cudaSuccess) return (int)err;
   }
-  const int wpb = dst_warps(k, heads, hc);
-  const size_t dsmem = dst_smem(wpb, k, heads, hc);
-  const size_t ssmem = (size_t)hc * h2 * sizeof(float);
+  const bool tiled = rows::row_tiled(hc, width);
+  const int wpb = dst_warps(k, heads, hc, tiled);
+  const size_t dsmem = dst_smem(wpb, k, heads, hc, tiled);
+  const size_t ssmem = tiled ? 0 : (size_t)hc * h2 * sizeof(float);
   const int seg = rows::head_lanes(c, width);
   err = with_v2_kernels<T>(width, hc, [&](auto dst, auto src) {
     if (!rows::allow_smem(dst, dsmem) || !rows::allow_smem(src, ssmem))
@@ -756,7 +998,8 @@ int launch_v2_bwd(const void* xh, const void* acat, const void* loc,
 // `blocks` must be ell_gat_v2_bwd_blocks of the same form). vec 4
 // (16-byte row chunks) needs 16-byte aligned xh, xh_spill, dout, dxh and
 // dxh_spill; the chunks are 4 floats (c % 4 == 0) or 8 bf16 (c % 8 == 0),
-// HC <= 2048 (f32) or 4096 (bf16), else single columns (HC <= 1024).
+// else single columns; rows wider than HC 2048 (f32) or 4096 (bf16), 1024
+// in single columns, run in column tiles (rows::TILE_NV).
 // Launches on `stream`; returns the CUDA
 // error code of the launches.
 extern "C" int ell_gat_v2_bwd(

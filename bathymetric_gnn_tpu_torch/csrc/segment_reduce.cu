@@ -59,8 +59,8 @@ extern "C" int segment_reduce_sorted(int dtype, const void* ct,
 // att_src[h, :]. alpha, dl [n * k, heads] f32; dy [n, heads * c] f32;
 // att_src [heads * c] f32; perm / row_ptr as mode (a); out overwritten.
 // vec 4 (16-byte row chunks) needs c % 4 == 0 and 16-byte aligned dy,
-// att_src and out and takes heads * c <= 2048; vec 1 takes heads * c <=
-// 1024.
+// att_src and out; rows wider than heads * c 2048 (vec 4) or 1024 (vec 1)
+// run in column tiles.
 extern "C" int segment_reduce_gat_rows(const void* alpha, const void* dl,
                                        const void* dy, const void* att_src,
                                        const void* perm, const void* row_ptr,

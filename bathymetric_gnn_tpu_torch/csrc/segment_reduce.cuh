@@ -91,7 +91,12 @@ inline cudaError_t launch_reduce(const T* ct, const int* perm,
 // without DSIDE) in registers as f32. The segment's slot numbers are
 // loaded 32 at a time, one per lane, and broadcast, so the dy rows of
 // consecutive slots are requested together.
-template <typename T, int V, int NV, bool DSIDE, typename TO>
+//
+// TILED (rows wider than rows::chunks_for takes): the warp takes the row's
+// column tiles of NV chunks a lane one after the other, each a walk of the
+// segment, and reloads its columns of att per tile; each column's sum runs
+// in the same order as untiled.
+template <typename T, int V, int NV, bool DSIDE, typename TO, bool TILED>
 __global__ void __launch_bounds__(ellgat::THREADS, rows::SRC_MIN_BLOCKS)
 gat_src_kernel(const float* __restrict__ alpha, const float* __restrict__ dl,
                const T* __restrict__ dy, const T* __restrict__ att,
@@ -102,88 +107,97 @@ gat_src_kernel(const float* __restrict__ alpha, const float* __restrict__ dl,
   const int hc = heads * c;
   const int lane = threadIdx.x & (WARP - 1);
   const int wpb = blockDim.x / WARP;
+  constexpr int TILE = WARP * NV * V;   // columns of a tile
+  const int tiles = TILED ? (hc + TILE - 1) / TILE : 1;
   rows::Lanes<V, NV> ln;
-  ln.init(lane, hc, c);
-  // the lane's columns of att_src and att_dst, as f32, for every row
+  // the lane's columns of att_src and att_dst, as f32, for every row (of
+  // the tile, when tiled)
   float ts[NV][V], td[NV][V];
+  const auto load_att = [&](int col0) {
+    ln.init(lane, hc, c, col0);
 #pragma unroll
-  for (int u = 0; u < NV; ++u) {
-    rows::Raw<T, V> a, b;
-    if (ln.in(u)) {
-      a.load(att + ln.col[u]);
-      if (DSIDE)
-        b.load(att + hc + ln.col[u]);
-      else
+    for (int u = 0; u < NV; ++u) {
+      rows::Raw<T, V> a, b;
+      if (ln.in(u)) {
+        a.load(att + ln.col[u]);
+        if (DSIDE)
+          b.load(att + hc + ln.col[u]);
+        else
+          b.zero();
+      } else {
+        a.zero();
         b.zero();
-    } else {
-      a.zero();
-      b.zero();
-    }
+      }
 #pragma unroll
-    for (int q = 0; q < V; ++q) {
-      ts[u][q] = a.at(q);
-      td[u][q] = b.at(q);
+      for (int q = 0; q < V; ++q) {
+        ts[u][q] = a.at(q);
+        td[u][q] = b.at(q);
+      }
     }
-  }
+  };
+  load_att(0);
   const long long total = (long long)gridDim.x * wpb;
   for (long long j = (long long)blockIdx.x * wpb + threadIdx.x / WARP; j < n;
        j += total) {
-    const int lo = row_ptr[j], hi = row_ptr[j + 1];
-    float acc[NV][V];
+    for (int tile = 0; tile < tiles; ++tile) {
+      if (TILED) load_att(tile * TILE);
+      const int lo = row_ptr[j], hi = row_ptr[j + 1];
+      float acc[NV][V];
 #pragma unroll
-    for (int u = 0; u < NV; ++u) {
+      for (int u = 0; u < NV; ++u) {
 #pragma unroll
-      for (int q = 0; q < V; ++q) acc[u][q] = 0.f;
-      if (DSIDE && ln.in(u)) {
-        const int h = ln.head[u], col = ln.col[u];
-        const float* d = dsc + j * 3 * heads + h;
-        const float a_self = d[0], dst_r = d[heads], dls_r = d[2 * heads];
-        rows::Raw<T, V> g;
-        g.load(dy + j * hc + col);
-#pragma unroll
-        for (int q = 0; q < V; ++q)
-          acc[u][q] = fmaf(a_self, g.at(q),
-                           fmaf(dst_r, td[u][q], dls_r * ts[u][q]));
-      }
-    }
-    for (int base = lo; base < hi; base += WARP) {
-      const int mine = base + lane < hi ? perm[base + lane] : 0;
-      const int cnt = hi - base < WARP ? hi - base : WARP;
-#pragma unroll 4
-      for (int t = 0; t < cnt; ++t) {
-        const long long slot = __shfl_sync(ellgat::FULL, mine, t);
-        const long long i = slot / k;
-#pragma unroll
-        for (int u = 0; u < NV; ++u) {
-          if (!ln.in(u)) continue;
+        for (int q = 0; q < V; ++q) acc[u][q] = 0.f;
+        if (DSIDE && ln.in(u)) {
           const int h = ln.head[u], col = ln.col[u];
-          const float a = alpha[slot * heads + h];
-          const float d = dl[slot * heads + h];
+          const float* d = dsc + j * 3 * heads + h;
+          const float a_self = d[0], dst_r = d[heads], dls_r = d[2 * heads];
           rows::Raw<T, V> g;
-          g.load(dy + i * hc + col);
-          if (LOWP) {
-            const float iv = inv[i * heads + h];
+          g.load(dy + j * hc + col);
 #pragma unroll
-            for (int q = 0; q < V; ++q)
-              acc[u][q] += fmaf(a, round_bf(g.at(q) * iv),
-                                round_bf(d * ts[u][q]));
-          } else {
+          for (int q = 0; q < V; ++q)
+            acc[u][q] = fmaf(a_self, g.at(q),
+                             fmaf(dst_r, td[u][q], dls_r * ts[u][q]));
+        }
+      }
+      for (int base = lo; base < hi; base += WARP) {
+        const int mine = base + lane < hi ? perm[base + lane] : 0;
+        const int cnt = hi - base < WARP ? hi - base : WARP;
+#pragma unroll 4
+        for (int t = 0; t < cnt; ++t) {
+          const long long slot = __shfl_sync(ellgat::FULL, mine, t);
+          const long long i = slot / k;
 #pragma unroll
-            for (int q = 0; q < V; ++q)
-              acc[u][q] += fmaf(a, g.at(q), d * ts[u][q]);
+          for (int u = 0; u < NV; ++u) {
+            if (!ln.in(u)) continue;
+            const int h = ln.head[u], col = ln.col[u];
+            const float a = alpha[slot * heads + h];
+            const float d = dl[slot * heads + h];
+            rows::Raw<T, V> g;
+            g.load(dy + i * hc + col);
+            if (LOWP) {
+              const float iv = inv[i * heads + h];
+#pragma unroll
+              for (int q = 0; q < V; ++q)
+                acc[u][q] += fmaf(a, round_bf(g.at(q) * iv),
+                                  round_bf(d * ts[u][q]));
+            } else {
+#pragma unroll
+              for (int q = 0; q < V; ++q)
+                acc[u][q] += fmaf(a, g.at(q), d * ts[u][q]);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < NV; ++u)
-      if (ln.in(u)) rows::store<TO, V>(out + j * hc + ln.col[u], acc[u]);
+      for (int u = 0; u < NV; ++u)
+        if (ln.in(u)) rows::store<TO, V>(out + j * hc + ln.col[u], acc[u]);
+    }
   }
 }
 
 // Launches gat_src_kernel for n rows at vector width V (4 or 8 for 16-byte
-// chunks, 1 for scalar columns) on stream s; cudaErrorInvalidValue when a
-// row needs more chunks than the templates hold.
+// chunks, 1 for scalar columns) on stream s, in column tiles when a row
+// needs more chunks than the untiled instances hold.
 template <typename T, int V, bool DSIDE, typename TO>
 inline cudaError_t launch_gat_src(const float* alpha, const float* dl,
                                   const T* dy, const T* att, const float* inv,
@@ -191,9 +205,10 @@ inline cudaError_t launch_gat_src(const float* alpha, const float* dl,
                                   const int* row_ptr, TO* out, long long n,
                                   int k, int heads, int c, cudaStream_t s) {
   const int rows_per_block = ellgat::THREADS / WARP;
-  return rows::with_chunks<V>(heads * c, [&](auto nv) {
+  return rows::with_row_form<V>(heads * c, [&](auto nv, auto tiled) {
     constexpr int NV = decltype(nv)::value;
-    auto* kernel = gat_src_kernel<T, V, NV, DSIDE, TO>;
+    auto* kernel =
+        gat_src_kernel<T, V, NV, DSIDE, TO, decltype(tiled)::value>;
     const int blocks = rows::resident_blocks(
         kernel, ellgat::THREADS, 0, (n + rows_per_block - 1) / rows_per_block);
     kernel<<<(unsigned)blocks, ellgat::THREADS, 0, s>>>(

@@ -4,11 +4,15 @@
 - ``build_grid_inputs``: the dense-grid model's inputs, batched over
   [B, H, W] tiles (it stands in for the JAX path's ``jax.vmap`` of the
   per-tile function).
-- ``GraphBuilder`` with ``knn_k > 0``: a grid's featurization plus k-NN
-  edges over the valid cells, nodes in Hilbert order
-  (``_build_knn_from_grid``, ``build_knn_graph``), all on the host, packed
-  into an ``ops.graph.PaddedGraph``. The grid-connectivity branch
-  (``knn_k == 0``) is not ported yet and raises.
+- ``GraphBuilder``: a grid's featurization plus its edges, on the host
+  (torch on the CPU), packed into an ``ops.graph.PaddedGraph``. With
+  ``knn_k == 0`` (``build_grid_graph``, the JAX ``_build_graph_device``)
+  the edges are the grid's 4/8-connectivity (+ self loops), nodes in
+  row-major order; with ``knn_k > 0`` k-NN edges over the valid cells,
+  nodes in Hilbert order (``_build_knn_from_grid``, ``build_knn_graph``).
+  The host, not the card: a serving flush builds its next graphs while
+  the card runs the previous forward, and a graph built on the card would
+  have to come back through a copy that waits for that forward.
 """
 
 from __future__ import annotations
@@ -24,13 +28,6 @@ from ..ops import edges as edge_ops
 from ..ops import features as feat_ops
 from ..ops.edges import offsets_for_connectivity
 from ..ops.graph import PaddedGraph, make_padded_graph, round_up_to_bucket
-
-# ROADMAP.md's item for the grid-connectivity graph path
-GRID_GRAPH_NOT_PORTED = (
-    "grid-connectivity graphs (graph.knn_k == 0) are not ported to the "
-    "PyTorch port yet (ROADMAP.md, next slices: 'default VR route': "
-    "data/slab_build.py and the grid-connectivity GraphBuilder branch); "
-    "set graph.knn_k > 0 (CLI: --knn-k 8)")
 
 
 def build_grid_inputs(
@@ -60,6 +57,43 @@ def build_grid_inputs(
                                 (float(resolution[0]), float(resolution[1])))
     eattr = torch.where(nbr[..., None], eattr, torch.zeros_like(eattr))
     return gf.features, valid_mask, nbr, eattr, gf.local_std
+
+
+def build_grid_graph(depth: torch.Tensor, valid_mask: torch.Tensor,
+                     uncertainty: Optional[torch.Tensor], *,
+                     resolution: Tuple[float, float], connectivity: int,
+                     include_self_loops: bool, n_pad: int, e_pad: int,
+                     stats_window: int):
+    """One grid [H, W] -> its grid-connectivity graph as a PaddedGraph of
+    NumPy arrays, with the node rows and cols [n_pad] (row-major valid
+    cells; padded slots at (0, 0)). The JAX ``_build_graph_device``'s
+    function, on the device of ``depth``."""
+    depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
+    gf = feat_ops.compute_grid_features(
+        depth[None], valid_mask[None],
+        None if uncertainty is None else uncertainty[None], stats_window)
+    feats, local_std = gf.features[0], gf.local_std[0]
+    rows, cols, node_valid = edge_ops.enumerate_nodes(valid_mask, n_pad)
+    depth_c = torch.where(valid_mask, depth, torch.zeros_like(depth))
+    depth_filled = torch.where(valid_mask, depth_c, gf.local_mean[0])
+    src, dst, attr, mask = edge_ops.enumerate_edges_coo(
+        valid_mask, rows, cols, node_valid, depth_filled, resolution,
+        connectivity, include_self_loops)
+    src, dst, attr, emask = edge_ops.compact_edges(src, dst, attr, mask,
+                                                   e_pad, n_pad)
+    rl, cl = rows.long(), cols.long()
+    x = torch.where(node_valid[:, None], feats[rl, cl],
+                    torch.zeros((), device=depth.device))
+    lstd = torch.where(node_valid, local_std[rl, cl],
+                       torch.zeros((), device=depth.device))
+    pos = torch.stack([cols, rows], -1).to(torch.float32)
+    g = PaddedGraph(
+        x=x.cpu().numpy(), edge_src=src.cpu().numpy(),
+        edge_dst=dst.cpu().numpy(), edge_attr=attr.cpu().numpy(),
+        node_mask=node_valid.cpu().numpy(), edge_mask=emask.cpu().numpy(),
+        pos=pos.cpu().numpy(), local_std=lstd.cpu().numpy(),
+        graph_id=np.zeros(n_pad, np.int32))
+    return g, rows.cpu().numpy(), cols.cpu().numpy()
 
 
 class BuiltGraph:
@@ -94,6 +128,15 @@ class GraphBuilder:
         self.cfg = graph_config or GraphConfig()
         self.buckets = bucket_config or BucketConfig()
 
+    def pad_sizes(self, num_valid: int) -> Tuple[int, int]:
+        """(n_pad, e_pad) of a grid-connectivity graph of ``num_valid``
+        nodes: the node bucket, and connectivity (+ 1 with self loops)
+        slots a node."""
+        n_pad = round_up_to_bucket(max(num_valid, 1),
+                                   self.buckets.node_buckets)
+        k = self.cfg.connectivity + (1 if self.cfg.include_self_loops else 0)
+        return n_pad, n_pad * k
+
     def build_graph(
         self,
         depth: np.ndarray,
@@ -101,15 +144,29 @@ class GraphBuilder:
         uncertainty: Optional[np.ndarray] = None,
         resolution: Tuple[float, float] = (1.0, 1.0),
     ) -> BuiltGraph:
-        """Grid -> graph. With ``knn_k > 0`` (the only ported branch) the
-        grid featurization is kept and the edges come from a k-NN build
-        over the valid-cell coordinates."""
+        """Grid -> graph: grid connectivity with ``knn_k == 0``; with
+        ``knn_k > 0`` the grid featurization is kept and the edges come
+        from a k-NN build over the valid-cell coordinates."""
         if valid_mask is None:
             valid_mask = np.isfinite(depth)
-        if self.cfg.knn_k <= 0:
-            raise NotImplementedError(GRID_GRAPH_NOT_PORTED)
-        return self._build_knn_from_grid(depth, valid_mask, uncertainty,
-                                         resolution)
+        if self.cfg.knn_k > 0:
+            return self._build_knn_from_grid(depth, valid_mask, uncertainty,
+                                             resolution)
+        valid_mask = np.asarray(valid_mask, bool)
+        num_valid = int(valid_mask.sum())
+        n_pad, e_pad = self.pad_sizes(num_valid)
+        g, rows, cols = build_grid_graph(
+            torch.from_numpy(np.asarray(depth, np.float32)),
+            torch.from_numpy(valid_mask),
+            None if uncertainty is None else
+            torch.from_numpy(np.asarray(uncertainty, np.float32)),
+            resolution=(float(resolution[0]), float(resolution[1])),
+            connectivity=self.cfg.connectivity,
+            include_self_loops=self.cfg.include_self_loops,
+            n_pad=n_pad, e_pad=e_pad,
+            stats_window=self.cfg.local_stats_window)
+        return BuiltGraph(g, grid_shape=depth.shape, num_nodes=num_valid,
+                          rows=rows, cols=cols)
 
     def _build_knn_from_grid(self, depth, valid_mask, uncertainty,
                              resolution) -> BuiltGraph:

@@ -7,9 +7,11 @@ parameter names and shapes (``lin_src`` [F, HC], ``att_src`` /
 ``att_dst`` / ``att_edge`` [1, heads, C], ``lin_edge`` [edge_dim, HC],
 ``bias``), so one state_dict drives either:
 
-- ``GATConvELL``: plain PyTorch gathers, through kernel C's plain version
-  ``ell_gat_reference`` on any device (the JAX ``sparse_kernel="xla"``
-  route, which is plain XLA there too);
+- ``GATConvELL``: the JAX ``sparse_kernel="xla"`` route (plain XLA there),
+  whose function, the true-max softmax over the live slots and the self
+  loop, is kernel C's: kernel C serving and kernels C and C' with a
+  gradient (``ops/cuda/ell_gat_fused``) on the card, their plain version
+  on the CPU;
 - ``GATConvEllBanded``: the layer of the k-NN path, on the routes of the
   JAX module. Route C (JAX ``sparse_kernel="banded_pallas"``, the wide
   kernel): x @ W and the edge-logit terms are computed here; the attention
@@ -144,6 +146,61 @@ class _EllGATParams(nn.Module):
             el_self = mean_attr @ m_edge
         return el, el_self
 
+    def _grad_wanted(self) -> bool:
+        return self.training or (torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters()))
+
+    def _forward_c(self, g, x: torch.Tensor,
+                   dropout_rng: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        """Route C: x @ W and the edge-logit terms here; the attention
+        dots, masked softmax, attention dropout and weighted gather-sum in
+        ``ops/cuda/ell_gat_fused`` (kernel C serving; kernels C and C'
+        when a gradient is wanted), which also adds the bias and applies
+        the node mask when the heads concatenate."""
+        h, c = self.heads, self.out_channels
+        xh = x.to(self.cd) @ self.lin_src.to(self.cd)        # [N, HC]
+        el, el_self = self._edge_terms(g)
+        node_mask = g.node_mask.to(torch.bool)
+        fold = self.concat or h == 1   # bias and mask fold into the kernel
+        kw = dict(self_loop=self.add_self_loops,
+                  bias=self.bias if fold else None, node_mask=node_mask,
+                  negative_slope=self.negative_slope)
+        args = (xh, self.att_src, self.att_dst, g.nbr_src, g.nbr_mask, el,
+                el_self)
+        if self._grad_wanted():
+            out = ell_gat_fused.ell_gat_fused_train(
+                *args, **kw, **self._dropout_args(g, dropout_rng),
+                slot_tables=(g.slot_perm, g.slot_row_ptr)
+                if isinstance(g, EllTrainGraph) else None)
+        else:
+            out = ell_gat_fused.ell_gat_fused(*args, **kw)
+        if fold:
+            return out
+        return self._finish(out.reshape(x.shape[0], h, c), node_mask)
+
+    def _dropout_rng(self, dropout_rng):
+        """The generator of the attention dropout, or None without it."""
+        if not (self.training and self.dropout > 0):
+            return None
+        if dropout_rng is None:
+            raise ValueError("attention dropout in training mode needs a "
+                             "torch.Generator (dropout_rng)")
+        return dropout_rng
+
+    def _dropout_args(self, g, dropout_rng) -> dict:
+        dropout_rng = self._dropout_rng(dropout_rng)
+        if dropout_rng is None:
+            return {}
+        keep = 1.0 - self.dropout
+        n, k = g.nbr_src.shape
+        if g.nbr_src.device.type == "cuda":
+            seed = torch.randint(0, 2 ** 62, (1,), generator=dropout_rng,
+                                 device=g.nbr_src.device, dtype=torch.int64)
+            return dict(drop_seed=seed, keep_prob=keep)
+        return dict(dmask=make_ell_dropout_mask(
+            dropout_rng, self.dropout, n, k, self.heads), keep_prob=keep)
+
     def _finish(self, out: torch.Tensor,
                 node_mask: torch.Tensor) -> torch.Tensor:
         """[N, heads, C] -> concat or head mean, + bias (in the output's
@@ -156,11 +213,13 @@ class _EllGATParams(nn.Module):
 
 
 class GATConvELL(_EllGATParams):
-    """PyG-exact GAT on the ELL layout in plain PyTorch (the plain version
-    of kernel C, then concat or head mean, bias and the node mask). The
-    JAX ``sparse_kernel="xla"`` route. It has no attention dropout: the
-    COO/XLA training path comes with ROADMAP queue 1 item 11, so training
-    mode with ``dropout`` > 0 raises."""
+    """PyG-exact GAT on the ELL layout, the JAX ``sparse_kernel="xla"``
+    route (then concat or head mean, bias and the node mask): kernel C
+    (``ell_gat_fused``) when serving, kernels C and C'
+    (``ell_gat_fused_train``) when a gradient is wanted, on the card; their
+    plain version on the CPU. It has no attention dropout: the COO/XLA
+    training path comes with ROADMAP queue 1 item 11, so training mode
+    with ``dropout`` > 0 raises."""
 
     def forward(self, g, x: torch.Tensor,
                 dropout_rng: Optional[torch.Generator] = None,
@@ -172,14 +231,7 @@ class GATConvELL(_EllGATParams):
                 "attention dropout on the plain ELL layer (the COO/XLA "
                 "training path, ROADMAP.md queue 1 item 11) is not ported; "
                 "train with sparse_kernel='banded_pallas'")
-        el, el_self = self._edge_terms(g)
-        out = ell_gat_fused.ell_gat_reference(
-            x @ self.lin_src, self.att_src, self.att_dst, g.nbr_src,
-            g.nbr_mask, el, el_self, self_loop=self.add_self_loops,
-            negative_slope=self.negative_slope)
-        return self._finish(
-            out.reshape(x.shape[0], self.heads, self.out_channels),
-            g.node_mask.to(torch.bool))
+        return self._forward_c(g, x)
 
 
 class GATConvEllBanded(_EllGATParams):
@@ -236,30 +288,7 @@ class GATConvEllBanded(_EllGATParams):
             raise NotImplementedError(BANDED_DROPOUT_NEEDS_FUSED)
         if self.route != "C":
             return self._forward_banded(g, x, dropout_rng, banded)
-        h, c = self.heads, self.out_channels
-        xh = x.to(self.cd) @ self.lin_src.to(self.cd)        # [N, HC]
-        el, el_self = self._edge_terms(g)
-        node_mask = g.node_mask.to(torch.bool)
-        fold = self.concat or h == 1   # bias and mask fold into the kernel
-        kw = dict(self_loop=self.add_self_loops,
-                  bias=self.bias if fold else None, node_mask=node_mask,
-                  negative_slope=self.negative_slope)
-        args = (xh, self.att_src, self.att_dst, g.nbr_src, g.nbr_mask, el,
-                el_self)
-        if self._grad_wanted():
-            out = ell_gat_fused.ell_gat_fused_train(
-                *args, **kw, **self._dropout_args(g, dropout_rng),
-                slot_tables=(g.slot_perm, g.slot_row_ptr)
-                if isinstance(g, EllTrainGraph) else None)
-        else:
-            out = ell_gat_fused.ell_gat_fused(*args, **kw)
-        if fold:
-            return out
-        return self._finish(out.reshape(x.shape[0], h, c), node_mask)
-
-    def _grad_wanted(self) -> bool:
-        return self.training or (torch.is_grad_enabled() and any(
-            p.requires_grad for p in self.parameters()))
+        return self._forward_c(g, x, dropout_rng)
 
     def banded_inputs(self, g, banded, x: torch.Tensor,
                       fold_dots: bool = False) -> dict:
@@ -377,25 +406,3 @@ class GATConvEllBanded(_EllGATParams):
         return banded_gat_spill_pass(
             y, m, denom, kw["xh"], kw["a_src"], kw["a_dst"], m_edge, banded,
             negative_slope=self.negative_slope)
-
-    def _dropout_rng(self, dropout_rng):
-        """The generator of the attention dropout, or None without it."""
-        if not (self.training and self.dropout > 0):
-            return None
-        if dropout_rng is None:
-            raise ValueError("attention dropout in training mode needs a "
-                             "torch.Generator (dropout_rng)")
-        return dropout_rng
-
-    def _dropout_args(self, g, dropout_rng) -> dict:
-        dropout_rng = self._dropout_rng(dropout_rng)
-        if dropout_rng is None:
-            return {}
-        keep = 1.0 - self.dropout
-        n, k = g.nbr_src.shape
-        if g.nbr_src.device.type == "cuda":
-            seed = torch.randint(0, 2 ** 62, (1,), generator=dropout_rng,
-                                 device=g.nbr_src.device, dtype=torch.int64)
-            return dict(drop_seed=seed, keep_prob=keep)
-        return dict(dmask=make_ell_dropout_mask(
-            dropout_rng, self.dropout, n, k, self.heads), keep_prob=keep)

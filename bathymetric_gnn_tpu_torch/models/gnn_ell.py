@@ -6,7 +6,8 @@ Submodules carry the JAX model's names (``MLPFeatureExtractor_0``,
 heads), so a graph-trained (COO-layout) checkpoint applies unchanged;
 ``utils/weights.coo_state_dict`` renames a port checkpoint's grid-named
 state_dict to these keys. ``sparse_kernel`` picks the GAT layer, as the
-JAX model does: ``"xla"`` the plain ``GATConvELL`` (serving only);
+JAX model does: ``"xla"`` ``GATConvELL`` (kernel C serving, C and C' with
+a gradient; no attention dropout);
 ``"banded_pallas"`` ``GATConvEllBanded(use_pallas=True)``, whose attention
 runs in kernel C and, when training, kernel C' (or, with ``wide_kernel``
 switched off on its layers, kernels D and D'); ``"banded"``

@@ -568,10 +568,9 @@ def call_v2_bwd_kernel(*, xh, acat, loc, el, el_self, l_spill, xh_spill,
     lib = library("ell_gat_v2_bwd")
     with torch.cuda.device(xh.device):
         blocks = lib.ell_gat_v2_bwd_blocks(dtype, n, k, heads, c, vec)
-    _check(blocks >= 1, f"heads={heads}, HC={hc}: a row wider than the "
-           "kernel takes (HC <= 1024 when C is not a multiple of 4 (f32) or "
-           "8 (bf16), else 2048 (f32) or 4096 (bf16)), or a d acat "
-           "accumulator over 227 KB")
+    _check(blocks >= 1, f"K={k} x heads={heads}, HC={hc}: the slot tables "
+           "and the d acat accumulator of one warp exceed the card's shared "
+           "memory")
     f32 = dict(device=xh.device, dtype=torch.float32)
     ac_given = ac is not None
     if ac_given:

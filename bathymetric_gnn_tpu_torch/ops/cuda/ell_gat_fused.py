@@ -488,9 +488,8 @@ def call_bwd_kernel(*, xh, att, nbr, nmask, el, el_self, node_mask, dmask,
     dev = xh.device
     with torch.cuda.device(dev):
         blocks = lib.ell_gat_bwd_blocks(dtype, n, k, heads, c, vec)
-    _check(blocks >= 1, f"K={k} x heads={heads}, HC={hc}: a row wider than "
-           "the kernel takes (HC <= 1024 when C is not a multiple of 4 "
-           "(f32) or 8 (bf16), else 2048 (f32) or 4096 (bf16))")
+    _check(blocks >= 1, f"K={k} x heads={heads}: the slot tables of one "
+           "warp exceed the card's shared memory")
     f32 = dict(device=dev, dtype=torch.float32)
     if dots is not None:
         _check(tuple(dots.shape) == (n, 2 * heads) and dots.is_contiguous()

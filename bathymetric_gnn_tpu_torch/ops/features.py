@@ -1,4 +1,5 @@
-"""Grid featurization on the device, batched over tiles ([B, H, W]).
+"""Grid featurization on the device, batched over tiles ([B, H, W]), and
+the dense per-offset edge features of grid graphs.
 
 Port of ``bathymetric_gnn_tpu/ops/features.py``. All local statistics are
 boundary-aware: only valid cells contribute (masked sums / counts), as in
@@ -11,6 +12,7 @@ difference cancels badly at survey depths (~30 m and more).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -161,3 +163,19 @@ def compute_grid_features(
         local_mean=local_mean,
         valid_count=count,
     )
+
+
+def edge_features_for_offset(depth_filled: torch.Tensor, dr: int, dc: int,
+                             resolution: Tuple[float, float]) -> torch.Tensor:
+    """Dense per-cell edge features [..., H, W, 3] for the (dr, dc)
+    neighbour direction of depth [..., H, W]: for a source cell (r, c)
+    with target (r + dr, c + dc), the distance, the depth difference
+    (target - source) and the slope in degrees. Targets outside the grid
+    wrap (like ``jnp.roll``) and are masked by the caller."""
+    res_x, res_y = resolution
+    dist = math.sqrt((dc * res_x) ** 2 + (dr * res_y) ** 2)
+    tgt = torch.roll(depth_filled, shifts=(-dr, -dc), dims=(-2, -1))
+    ddiff = tgt - depth_filled
+    slope = (torch.rad2deg(torch.atan(ddiff / dist)) if dist > 0
+             else torch.zeros_like(ddiff))
+    return torch.stack([torch.full_like(ddiff, dist), ddiff, slope], dim=-1)

@@ -14,7 +14,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    E and D and D's dots one by one;
 2. kernel A (inference form) against its plain PyTorch version on the
    card, at the shapes the inference path gives it (full width: hidden
-   64 x 4 heads, 1024^2 tiles);
+   64 x 4 heads, 1024^2 tiles) and at the default VR route's slab shape
+   ([128, 56, 56] of refinement grids, the three layer widths, f32 and
+   bf16);
 2b. kernel A (training form, streamed dropout mask) and kernel B against
    the plain forward and autograd of it, at the training model's three
    layer shapes on [4, 256, 256], f32 and bf16, plus a ragged shape and
@@ -34,7 +36,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    mask and the Philox draw (its rate, and C + C' with the draw equal to
    C + C' given it as a streamed mask); C' given the attention dots kernel
    C wrote (the training layer's path) equal, bit for bit, to C' computing
-   its own, and the dots pass equal to the generic ``dots_kernel``;
+   its own, and the dots pass equal to the generic ``dots_kernel``; and C'
+   at a row past its untiled instances (HC 2056 = 2 x 1028, f32: column
+   tiles) against autograd of the plain version;
 3. the inference path through the port's CLI (``cli.inference.main``) on
    a synthetic 2304x2304 survey (9 tiles of 1024 with overlap 128: one
    batch of 8, then one single tile), with the launch counts read around
@@ -68,7 +72,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    kernels A (training form) and B per training shape, each beside its
    bound (products at the tensor-core rate, ``MMA_FLOPS``) and, as
    information, ``torch.matmul`` of the same x@W product (the port never
-   calls it), the whole train step in f32 and bf16, kernel C per shape with the model forward of
+   calls it), kernel A at phase 2's slab shape and one slab chunk's
+   featurization + forward (f32, bf16), the whole train step in f32 and
+   bf16, kernel C per shape with the model forward of
    one 65,536-node flush, and (4d) kernel C's training form, C', F's two
    modes (``index_add_`` beside mode (a)) per k-NN training shape and the
    k-NN train step on one merged batch with its device busy share and the
@@ -81,7 +87,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
    dropout and a streamed mask, against their plain versions; D' given
    the attention dots kernel D wrote (the training layer's path) equal,
    bit for bit, to D' computing its own, and those dots equal to the
-   generic ``mat_dots_kernel``'s;
+   generic ``mat_dots_kernel``'s; and D' at HC 2056 (column tiles);
 3e. (run after 3d) ``NativeVRProcessor`` with ``sparse_kernel="banded"``
    (kernel E and the spill fold) on phase 3c's grids from the same
    checkpoint: E's launch count is 4 x the graph chunks, kernel C and the
@@ -108,6 +114,17 @@ Run from the root of a checkout. Phases, each printing its own lines:
    dropout 0 (the route trains since this slice: the JAX XLA route's plain
    math under autograd, no kernel) on the card against the same step on
    the CPU;
+3g. (run after 3f) the default VR route: ``NativeVRProcessor`` with
+   ``knn_k=0`` on 3c's checkpoint and grids (node budget 50,000), at the
+   default precision (bf16 on the card) and in f32: the refinements in
+   slabs through the dense grid model (kernel A launched 4 x the slab
+   chunks), the 512^2 grid on a grid-connectivity graph through
+   ``GATConvELL`` (kernel C, 4 x the graph chunks), no plain version
+   called; one slab flush against the same processor on the plain
+   functions; bf16 classes against f32 (>= 99 %); 2,100 grids of 3x3 in
+   one flush (two slab chunks, 2,048 + 52); grids/s, Mnodes/s and the
+   device's busy share beside 3c's; ``cli.inference_native`` without
+   ``--knn-k`` where h5py is installed;
 4f. (run after 4e) CUDA-event times of every bf16 form against its bound
    (bf16 streams at 2 bytes) and its plain version, the bf16 dots alone
    as in 4e, the bf16 flush forward
@@ -350,6 +367,61 @@ def layer_cases(torch, np, model, dev):
                     heads=conv.heads, k=conn, dtype=dtype)
         out.append((f"{label} {dtype} {hgt}x{wid} conn{conn}", args, kw,
                     dims))
+    return out
+
+
+SLAB = 56                # the default VR route's slab frame (JAX's slab_size)
+SLAB_B = 128             # refinements in phase 2's slab shape
+
+
+def slab_grids(np, n, seed):
+    """``n`` refinement-like grids for the slab: sides 3..50, ~5 % NODATA
+    (1e6), resolution 0.5-4 m (make_refinements' grids)."""
+    return [(d, np.abs(d) < 1e5, u, r)
+            for d, u, r in make_refinements(np, n, seed)]
+
+
+def slab_layer_cases(torch, np, model, dev):
+    """Kernel A's inference form at the default VR route's slab shape:
+    [SLAB_B, SLAB, SLAB] of refinement grids (their valid masks, the
+    slab's neighbour masks and edge attributes from build_slab_grid_inputs)
+    at the model's three layer widths, f32 and bf16."""
+    from bathymetric_gnn_tpu_torch.data.slab_build import (
+        build_slab_grid_inputs, pack_slab)
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    depth, _, unc, hs, ws, res = pack_slab(
+        slab_grids(np, SLAB_B, SEED + 3), SLAB, SLAB_B, True,
+        implicit_valid=True)
+    t = [torch.from_numpy(a).to(dev) for a in (depth, unc, hs, ws, res)]
+    _, v, nbr, ea, _ = build_slab_grid_inputs(
+        t[0], None, t[1], *t[2:], connectivity=8, with_uncertainty=True)
+    g = torch.Generator().manual_seed(SEED + 4)
+    out = []
+    for li, label, relu in ((0, "slab layer0 64->256 h4 BN+ReLU", True),
+                            (1, "slab mid 256->256 h4 BN+ReLU", True),
+                            (MODEL_LAYERS - 1, "slab last 256->64 h1 BN",
+                             False)):
+        conv = getattr(model, f"GridGATConv_{li}")
+        norm = getattr(model, f"MaskedBatchNorm_{li}")
+        f_in = conv.lin_src.shape[0]
+        x = torch.randn(SLAB_B, SLAB, SLAB, f_in, generator=g).to(dev) \
+            * v[..., None]
+        params = {n: p.detach().clone()
+                  for n, p in conv.named_parameters(recurse=False)}
+        w_lin, a_s, a_d, m_e, bias = gf.gat_param_matrices(
+            params, conv.heads, conv.out_channels, 3)
+        sc, sh = (t_.detach().clone() for t_ in norm.affine())
+        args = (x, w_lin, a_s, a_d, m_e, ea, nbr.float(), v.float(), bias, 8,
+                0.2, True)
+        for dtype in ("float32", "bfloat16"):
+            kw = dict(bn_scale=sc, bn_bias=sh, fuse_relu=relu,
+                      compute_dtype=getattr(torch, dtype))
+            dims = dict(b=SLAB_B, h=SLAB, w=SLAB, f=f_in, hc=w_lin.shape[1],
+                        heads=conv.heads, k=8, dtype=dtype,
+                        valid=int(v.sum().item()))
+            out.append((f"{label} {dtype} {SLAB_B}x{SLAB}x{SLAB} conn8",
+                        args, kw, dims))
     return out
 
 
@@ -821,7 +893,7 @@ def bound(dims):
     (``MMA_FLOPS``) plus the 9-way weighted sum at the FP32 rate. Returns
     (ms, bound by, bytes, flops, old ms with every operation at
     ``PEAK_FLOPS``)."""
-    n = dims["h"] * dims["w"]
+    n = dims.get("b", 1) * dims["h"] * dims["w"]
     f, hc, heads, k = dims["f"], dims["hc"], dims["heads"], dims["k"]
     s = 4 if dims["dtype"] == "float32" else 2
     nbytes = (s * (n * f + f * hc + f * 2 * heads + (k + 1) * heads * n
@@ -892,6 +964,54 @@ def phase_timings(torch, np, cases, pipe, depth):
             f"{fwd_ms:.3f} ms ({fwd_ms / 8:.3f} ms per tile, 4 kernel "
             f"launches per forward call)")
     return rows, fwd_ms / 8
+
+
+def phase_slab_timings(torch, np, scases, dvr):
+    """Kernel A at phase 2's slab shape ([SLAB_B, SLAB, SLAB], the three
+    layer widths, f32 and bf16) beside its bound (every cell of the slab:
+    the layer's function is dense over it) and its plain version; and one
+    slab chunk of 3g's flush (featurization on the card and the grid
+    model's forward) at each precision."""
+    from bathymetric_gnn_tpu_torch.data.slab_build import (
+        build_slab_grid_inputs, pack_slab)
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    rows = []
+    with torch.no_grad():
+        for label, args, kw, dims in scases:
+            kargs = gf.kernel_args(*args, **kw)
+            ms = cuda_ms(torch, lambda: gf.call_kernel(**kargs), 10)
+            plain_ms = cuda_ms(
+                torch, lambda: gf.grid_gat_reference(*args, **kw), 3,
+                warmup=1)
+            b_ms, b_by, nbytes, flops, _ = bound(dims)
+            cells = dims["b"] * dims["h"] * dims["w"]
+            rows.append(dict(shape=label, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                             flops=flops, valid_share=dims["valid"] / cells))
+            log(f"[4] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB, "
+                f"{flops / 1e9:.1f} GFLOP; {dims['valid'] / cells:.3f} of "
+                f"the slab's cells valid), {b_ms / ms:.3f} of bound")
+            del kargs
+        flush = dvr["flush"]
+        depth, _, unc, hs, ws, res = pack_slab(
+            [(d, np.abs(d) < 1e5, u, r) for d, u, r in flush], SLAB,
+            len(flush), True, implicit_valid=True)
+        dev = scases[0][1][0].device
+        t = [torch.from_numpy(a).to(dev) for a in (depth, unc, hs, ws, res)]
+        fwd = {}
+        for name, proc in dvr["procs"].items():
+            def fwd_once(model=proc.grid_model):
+                f, v, nb, ea, _ = build_slab_grid_inputs(
+                    t[0], None, t[1], *t[2:], connectivity=8,
+                    with_uncertainty=True)
+                return model(f, v, nb, ea)
+            fwd[name] = cuda_ms(torch, fwd_once, 5, warmup=2)
+            log(f"[4] one slab chunk ({len(flush)} refinements, "
+                f"[{len(flush)}, {SLAB}, {SLAB}]), featurization + grid "
+                f"model forward, {name}: {fwd[name]:.3f} ms")
+    return rows, fwd
 
 
 def train_bounds(dims):
@@ -1341,17 +1461,20 @@ def phase_vr_knn(torch, np, work):
     cli_stats = vr_cli(np, work, ckpt, grids[:300])
     return dict(launches=launches, chunks=len(chunks), wall=wall,
                 grids=len(grids), nodes=n_nodes, busy_share=busy,
-                proc=proc, cli=cli_stats, grid_list=grids, results=results)
+                proc=proc, cli=cli_stats, grid_list=grids, results=results,
+                ckpt=ckpt)
 
 
-def vr_cli(np, work, ckpt, grids):
-    """cli.inference_native --knn-k 8 on a VR BAG of ``grids`` written by
-    the port's write_vr_bag, when h5py is installed."""
+def vr_cli(np, work, ckpt, grids, tag="3c", knn_k=KNN_K):
+    """cli.inference_native on a VR BAG of ``grids`` written by the port's
+    write_vr_bag, when h5py is installed: ``--knn-k knn_k``, or without
+    the flag (the checkpoint's knn_k 0: the default route) when knn_k is
+    None."""
     try:
         import h5py  # noqa: F401
     except ImportError:
-        log("[3c] cli.inference_native on a VR BAG: not run, h5py is not "
-            "installed on this machine")
+        log(f"[{tag}] cli.inference_native on a VR BAG: not run, h5py is "
+            "not installed on this machine")
         return None
     from bathymetric_gnn_tpu_torch.cli import inference_native
     from bathymetric_gnn_tpu_torch.io.bag import write_vr_bag
@@ -1359,15 +1482,200 @@ def vr_cli(np, work, ckpt, grids):
     cols = 20
     refs = [(i // cols, i % cols, d, u, r[0])
             for i, (d, u, r) in enumerate(grids)]
-    src = work / "vr_in.bag"
+    src = work / f"vr_in_{tag}.bag"
     write_vr_bag(src, (-(-len(refs) // cols), cols), 64.0, refs)
+    flag = [] if knn_k is None else ["--knn-k", str(knn_k)]
     stats = inference_native.main([
-        "--input", str(src), "--output", str(work / "vr_out.bag"),
-        "--model", str(ckpt), "--knn-k", str(KNN_K)])
+        "--input", str(src), "--output", str(work / f"vr_out_{tag}.bag"),
+        "--model", str(ckpt)] + flag)
     check(stats["grids"] == len(grids), f"cli grids {stats}")
-    log(f"[3c] cli.inference_native --knn-k {KNN_K} on a VR BAG of "
-        f"{len(grids)} refinements: {stats}")
+    log(f"[{tag}] cli.inference_native {' '.join(flag) or '(no --knn-k)'} "
+        f"on a VR BAG of {len(grids)} refinements: {stats}")
     return stats
+
+
+# -- phase 3g: the default VR route (knn_k 0) ---------------------------------
+
+def check_results(np, grids, results, tag):
+    """Every grid returned, in order, with its shape, classes in {0, 1, 2}
+    on valid cells and -1 on invalid ones, finite outputs."""
+    check(len(results) == len(grids), f"[{tag}] {len(results)} results for "
+          f"{len(grids)} grids")
+    for (depth, _, _), r in zip(grids, results):
+        valid = np.abs(depth) < 1e5
+        cls = r["classification"]
+        check(cls.shape == depth.shape, f"[{tag}] result shape {cls.shape}")
+        check(set(np.unique(cls[valid]).tolist()) <= {0, 1, 2}
+              and bool((cls[~valid] == -1).all()), f"[{tag}] classes")
+        check(all(np.isfinite(r[c]).all() for c in ("confidence",
+                                                    "correction")),
+              f"[{tag}] non-finite outputs")
+
+
+def phase_vr_default(torch, np, work, vr):
+    """NativeVRProcessor with knn_k 0 (the JAX default) on 3c's checkpoint
+    and grids, node budget VR_BUDGET: the refinements in slabs through the
+    dense grid model (kernel A), the 512^2 grid on a grid-connectivity
+    graph through GATConvELL (kernel C); at the default precision (bf16 on
+    the card) and in f32."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.inference.native_vr import (
+        NativeVRProcessor)
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.utils.weights import load_state_dict
+
+    sd, _ = load_state_dict(vr["ckpt"])
+    grids = vr["grid_list"]
+    n_nodes = vr["nodes"]
+    grid_ref, ell_ref = gf.grid_gat_reference, ef.ell_gat_reference
+    plain_calls = []
+
+    def counted(ref):
+        def run(*a, **k):
+            plain_calls.append(1)
+            return ref(*a, **k)
+        return run
+
+    runs, procs = {}, {}
+    for cd in (None, "float32"):
+        proc = NativeVRProcessor(sd, Config(), node_budget=VR_BUDGET,
+                                 compute_dtype=cd)
+        name = proc.compute_dtype
+        check(proc.sparse_kernel == "xla" and proc.use_slab
+              and proc.use_grid and name == (cd or "bfloat16"),
+              f"default route resolved to {proc.sparse_kernel}, slab "
+              f"{proc.use_slab}, grid {proc.use_grid}, {name}")
+        serve(proc, grids[:300])        # warm-up (allocator, first launches)
+        torch.cuda.synchronize()
+        slabs, graphs = [], []
+        launch_slab = proc._launch_slab_chunk
+        launch_graphs = proc._launch_graphs_chunk
+
+        def counted_slab(idx, launch=launch_slab, out=slabs):
+            out.append(len(idx))
+            return launch(idx)
+
+        def counted_graphs(idx, launch=launch_graphs, out=graphs):
+            out.append(len(idx))
+            return launch(idx)
+
+        with mock.patch.object(proc, "_launch_slab_chunk", counted_slab), \
+                mock.patch.object(proc, "_launch_graphs_chunk",
+                                  counted_graphs), \
+                mock.patch.object(gf, "grid_gat_reference",
+                                  counted(grid_ref)), \
+                mock.patch.object(ef, "ell_gat_reference", counted(ell_ref)):
+            gf.launches = ef.launches = 0   # counts of the main path's run
+            t0 = time.perf_counter()
+            results = serve(proc, grids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            a_launches, c_launches = gf.launches, ef.launches
+        check_results(np, grids, results, "3g")
+        check(not plain_calls, f"a plain version ran {len(plain_calls)} "
+              "times on the default route")
+        check(a_launches == MODEL_LAYERS * len(slabs),
+              f"grid_gat_fwd launches {a_launches} != {MODEL_LAYERS} x "
+              f"{len(slabs)} slab chunks")
+        check(c_launches == MODEL_LAYERS * len(graphs),
+              f"ell_gat_fwd launches {c_launches} != {MODEL_LAYERS} x "
+              f"{len(graphs)} graph chunks")
+        runs[name] = dict(a_launches=a_launches, c_launches=c_launches,
+                          slab_chunks=len(slabs), graph_chunks=len(graphs),
+                          wall=wall, grids_per_s=len(grids) / wall,
+                          mnodes_per_s=n_nodes / wall / 1e6,
+                          results=results)
+        procs[name] = proc
+        log(f"[3g] NativeVRProcessor knn_k 0, {name}, budget {VR_BUDGET}: "
+            f"{len(grids)} grids, {n_nodes} nodes in {wall:.3f} s: "
+            f"{len(grids) / wall:.3f} grids/s, "
+            f"{n_nodes / wall / 1e6:.4f} Mnodes/s; {len(slabs)} slab chunks "
+            f"(up to {max(slabs)} grids), {len(graphs)} graph chunks; "
+            f"grid_gat_fwd launches {a_launches} = {MODEL_LAYERS} x "
+            f"{len(slabs)}, ell_gat_fwd launches {c_launches} = "
+            f"{MODEL_LAYERS} x {len(graphs)}; plain versions called 0 times")
+    log(f"[3g] beside 3c's k-NN route in this run: "
+        f"{vr['grids'] / vr['wall']:.3f} grids/s, "
+        f"{vr['nodes'] / vr['wall'] / 1e6:.4f} Mnodes/s")
+
+    agree = n = 0
+    for (depth, _, _), a, b in zip(grids, runs["bfloat16"]["results"],
+                                   runs["float32"]["results"]):
+        v = np.abs(depth) < 1e5
+        agree += int((a["classification"][v] == b["classification"][v]).sum())
+        n += int(v.sum())
+    bf_agree = agree / n
+    log(f"[3g] bf16 (default) vs f32 classes: {bf_agree:.6f} of {n} valid "
+        "cells (want >= 0.99)")
+    check(bf_agree >= 0.99, "bf16 classes disagree with f32")
+
+    # one flush of small grids, kernels vs the plain functions, both on the
+    # card (f32: the kernel's accurate form)
+    proc = procs["float32"]
+    flush, nodes = [], 0
+    for gr in grids:
+        if max(gr[0].shape) > SLAB:
+            continue
+        flush.append(gr)
+        nodes += int((np.abs(gr[0]) < 1e5).sum())
+        if nodes >= VR_BUDGET:
+            break
+    k_out = serve(proc, flush)
+    with mock.patch.object(gf, "fused_grid_gat_infer",
+                           lambda *a, **k: grid_ref(*a, **k)):
+        p_out = serve(proc, flush)
+    agree = n = 0
+    dconf = 0.0
+    for (depth, _, _), a, b in zip(flush, k_out, p_out):
+        v = np.abs(depth) < 1e5
+        agree += int((a["classification"][v] == b["classification"][v]).sum())
+        n += int(v.sum())
+        dconf = max(dconf, float(np.abs(a["confidence"]
+                                        - b["confidence"]).max()))
+    log(f"[3g] one slab flush ({len(flush)} grids, {nodes} nodes), kernel "
+        f"A vs plain on the card: class agreement {agree / n:.6f}, max |d "
+        f"confidence| {dconf:.3e}")
+    check(agree / n >= 0.999 and dconf <= 1e-3, "slab flush outputs disagree")
+
+    # 2,100 grids of 3 x 3 in one flush: two slab chunks (2,048 + 52),
+    # where the JAX processor's bucketing raises
+    proc = procs["bfloat16"]
+    rg = np.random.default_rng(SEED + 55)
+    small = [((20 + rg.normal(0, 0.3, (3, 3))).astype(np.float32),
+              np.full((3, 3), 0.25, np.float32), (1.0, 1.0))
+             for _ in range(2100)]
+    sizes = []
+    launch_slab = proc._launch_slab_chunk
+    with mock.patch.object(proc, "_launch_slab_chunk",
+                           lambda idx: sizes.append(len(idx))
+                           or launch_slab(idx)):
+        proc.node_budget = 10 ** 9
+        t0 = time.perf_counter()
+        out_small = serve(proc, small)
+        torch.cuda.synchronize()
+        wall_small = time.perf_counter() - t0
+        proc.node_budget = VR_BUDGET
+    check_results(np, small, out_small, "3g")
+    check(sizes == [2048, 52], f"2,100-grid flush chunks {sizes}")
+    log(f"[3g] 2,100 grids of 3x3 in one flush: slab chunks {sizes}, "
+        f"{wall_small:.3f} s")
+
+    wall_p, prows = device_profile(torch, lambda: serve(procs["bfloat16"],
+                                                        grids[:500]))
+    busy = log_profile("3g", "500 refinement grids, bf16", wall_p, prows,
+                       top=10)
+    wall_p, prows = device_profile(torch, lambda: serve(procs["float32"],
+                                                        grids[:500]))
+    busy32 = log_profile("3g", "500 refinement grids, f32", wall_p, prows,
+                         top=6)
+    cli_stats = vr_cli(np, work, vr["ckpt"], grids[:300], "3g", None)
+    for name, r in runs.items():
+        r.pop("results")
+        r["device_busy_share"] = busy if name == "bfloat16" else busy32
+    return dict(runs=runs, bf16_class_agreement=bf_agree,
+                small_flush_chunks=sizes, small_flush_s=wall_small,
+                cli=cli_stats, procs=procs, flush=flush)
 
 
 # -- phase 4c ------------------------------------------------------------------
@@ -1652,6 +1960,112 @@ def phase_knn_train_kernels_vs_plain(torch, cases):
         errs[label] = worst
         del ct, fa, fa_lib, fb, fb_ref, alpha, dl, streamed, drawn
     return errs
+
+
+# A row wider than the backward passes' untiled instances hold (f32 float4
+# chunks: HC <= 2048), which C', D' and F (b) take in column tiles.
+WIDE_HEADS, WIDE_C = 2, 1028
+WIDE_N = 4096
+
+
+def wide_row_inputs(torch, np, dev, banded_layer):
+    """Layer inputs at HC = WIDE_HEADS x WIDE_C on a k-NN graph (k 8) of
+    WIDE_N - WIDE_N / 16 random points padded to WIDE_N: kernel C's
+    (``ell_gat_fused_train``) or, with ``banded_layer``, kernel D's
+    (``ell_gat_fused_v2`` on BAND_ROWS-row bands), from seeded draws."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.ell_banded import band_ell
+
+    rg = np.random.default_rng(SEED + 66)
+    n_live = WIDE_N - WIDE_N // 16
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (WIDE_N,)
+    g = coo_to_ell(gb.build_knn_graph(
+        rg.normal(size=(n_live, 3)).astype(np.float32),
+        (rg.random((n_live, 2)) * 100).astype(np.float32), KNN_K).graph,
+        KNN_K)
+    gen = torch.Generator().manual_seed(SEED + 67)
+    h, c, hc, k = WIDE_HEADS, WIDE_C, WIDE_HEADS * WIDE_C, KNN_K
+
+    def rnd(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=gen) * sc).to(dev)
+
+    if not banded_layer:
+        gd = g.to(dev)
+        return dict(xh=rnd(WIDE_N, hc), att_src=rnd(1, h, c, sc=0.05),
+                    att_dst=rnd(1, h, c, sc=0.05), nbr_src=gd.nbr_src,
+                    nbr_mask=gd.nbr_mask, el=rnd(WIDE_N, k, h),
+                    el_self=rnd(WIDE_N, h), bias=rnd(hc, sc=0.1),
+                    node_mask=gd.node_mask), None
+    banded = band_ell(g, band_rows=BAND_ROWS, heads=h).to(dev)
+    xh = rnd(WIDE_N, h, c)
+    att = rnd(2, h, c, sc=0.05)
+    diag = (torch.arange(hc, device=dev)[:, None] // c
+            == torch.arange(h, device=dev)[None]).float()
+    return dict(xh=xh, a_src=(xh * att[0]).sum(-1),
+                a_dst=(xh * att[1]).sum(-1),
+                a_cat_mat=torch.cat([diag * att[0].reshape(hc, 1),
+                                     diag * att[1].reshape(hc, 1)], 1),
+                el_t=banded.negmask_t + rnd(k * h, WIDE_N),
+                el_self_t=rnd(h, WIDE_N), m_edge=rnd(3, h, sc=0.3)), banded
+
+
+def phase_wide_rows(torch, np, dev, tag):
+    """Kernel C' (+ F (b)), tag "2d", or D', tag "2e", at a row past the
+    untiled instances (HC = WIDE_HEADS x WIDE_C, f32, column tiles) with a
+    streamed dropout mask, against autograd of the plain version. Returns
+    the largest gradient error."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    kw, banded = wide_row_inputs(torch, np, dev, tag == "2e")
+    if banded is None:
+        n, k = kw["nbr_src"].shape
+        gen = torch.Generator(device=dev).manual_seed(SEED + 68)
+        dmask = (torch.rand(n, k + 1, WIDE_HEADS, generator=gen, device=dev)
+                 < KEEP).float() / KEEP
+        n0 = ef.bwd_launches
+        out, grads, g = ell_train_run(torch, ef.ell_gat_fused_train, kw,
+                                      dmask=dmask)
+        torch.cuda.synchronize()
+        launched = ef.bwd_launches - n0
+        ref, rgrads, _ = ell_train_run(torch, ef.ell_gat_reference, kw, g,
+                                       dmask=dmask)
+        name, tol = "C'", GRAD_TOL["float32"]
+        fwd = ((out - ref).abs() / (1 + ref.abs())).max().item()
+        fwd_ok = fwd <= TOL["float32"]
+    else:
+        dims = dict(k=KNN_K, heads=WIDE_HEADS, n=WIDE_N,
+                    t=banded.spill_dst_local_b.shape[0],
+                    s_max=banded.spill_dst_local_b.shape[2])
+        masks = v2_masks(torch, dims, dev, SEED + 69)
+        n0 = eb.v2_bwd_launches
+        out, grads, g = v2_run(torch, eb.ell_gat_fused_v2, kw, banded,
+                               masks=masks)
+        torch.cuda.synchronize()
+        launched = eb.v2_bwd_launches - n0
+        ref, rgrads, _ = v2_run(torch, eb.fused_v2_reference, kw, banded, g,
+                                masks)
+        name, tol = "D'", BAND_GRAD_TOL
+        fwd = ((out - ref).abs().max() / (ref.abs().max() + 1e-12)).item()
+        fwd_ok = fwd <= BAND_FWD_TOL
+    ok, parts, worst = fwd_ok and launched == 1, [], 0.0
+    for nm, a in grads.items():
+        r = rgrads[nm]
+        scale = r.abs().max().item() + 1e-12
+        e = (a - r).abs().max().item()
+        worst = max(worst, e)
+        parts.append(f"{nm} {e / scale:.2e}")
+        ok = ok and e <= tol * scale and bool(torch.isfinite(a).all())
+    log(f"[{tag}] {name} at a wide row, HC {WIDE_HEADS * WIDE_C} "
+        f"({WIDE_HEADS} x {WIDE_C}, f32, column tiles), N={WIDE_N} K={KNN_K}, "
+        f"streamed mask: forward err {fwd:.2e}; {name} err/scale "
+        f"{', '.join(parts)} (tol {tol:.0e}); launches {launched} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} at HC {WIDE_HEADS * WIDE_C} disagrees with its plain "
+              "version")
+    return worst
 
 
 def fa_inputs(torch, kw):
@@ -3255,7 +3669,8 @@ def main() -> int:
         phase = "2 kernel vs plain"
         model = seeded_model(torch, np).to(dev)
         cases = layer_cases(torch, np, model, dev)
-        errs = phase_kernel_vs_plain(torch, cases)
+        scases = slab_layer_cases(torch, np, model, dev)
+        errs = phase_kernel_vs_plain(torch, cases + scases)
         phase = "2b training kernels vs plain"
         tcases = train_cases(torch, np, dev)
         terrs = phase_train_kernels_vs_plain(torch, tcases)
@@ -3268,10 +3683,12 @@ def main() -> int:
                                                     SEED + 60)[0])
         kcases, kbatch = knn_train_cases(torch, np, kmodel, dev, ksamples)
         kerrs = phase_knn_train_kernels_vs_plain(torch, kcases)
+        wide_cp = phase_wide_rows(torch, np, dev, "2d")
         phase = "2e kernels E, D and D' vs plain"
         becases = band_cases(torch, np, kmodel, dev, kgraph, SEED + 90)
         bdcases = band_cases(torch, np, kmodel, dev, kbatch, SEED + 91)
         berrs = phase_banded_kernels_vs_plain(torch, becases, bdcases)
+        wide_dp = phase_wide_rows(torch, np, dev, "2e")
         phase = "2f the bf16 forms vs plain"
         ferrs = phase_bf16_kernels_vs_plain(torch, ecases, kcases, becases,
                                             bdcases)
@@ -3292,8 +3709,11 @@ def main() -> int:
         phase = "3f the bf16 model and banded training"
         bmod = phase_bf16_model(torch, np, kmodel, kgraph, becases[0][2],
                                 work, ksamples)
+        phase = "3g the default VR route"
+        dvr = phase_vr_default(torch, np, work, vr)
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
+        srows, slab_fwd = phase_slab_timings(torch, np, scases, dvr)
         log(f"[4] end to end (cli.inference, load + 9 tiles + stitch + "
             f"write): {e2e['tiles'] / e2e['wall']:.3f} tiles/s")
         busy_share = phase_profile(torch, e2e["argv"])
@@ -3339,6 +3759,15 @@ def main() -> int:
         "model_forward_ms_per_tile": tile_ms,
         "end_to_end_tiles_per_s": e2e["tiles"] / e2e["wall"],
         "end_to_end_device_busy_share": busy_share,
+        "default_vr_route": {
+            "runs": dvr["runs"],
+            "bf16_class_agreement_with_f32": dvr["bf16_class_agreement"],
+            "flush_of_2100_grids_slab_chunks": dvr["small_flush_chunks"],
+            "slab_shape": srows,
+            "slab_chunk_forward_ms": slab_fwd,
+            "max_abs_err_slab_shape": {r["shape"]: errs[r["shape"]]
+                                       for r in srows},
+        },
     }]
     trow = next(r for r in trows if r["shape"].startswith("mid")
                 and "float32" in r["shape"])
@@ -3382,6 +3811,10 @@ def main() -> int:
         "at": erow["shape"],
         "shapes": erows,
         "graph_chunks": vr["chunks"],
+        "default_vr_route_launches": {
+            name: {"launches": r["c_launches"],
+                   "graph_chunks": r["graph_chunks"]}
+            for name, r in dvr["runs"].items()},
         "model_forward_ms_per_flush": flush_ms,
         "end_to_end_grids_per_s": vr["grids"] / vr["wall"],
         "end_to_end_mnodes_per_s": vr["nodes"] / vr["wall"] / 1e6,
@@ -3416,6 +3849,7 @@ def main() -> int:
         "destination_pass": {"ms": krow["cp_ms"],
                              "bound_ms": krow["cp_bound_ms"],
                              "bound_by": krow["cp_bound_by"]},
+        "wide_row_max_abs_err": {f"HC {WIDE_HEADS * WIDE_C} f32": wide_cp},
         **kcommon,
     }, {
         "name": "segment_reduce",
@@ -3476,6 +3910,7 @@ def main() -> int:
         "timed": "the whole call given D's attention dots (the main path's)",
         "ms_computing_its_own_dots": bdrow["dp_own_dots_ms"],
         "segment_reduce_mode_a_launches": dstep["counts"]["segment_reduce"],
+        "wide_row_max_abs_err": {f"HC {WIDE_HEADS * WIDE_C} f32": wide_dp},
         **dcommon,
     }]
     kernels[-2]["mat_dots"] = dots

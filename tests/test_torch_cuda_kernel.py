@@ -371,6 +371,42 @@ def test_ell_kernel_raises_under_grad_and_on_what_it_does_not_take(dev):
                                                       device=dev))
 
 
+@pytest.mark.parametrize("heads,concat", [(4, True), (1, False)])
+def test_gat_conv_ell_launches_kernel_c(dev, heads, concat):
+    """GATConvELL (the "xla" route of the default VR route's large grids)
+    on the card runs kernel C, one launch a call, and matches the same
+    layer on the CPU (the plain version) at TOL."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.models.conv_ell import GATConvELL
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+
+    rg = np.random.default_rng(4)
+    pos = (rg.random((3000, 2)) * 100).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (4096,)
+    bg = gb.build_knn_graph(rg.normal(size=(3000, 3)).astype(np.float32),
+                            pos, 8, depth=rg.normal(size=3000))
+    g = coo_to_ell(bg.graph, max_degree=8)
+    x = torch.from_numpy(rg.normal(size=(4096, 16)).astype(np.float32))
+    layer = GATConvELL(16, 64, heads=heads, concat=concat, edge_dim=3,
+                       generator=torch.Generator().manual_seed(2)).eval()
+    with torch.no_grad():
+        layer.bias.normal_(0.0, 0.1, generator=torch.Generator()
+                           .manual_seed(3))
+        want = layer(g.to("cpu"), x)
+        card = layer.to(dev)
+        gd, xd = g.to(dev), x.to(dev)
+        n0 = ef.launches
+        got = card(gd, xd)
+        got2 = card(gd, xd)
+        torch.cuda.synchronize()
+    assert ef.launches == n0 + 2
+    assert torch.equal(got, got2)
+    err = ((got.cpu() - want).abs() / (1 + want.abs())).max().item()
+    assert err <= TOL[torch.float32], err
+
+
 def test_ell_model_on_card_matches_cpu(dev):
     """EllBathymetricGNN at full width (hidden 64, 4 heads, 4 layers)
     through kernel C on the card vs the same weights on the CPU."""
@@ -1152,31 +1188,46 @@ def test_v2_bwd_forms_match_plain(dev, dtype, heads, c):
     _grads_close(grads, rgrads, dtype, _v2_extra(kw, g, dtype))
 
 
+# Rows past the untiled instances, which C', D' and F (b) take in column
+# tiles: HC 1026 (2 heads x 513, single columns past 32 a lane), HC 2056
+# (2 x 1028, f32 float4 past 16 a lane) and HC 4112 (2 x 2056, bf16 8-wide
+# chunks past 16 a lane).
+WIDE_ROWS = [(torch.float32, 2, 513), (torch.bfloat16, 2, 513),
+             (torch.float32, 2, 1028), (torch.bfloat16, 2, 2056)]
+
+
 @pytest.mark.parametrize("kernel", ["C'", "D'"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ell_bwd_refuses_rows_past_the_templates(dev, kernel, dtype):
-    """A row wider than the row templates hold (HC 1026 with C % 4 != 0:
-    33 single columns a lane, past 32) is refused with the limits named,
-    not run and not sent to the plain version."""
+@pytest.mark.parametrize("dtype,heads,c", WIDE_ROWS)
+def test_ell_bwd_wide_rows_match_plain(dev, kernel, dtype, heads, c):
+    """C' (+ F (b)) and D' on rows wider than the untiled instances hold
+    (column tiles) vs autograd of the plain version, at TOL / GRAD_TOL,
+    each launched once (no plain version behind the CUDA entry)."""
     from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
     from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
 
     if kernel == "C'":
-        kw = _ell_inputs(dev, 1024, 8, 2, 513)
+        kw = _ell_inputs(dev, 1024, 8, heads, c)
         kw = _bf16(kw) if dtype == torch.bfloat16 else kw
+        dmask = _ell_dmask(kw, heads)
         n0 = ef.bwd_launches
-        with pytest.raises(ValueError, match="a row wider than the kernel "
-                           "takes .HC <= 1024 when C is not a multiple"):
-            _ell_train_run(ef.ell_gat_fused_train, kw)
-        assert ef.bwd_launches == n0
+        out, grads, g = _ell_train_run(ef.ell_gat_fused_train, kw,
+                                       dmask=dmask)
+        assert ef.bwd_launches == n0 + 1
+        ref, rgrads, _ = _ell_train_run(ef.ell_gat_reference, kw, g,
+                                        dmask=dmask)
+        extra = None
     else:
-        kw = _banded_inputs(dev, 1024, 8, 2, 513, 128)
+        kw = _banded_inputs(dev, 1024, 8, heads, c, 128, drop=True)
         kw = _bf16(kw) if dtype == torch.bfloat16 else kw
         n0 = eb.v2_bwd_launches
-        with pytest.raises(ValueError, match="a row wider than the kernel "
-                           "takes .HC <= 1024 when C is not a multiple"):
-            _v2_run(eb.ell_gat_fused_v2, kw)
-        assert eb.v2_bwd_launches == n0
+        out, grads, g = _v2_run(eb.ell_gat_fused_v2, kw)
+        assert eb.v2_bwd_launches == n0 + 1
+        ref, rgrads, _ = _v2_run(eb.fused_v2_reference, kw, g)
+        extra = _v2_extra(kw, g, dtype)
+    err = ((out.float() - ref.float()).abs()
+           / (1 + ref.float().abs())).max().item()
+    assert err <= TOL[dtype], err
+    _grads_close(grads, rgrads, dtype, extra)
 
 
 @pytest.mark.parametrize("kernel", ["C'", "D'"])

@@ -208,9 +208,17 @@ def test_graph_builder_knn_matches_jax(shape, with_unc):
 
 
 def test_grid_connectivity_branch_raises():
+    """The grid-connectivity branch (knn_k == 0) builds the JAX package's
+    graph: edges exactly, features within the featurization parity of
+    _check_graph (tests/test_torch_grid_graph.py holds it at more
+    shapes)."""
     depth, valid, _ = _refinement(0, (8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphBuilder(GraphConfig(knn_k=0)).build_graph(depth, valid)
+    jb = JaxBuilder(JaxGraph(knn_k=0), JaxBucket()).build_graph(depth, valid)
+    tb = GraphBuilder(GraphConfig(knn_k=0)).build_graph(depth, valid)
+    assert tb.num_nodes == jb.num_nodes == int(valid.sum())
+    np.testing.assert_array_equal(tb.rows, np.asarray(jb.rows))
+    np.testing.assert_array_equal(tb.cols, np.asarray(jb.cols))
+    _check_graph(tb.graph, jb.graph)
 
 
 def test_batch_graphs_and_coo_to_ell_match_jax():

@@ -162,9 +162,16 @@ def test_processor_matches_jax(weights):
     assert classes <= {0, 1, 2} and len(classes) >= 2
 
 
-def test_processor_defaults():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NativeVRProcessor({}, _port_cfg(knn_k=0), device="cpu")
+def test_processor_defaults(weights):
+    """knn_k 0 takes the default route as the JAX processor resolves it:
+    sparse_kernel "xla", slabs through the dense grid model, in f32 on the
+    CPU (bf16 on the card). Without a card, the default device raises."""
+    _, _, sd = weights
+    proc = NativeVRProcessor(sd, _port_cfg(knn_k=0), device="cpu")
+    assert proc.sparse_kernel == "xla"
+    assert proc.use_slab and proc.use_grid
+    assert proc.compute_dtype == "float32"
+    assert proc.grid_model.GridGATConv_0.compute_dtype == torch.float32
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             NativeVRProcessor({}, _port_cfg())
@@ -237,11 +244,18 @@ def test_cli_matches_jax(vr_bag, weights, monkeypatch, capsys):
     assert (d / "port_gnn_outputs.tif").exists()
 
 
-def test_cli_refuses_grid_checkpoints_and_knn_0(vr_bag):
+def test_cli_refuses_grid_checkpoints_and_knn_0(vr_bag, capsys):
+    """A grid-trained checkpoint is refused, as by the JAX CLI. knn_k 0
+    (the checkpoint's configuration, no --knn-k) serves on the default
+    route (tests/test_torch_vr_default.py holds it against JAX)."""
     base = ["--input", str(vr_bag["src"]), "--output",
             str(vr_bag["dir"] / "x.bag"), "--device", "cpu"]
     with pytest.raises(SystemExit, match="COO-layout"):
         port_cli.main(base + ["--model", str(vr_bag["grid_ckpt"]),
                               "--knn-k", "8"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        port_cli.main(base + ["--model", str(vr_bag["ckpt"])])
+    stats = port_cli.main(base + ["--model", str(vr_bag["ckpt"])])
+    assert json.loads(capsys.readouterr().out) == stats
+    assert stats["grids"] == 12 and stats["total_nodes"] > 0
+    out = list(VRBagHandler(vr_bag["dir"] / "x.bag").iterate_refinements())
+    assert len(out) == 12
+    assert all(np.isfinite(g.depth[g.valid_mask]).all() for g in out)
