@@ -1,10 +1,15 @@
-"""Tiled inference CLI on the PyTorch port (non-streaming).
+"""Tiled inference CLI on the PyTorch port.
 
     python -m bathymetric_gnn_tpu_torch.cli.inference --input in.tif \\
-        --output out.tif --model CHECKPOINT_DIR [--device cpu]
+        --output out.tif --model CHECKPOINT_DIR [--streaming] [--device cpu]
 
-``--model`` is a port checkpoint directory (``utils/weights.py``). Runs on
-the CUDA card unless ``--device cpu`` is given; fails without a card.
+``--model`` is a port checkpoint directory (``utils/weights.py``). Without
+``--streaming`` the survey is loaded whole (``BathymetricPipeline.process``);
+with it, it is read, served and written band by band in host memory that
+grows with the tile band, not with the survey
+(``StreamingPipeline.process_streaming``: a GeoTIFF, SR BAG or VR BAG in,
+a five-band GeoTIFF out). Runs on the CUDA card unless ``--device cpu`` is
+given; fails without a card.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ def parse_args(argv=None):
     p.add_argument("--vr-bag-mode", default="resampled",
                    choices=["refinements", "resampled", "base"])
     p.add_argument("--no-export-extras", action="store_true")
+    p.add_argument("--streaming", action="store_true",
+                   help="row-streaming mode for surveys larger than RAM "
+                        "(GeoTIFF in/out)")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card (fails "
                         "without one). 'cpu' runs the plain version")
@@ -53,13 +61,21 @@ def main(argv=None):
         cfg.inference.auto_correct_threshold = args.confidence_threshold
     cfg.validate()
 
-    from ..inference.pipeline import BathymetricPipeline
+    if args.streaming:
+        from ..inference.streaming import StreamingPipeline
 
-    pipe = BathymetricPipeline(cfg, vr_bag_mode=args.vr_bag_mode,
-                               device=args.device)
-    pipe.load_model(args.model)
-    stats = pipe.process(args.input, args.output,
-                         export_extras=not args.no_export_extras)
+        pipe = StreamingPipeline(cfg, vr_bag_mode=args.vr_bag_mode,
+                                 device=args.device)
+        pipe.load_model(args.model)
+        stats = pipe.process_streaming(args.input, args.output)
+    else:
+        from ..inference.pipeline import BathymetricPipeline
+
+        pipe = BathymetricPipeline(cfg, vr_bag_mode=args.vr_bag_mode,
+                                   device=args.device)
+        pipe.load_model(args.model)
+        stats = pipe.process(args.input, args.output,
+                             export_extras=not args.no_export_extras)
     print(json.dumps(stats, indent=2))
     if args.stats_json:
         with open(args.stats_json, "w") as f:

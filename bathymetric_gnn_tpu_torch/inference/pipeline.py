@@ -264,18 +264,7 @@ class BathymetricPipeline:
             dispatch([t])
         merge_ready(force=True)
 
-        final = merger.finalize()
-        # back-fill unprocessed valid cells as seafloor / confidence 0
-        unproc = valid & ~np.isfinite(final["classification"])
-        final["classification"][unproc] = CLASS_SEAFLOOR
-        final["confidence"][unproc] = 0.0
-        final["correction"][unproc] = 0.0
-        for ch in ("confidence", "correction"):
-            final[ch] = np.nan_to_num(final[ch], nan=0.0)
-        final["confidence"] = apply_confidence_calibration(
-            final["confidence"], self.config.inference.confidence_scale,
-            self.config.inference.confidence_bias)
-
+        final = self._finish_channels(merger.finalize(), valid)
         cleaned, n_corrected = self._apply_corrections(grid, final, valid)
         out_grid = BathymetricGrid(
             depth=cleaned,
@@ -301,12 +290,32 @@ class BathymetricPipeline:
         logger.info("inference summary: %s", stats)
         return stats
 
+    def _finish_channels(self, final: Dict[str, np.ndarray],
+                         valid: np.ndarray) -> Dict[str, np.ndarray]:
+        """Merged channels -> final ones, in place: unprocessed valid cells
+        back-filled as seafloor / confidence 0 / correction 0, the
+        remaining NaNs zeroed, then the confidence calibrated."""
+        unproc = valid & ~np.isfinite(final["classification"])
+        final["classification"][unproc] = CLASS_SEAFLOOR
+        final["confidence"][unproc] = 0.0
+        final["correction"][unproc] = 0.0
+        for ch in ("confidence", "correction"):
+            final[ch] = np.nan_to_num(final[ch], nan=0.0)
+        final["confidence"] = apply_confidence_calibration(
+            final["confidence"], self.config.inference.confidence_scale,
+            self.config.inference.confidence_bias)
+        return final
+
+    def _correction_mask(self, final, valid) -> np.ndarray:
+        """Confident noise: the cells whose correction is applied."""
+        thr = self.config.inference.auto_correct_threshold
+        return (valid & (final["classification"] == CLASS_NOISE)
+                & (final["confidence"] > thr))
+
     def _apply_corrections(self, grid, final, valid):
         """cleaned = original - correction on confident noise."""
-        thr = self.config.inference.auto_correct_threshold
         cleaned = grid.depth.astype(np.float32).copy()
-        m = (valid & (final["classification"] == CLASS_NOISE)
-             & (final["confidence"] > thr))
+        m = self._correction_mask(final, valid)
         cleaned[m] -= final["correction"][m]
         return cleaned, int(m.sum())
 
@@ -314,10 +323,8 @@ class BathymetricPipeline:
         """uncertainty *= (2 - confidence) on corrected cells."""
         if grid.uncertainty is None:
             return None
-        thr = self.config.inference.auto_correct_threshold
         unc = grid.uncertainty.astype(np.float32).copy()
-        m = (valid & (final["classification"] == CLASS_NOISE)
-             & (final["confidence"] > thr))
+        m = self._correction_mask(final, valid)
         unc[m] *= (2.0 - final["confidence"][m])
         return unc
 

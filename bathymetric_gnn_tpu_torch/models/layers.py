@@ -14,6 +14,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -175,9 +176,32 @@ class MaskedBatchNorm(nn.Module):
         return torch.where(mask[:, None], y, torch.zeros_like(y))
 
 
+# Rows of every matrix product a TorchLinear makes on the card: cuBLAS
+# picks its kernel, and with it each row's rounding, by the product's
+# shape, so a fixed row count keeps a row's result independent of the rows
+# that came with it (a tile's outputs of the batch it is served in).
+LINEAR_ROWS = 1 << 18
+
+
+def fixed_rows_matmul(x: torch.Tensor, k: torch.Tensor,
+                      rows: int = LINEAR_ROWS) -> torch.Tensor:
+    """x [..., in] @ k [in, out] as products of ``rows`` rows each, the
+    last zero-padded (differentiable)."""
+    flat = x.reshape(-1, x.shape[-1])
+    n = flat.shape[0]
+    if n % rows:
+        flat = F.pad(flat, (0, 0, 0, rows - n % rows))
+    parts = [c @ k for c in flat.split(rows)]
+    y = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return y[:n].reshape(*x.shape[:-1], k.shape[-1])
+
+
 class TorchLinear(nn.Module):
     """Dense layer with torch's default init, U(-1/sqrt(in), 1/sqrt(in)),
-    for both kernel and bias. ``kernel`` is [in, out] (JAX layout)."""
+    for both kernel and bias. ``kernel`` is [in, out] (JAX layout).
+
+    On the card the rows go through ``fixed_rows_matmul``; on the CPU
+    through one product."""
 
     def __init__(self, in_features: int, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -192,6 +216,8 @@ class TorchLinear(nn.Module):
         self.bias = uniform(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cuda" and x.numel():
+            return fixed_rows_matmul(x, self.kernel) + self.bias
         return x @ self.kernel + self.bias
 
 

@@ -83,9 +83,9 @@ def edge_precompute(w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
     if use_edge:
         ea = eattr.to(torch.float32)
         me = m_edge.to(torch.float32)
-        el = torch.einsum("bkhwf,fa->bkahw", ea, me)
+        el = _edge_terms(ea, me)                            # [B, K, h, H, W]
         el = torch.where(nbm[:, :, None], el, torch.full_like(el, NEG))
-        el_self = torch.einsum("bhwf,fa->bahw", _mean_incoming(ea, nbm), me)
+        el_self = _edge_terms(_mean_incoming(ea, nbm), me)  # [B, h, H, W]
     else:
         b, k, h, w = nbm.shape
         el = torch.where(nbm, 0.0, NEG)[:, :, None].expand(
@@ -96,11 +96,28 @@ def edge_precompute(w_lin, a_src_mat, a_dst_mat, m_edge, eattr, nbr_mask,
             el_self.to(compute_dtype).contiguous())
 
 
+def _edge_terms(ea, me):
+    """ea [..., H, W, ed] . me [ed, heads] -> [..., heads, H, W] as ed
+    elementwise multiply-adds in a fixed order, so that a tile's terms do
+    not depend on the batch it is served in (a matrix product picks its
+    kernel, and with it the rounding, by the whole batch's shape)."""
+    out = ea[..., 0].unsqueeze(-3) * me[0].reshape(-1, 1, 1)
+    for f in range(1, ea.shape[-1]):
+        out.addcmul_(ea[..., f].unsqueeze(-3), me[f].reshape(-1, 1, 1))
+    return out
+
+
 def _mean_incoming(ea, nbm):
     """The self loop's edge attribute: the mean over the valid incoming
-    edges ([B, K, H, W, ed], [B, K, H, W] -> [B, H, W, ed])."""
+    edges ([B, K, H, W, ed], [B, K, H, W] -> [B, H, W, ed]), summed slot by
+    slot in order (elementwise, as ``_edge_terms``); the counts are whole
+    numbers, exact in any order."""
     cnt = nbm.to(torch.float32).sum(1).clamp_min(1.0)[..., None]
-    return torch.where(nbm[..., None], ea, torch.zeros_like(ea)).sum(1) / cnt
+    live = torch.where(nbm[..., None], ea, 0.0)
+    total = live[:, 0] + live[:, 1] if ea.shape[1] > 1 else live[:, 0]
+    for k in range(2, ea.shape[1]):
+        total.add_(live[:, k])
+    return total / cnt
 
 
 def edge_attr_terms(eattr, nbr_mask, use_edge: bool,

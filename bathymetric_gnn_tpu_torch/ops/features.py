@@ -56,6 +56,33 @@ def _box_filter_sum(x: torch.Tensor, size: int) -> torch.Tensor:
     return xc
 
 
+def _tile_sum(x: torch.Tensor) -> torch.Tensor:
+    """Per-tile sums of [B, H, W] as [B, 1, 1].
+
+    On the card ``pairwise_tile_sum``, whose order is fixed by the tile's
+    size alone, so that a tile's sum, and with it every feature, does not
+    depend on the batch it is served in: the library's reduction splits a
+    sum across blocks by the whole tensor's shape. On the CPU, the
+    library's sum, whose roundings the JAX parity tests hold."""
+    if x.device.type != "cuda":
+        return x.sum(dim=(1, 2), keepdim=True)
+    return pairwise_tile_sum(x)
+
+
+def pairwise_tile_sum(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] -> [B, 1, 1]: each tile's sum as a pairwise tree of
+    elementwise adds over the flattened tile, zero-padded to a power of
+    two (the order depends on the tile's size alone)."""
+    b = x.shape[0]
+    v = x.reshape(b, -1)
+    n = v.shape[1]
+    v = F.pad(v, (0, (1 << (n - 1).bit_length()) - n))
+    while v.shape[1] > 1:
+        half = v.shape[1] // 2
+        v = v[:, :half] + v[:, half:]
+    return v.reshape(b, 1, 1)
+
+
 def _laplace_replicate(x: torch.Tensor) -> torch.Tensor:
     """5-point Laplacian with edge replication. The JAX code pads with
     ``mode="symmetric"``, which at width 1 repeats the edge cell: the same
@@ -82,8 +109,7 @@ def masked_local_stats(
     vf = valid_mask.to(torch.float32)
     n_valid = vf.sum(dim=(1, 2), keepdim=True).clamp_min(1.0)
     zero = torch.zeros((), dtype=depth.dtype, device=depth.device)
-    center = torch.where(valid_mask, depth, zero).sum(
-        dim=(1, 2), keepdim=True) / n_valid
+    center = _tile_sum(torch.where(valid_mask, depth, zero)) / n_valid
     d0 = torch.where(valid_mask, depth - center, zero)
 
     sum_vals = _box_filter_sum(d0, size)

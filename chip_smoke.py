@@ -125,6 +125,18 @@ Run from the root of a checkout. Phases, each printing its own lines:
    one flush (two slab chunks, 2,048 + 52); grids/s, Mnodes/s and the
    device's busy share beside 3c's; ``cli.inference_native`` without
    ``--knn-k`` where h5py is installed;
+3h. (run after 3g) streaming inference through ``cli.inference
+   --streaming``: phase 3's survey and checkpoint (12 launches of kernel A
+   = 4 x 3 tile rows, no plain version), its five bands against phase 3's
+   in-memory output (classes and valid mask equal, the rest within
+   1e-4 / 1e-3, cells_corrected equal); then a 16,384 x 4,096 survey
+   (95 tiles of 1024^2 in 19 tile rows) written band by band and streamed
+   twice: 76 launches of A each run, the output read back in row windows
+   and checked (classes, confidence range, the swath gap, the
+   corrections), tiles/s, the growth of the host's VmRSS (sampled every
+   20 ms; at most 1 GiB) and the split of the wall time by stage in the
+   first run, the device's busy share under the profiler in the second;
+   SR and VR BAGs through the CLI where h5py is installed;
 4f. (run after 4e) CUDA-event times of every bf16 form against its bound
    (bf16 streams at 2 bytes) and its plain version, the bf16 dots alone
    as in 4e, the bf16 flush forward
@@ -141,6 +153,7 @@ fixed seeds; nothing is read from the network.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -646,7 +659,8 @@ def phase_end_to_end(torch, np, model, work):
         f"{stats['cells_corrected']}, mean_confidence "
         f"{stats['mean_confidence']:.4f}")
     return dict(launches=launches, wall=wall, tiles=n_tiles, src=src,
-                ckpt=ckpt, depth=depth, argv=argv)
+                ckpt=ckpt, depth=depth, argv=argv,
+                cells_corrected=stats["cells_corrected"])
 
 
 def phase_model_kernel_vs_plain(torch, np, pipe, depth):
@@ -1676,6 +1690,364 @@ def phase_vr_default(torch, np, work, vr):
     return dict(runs=runs, bf16_class_agreement=bf_agree,
                 small_flush_chunks=sizes, small_flush_s=wall_small,
                 cli=cli_stats, procs=procs, flush=flush)
+
+
+# -- phase 3h: streaming survey inference ----------------------------------------
+
+STREAM_H, STREAM_W = 16384, 4096    # 19 tile rows of 5 full 1024^2 tiles
+STREAM_STRIP = 1024                 # rows a strip of the input survey
+# the host memory the streaming run may add: 4 of this survey's f32
+# full-grid arrays (the in-memory path holds >= 8 such arrays)
+RSS_GROWTH_LIMIT = 1 << 30
+
+
+def vm_rss():
+    """The process's resident set now (bytes). ``ru_maxrss`` is a
+    high-water mark that earlier phases have already raised."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def trim_heap():
+    """Return the C heap's free pages to the system (glibc
+    ``malloc_trim``): earlier phases leave GiBs freed but resident, which a
+    run would reuse unseen by VmRSS. Returns False where there is none."""
+    import ctypes
+
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        return False
+    return True
+
+
+class RssSampler:
+    """Peak VmRSS over a ``with`` block, sampled every ``period`` s in a
+    thread."""
+
+    def __init__(self, period=0.02):
+        import threading
+
+        self.period = period
+        self.peak = self.start = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, vm_rss())
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self.start = self.peak = vm_rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, vm_rss())
+
+
+def write_streamed_survey(np, path, h, w, chunk=STREAM_STRIP, seed=SEED):
+    """An [h, w] survey written row band by row band with the port's
+    StreamingGeoTiffWriter, never held whole: swell + shoals + N(0, 0.05)
+    noise + a NaN swath gap, one band (the kind of survey of
+    ``benchmarks/streaming_survey_bench.py``)."""
+    from bathymetric_gnn_tpu_torch.io.geotiff import StreamingGeoTiffWriter
+
+    rg = np.random.default_rng(seed)
+    wr = StreamingGeoTiffWriter(path, h, w, 1, pixel_scale=(1.0, 1.0),
+                                origin=(0.0, float(h)), nodata=float("nan"),
+                                rows_per_strip=chunk)
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    for r0 in range(0, h, chunk):
+        r1 = min(r0 + chunk, h)
+        yy = np.arange(r0, r1, dtype=np.float32)[:, None]
+        band = (30 + 8 * np.sin(xx / 90) + 5 * np.cos(yy / 70)
+                + 2 * np.sin(xx / 17 + yy / 23)
+                + rg.normal(0, 0.05, (r1 - r0, w))).astype(np.float32)
+        band[:, w // 2 - 20:w // 2 - 10] = np.nan   # swath gap
+        wr.write_rows(0, r0, band)
+    wr.close()
+
+
+def forward_calls(tm, shape, batch=8):
+    """(tiles, forward calls) of the streaming path on a survey without
+    holes: each tile row's full tiles in batches of up to ``batch``, a
+    ragged tile alone."""
+    _, _, specs = tm.compute_tile_grid(shape)
+    calls = 0
+    for tr in {s.tile_row for s in specs}:
+        row = [s for s in specs if s.tile_row == tr]
+        full = sum(s.shape == (tm.tile_size, tm.tile_size) for s in row)
+        calls += -(-full // batch) + len(row) - full
+    return len(specs), calls
+
+
+def stream_cli(torch, argv, tag, plain_calls):
+    """cli.inference --streaming with kernel A's launches counted from 0
+    and its plain version counted: (stats, launches, wall s)."""
+    from bathymetric_gnn_tpu_torch.cli import inference as cli
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    ref = gf.grid_gat_reference
+
+    def counted(*a, **k):
+        plain_calls.append(tag)
+        return ref(*a, **k)
+
+    with mock.patch.object(gf, "grid_gat_reference", counted):
+        gf.launches = 0                  # counts of this run
+        t0 = time.perf_counter()
+        stats = cli.main(argv + ["--streaming"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gf.launches
+    return stats, launches, wall
+
+
+def stage_timers(torch, acc):
+    """Patches that add each stage's host-clock seconds to ``acc``: the
+    windowed reads, forward_tiles (ended by a sync, so the device's time
+    is the forward's), the merge (add_tile), the band's roll (advance),
+    finalize_rows, the back-fill and calibration (_finish_channels) and
+    the writes. The streaming path fetches each forward's result at once,
+    so the sync moves no work."""
+    from bathymetric_gnn_tpu_torch.inference.pipeline import (
+        BathymetricPipeline)
+    from bathymetric_gnn_tpu_torch.inference.streaming import RowBandMerger
+    from bathymetric_gnn_tpu_torch.io.geotiff import (GeoTiffWindowReader,
+                                                      StreamingGeoTiffWriter)
+
+    def timed(key, fn, sync=False):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
+    return [mock.patch.object(cls, name, timed(key, getattr(cls, name),
+                                               key == "forward"))
+            for key, cls, name in (
+                ("read", GeoTiffWindowReader, "read_rows"),
+                ("forward", BathymetricPipeline, "forward_tiles"),
+                ("merge", RowBandMerger, "add_tile"),
+                ("advance", RowBandMerger, "advance"),
+                ("finalize_rows", RowBandMerger, "finalize_rows"),
+                ("finish", BathymetricPipeline, "_finish_channels"),
+                ("write", StreamingGeoTiffWriter, "write_rows"))]
+
+
+def check_streamed_output(np, src, out, h, w, thr, stats):
+    """The streamed product read back in row windows: five bands of
+    [h, w], classes in {0, 1, 2} and confidence in [0, 1] on valid cells,
+    NaN on invalid ones (the swath gap), cleaned = depth - correction on
+    confident noise and the depth elsewhere."""
+    from bathymetric_gnn_tpu_torch.io.geotiff import GeoTiffWindowReader
+
+    fixed_total = gap_cells = 0
+    with GeoTiffWindowReader(src) as rin, GeoTiffWindowReader(out) as rout:
+        check((rout.bands, rout.height, rout.width) == (5, h, w),
+              f"[3h] output {(rout.bands, rout.height, rout.width)}")
+        for r0 in range(0, h, STREAM_STRIP):
+            r1 = min(r0 + STREAM_STRIP, h)
+            depth = rin.read_rows(0, r0, r1)
+            cleaned, cls, conf, corr, vm = (rout.read_rows(b, r0, r1)
+                                            for b in range(5))
+            valid = np.isfinite(depth)
+            check(np.array_equal(vm, valid.astype(np.float32)),
+                  f"[3h] valid mask, rows {r0}:{r1}")
+            check(set(np.unique(cls[valid]).tolist()) <= {0.0, 1.0, 2.0},
+                  f"[3h] classes, rows {r0}:{r1}")
+            check(0.0 <= conf[valid].min() and conf[valid].max() <= 1.0,
+                  f"[3h] confidence outside [0, 1], rows {r0}:{r1}")
+            check(all(np.isnan(b[~valid]).all()
+                      for b in (cleaned, cls, conf, corr))
+                  and np.isfinite(cleaned[valid]).all(),
+                  f"[3h] NaN outside the valid cells, rows {r0}:{r1}")
+            check(not valid[:, w // 2 - 20:w // 2 - 10].any(),
+                  "[3h] the swath gap has valid cells")
+            gap_cells += int((~valid).sum())
+            fixed = valid & (cls == 2) & (conf > thr)
+            check(np.array_equal(cleaned[fixed], (depth - corr)[fixed])
+                  and np.array_equal(cleaned[valid & ~fixed],
+                                     depth[valid & ~fixed]),
+                  f"[3h] cleaned depth, rows {r0}:{r1}")
+            fixed_total += int(fixed.sum())
+    check(fixed_total == stats["cells_corrected"],
+          f"[3h] {fixed_total} corrected cells, stats say "
+          f"{stats['cells_corrected']}")
+    check(stats["valid_cells"] == h * w - gap_cells,
+          f"[3h] valid_cells {stats['valid_cells']}")
+
+
+def phase_streaming(torch, np, work, e2e):
+    """cli.inference --streaming: phase 3's survey against phase 3's
+    in-memory output, then a survey taller than the merger's band,
+    streamed twice (host memory, stage split; device busy share)."""
+    from bathymetric_gnn_tpu_torch.data.tiling import TileManager
+    from bathymetric_gnn_tpu_torch.io.geotiff import read_geotiff
+
+    plain_calls = []
+    argv = list(e2e["argv"])
+    mem_out = argv[argv.index("--output") + 1]
+    out = work / "streamed.tif"
+    argv[argv.index("--output") + 1] = str(out)
+    thr = float(argv[argv.index("--confidence-threshold") + 1])
+    tm = TileManager(TILE, 128)
+    n_tiles, calls = forward_calls(tm, (SURVEY, SURVEY))
+    stats, launches, wall = stream_cli(torch, argv, "2304", plain_calls)
+    check(stats["tiles_processed"] == n_tiles == 9,
+          f"[3h] {stats['tiles_processed']} tiles on the {SURVEY}^2 survey")
+    check(launches == MODEL_LAYERS * calls,
+          f"[3h] grid_gat_fwd launches {launches} != {MODEL_LAYERS} x "
+          f"{calls} forward calls")
+    check(not plain_calls, "[3h] the plain version ran")
+    mem, _ = read_geotiff(mem_out)
+    st, _ = read_geotiff(out)
+    check(st.shape == (5, SURVEY, SURVEY), f"[3h] bands {st.shape}")
+    diffs = {}
+    for si, mi, name in ((0, 0, "cleaned"), (1, 2, "classification"),
+                         (2, 3, "confidence"), (3, 4, "correction"),
+                         (4, 5, "valid")):
+        a, b = mem[mi], st[si]
+        if name in ("classification", "valid"):
+            both = np.isfinite(a) & np.isfinite(b)
+            check(np.array_equal(a[both], b[both]),
+                  f"[3h] streaming {name} differs from in-memory on "
+                  f"{int((a[both] != b[both]).sum())} cells")
+        else:
+            a, b = np.nan_to_num(a), np.nan_to_num(b)
+            diffs[name] = float(np.abs(a - b).max())
+            check(np.allclose(a, b, rtol=1e-3, atol=1e-4),
+                  f"[3h] streaming {name} differs from in-memory by "
+                  f"{diffs[name]:.3e}")
+    check(stats["cells_corrected"] == e2e["cells_corrected"],
+          f"[3h] cells_corrected {stats['cells_corrected']} streaming, "
+          f"{e2e['cells_corrected']} in memory")
+    log(f"[3h] cli.inference --streaming on {SURVEY}x{SURVEY}: {n_tiles} "
+        f"tiles in {wall:.3f} s ({n_tiles / wall:.3f} tiles/s), "
+        f"grid_gat_fwd launches {launches} = {MODEL_LAYERS} x {calls}, "
+        f"plain version called 0 times; against phase 3's in-memory "
+        f"output: classes and valid mask equal, max |d| {diffs}, "
+        f"cells_corrected {stats['cells_corrected']} both")
+    small = dict(launches=launches, wall=wall, tiles=n_tiles, diffs=diffs)
+
+    t0 = time.perf_counter()
+    src = work / "tall_survey.tif"
+    big_out = work / "tall_streamed.tif"
+    write_streamed_survey(np, src, STREAM_H, STREAM_W)
+    synth_s = time.perf_counter() - t0
+    f32_mib = STREAM_H * STREAM_W * 4 / 2 ** 20
+    n_tiles, calls = forward_calls(tm, (STREAM_H, STREAM_W))
+    big_argv = ["--input", str(src), "--output", str(big_out), "--model",
+                str(e2e["ckpt"]), "--confidence-threshold", str(thr)]
+    log(f"[3h] wrote a {STREAM_H}x{STREAM_W} survey ({STREAM_H * STREAM_W}"
+        f" cells, {f32_mib:.0f} MiB per f32 array, {n_tiles} tiles of "
+        f"{TILE}^2) in {synth_s:.3f} s")
+
+    gc.collect()
+    rss_used = vm_rss()
+    trimmed = trim_heap()
+    log(f"[3h] host VmRSS {rss_used / 2 ** 20:.1f} MiB, after malloc_trim "
+        f"{vm_rss() / 2 ** 20:.1f} MiB" if trimmed else
+        "[3h] no malloc_trim on this machine: VmRSS keeps the earlier "
+        "phases' freed heap, which the run may reuse unseen")
+    acc = {}
+    patches = stage_timers(torch, acc)
+    for p in patches:
+        p.start()
+    try:
+        with RssSampler() as rss:
+            stats, launches, wall = stream_cli(torch, big_argv, "tall",
+                                               plain_calls)
+    finally:
+        for p in patches:
+            p.stop()
+    growth = rss.peak - rss.start
+    check(stats["tiles_processed"] == n_tiles,
+          f"[3h] {stats['tiles_processed']} tiles, want {n_tiles}")
+    check(launches == MODEL_LAYERS * calls,
+          f"[3h] grid_gat_fwd launches {launches} != {MODEL_LAYERS} x "
+          f"{calls} forward calls")
+    check(not plain_calls, "[3h] the plain version ran")
+    stages = {k: round(v, 4) for k, v in acc.items()}
+    stages["other"] = round(wall - sum(acc.values()), 4)
+    log(f"[3h] streamed {STREAM_H}x{STREAM_W}: {n_tiles} tiles in "
+        f"{wall:.3f} s ({n_tiles / wall:.3f} tiles/s, host clock ending in "
+        f"a sync), grid_gat_fwd launches {launches} = {MODEL_LAYERS} x "
+        f"{calls}, plain version called 0 times; stats {stats}")
+    log(f"[3h] stage split of that run (s): {stages} (forward ends in a "
+        f"sync; other = tile extraction, the fetch, the correction mask, "
+        f"the output rows)")
+    log(f"[3h] host VmRSS before {rss.start / 2 ** 20:.1f} MiB, peak "
+        f"{rss.peak / 2 ** 20:.1f} MiB: growth {growth / 2 ** 20:.1f} MiB "
+        f"= {growth / 2 ** 20 / f32_mib:.3f} of one f32 survey array "
+        f"({f32_mib:.0f} MiB); limit {RSS_GROWTH_LIMIT / 2 ** 20:.0f} MiB")
+    check(growth <= RSS_GROWTH_LIMIT,
+          f"[3h] host memory grew {growth / 2 ** 20:.1f} MiB")
+    check_streamed_output(np, src, big_out, STREAM_H, STREAM_W, thr, stats)
+
+    runs = []
+    wall_p, rows = device_profile(
+        torch, lambda: runs.append(stream_cli(torch, big_argv, "profiled",
+                                              plain_calls)))
+    busy = log_profile("3h", f"streamed {STREAM_H}x{STREAM_W}", wall_p,
+                       rows, top=8)
+    check(runs[0][1] == MODEL_LAYERS * calls and not plain_calls,
+          f"[3h] profiled run: grid_gat_fwd launches {runs[0][1]}")
+    src.unlink()
+    big_out.unlink()
+    bags = stream_bags(np, work, e2e["ckpt"])
+    return dict(small=small, tiles=n_tiles, launches=launches,
+                profiled_launches=runs[0][1], wall=wall,
+                tiles_per_s=n_tiles / wall, busy_share=busy, stages=stages,
+                rss_growth_mib=growth / 2 ** 20, f32_array_mib=f32_mib,
+                bags=bags)
+
+
+def stream_bags(np, work, ckpt):
+    """cli.inference --streaming on a small SR BAG and a small VR BAG,
+    where h5py is installed."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("[3h] cli.inference --streaming on SR and VR BAGs: not run, "
+            "h5py is not installed on this machine")
+        return None
+    from bathymetric_gnn_tpu_torch.cli import inference as cli
+    from bathymetric_gnn_tpu_torch.io.bag import write_sr_bag, write_vr_bag
+
+    depth, unc = synthetic_survey(np, 1200, 1100, SEED + 70)
+    sr = work / "stream_sr.bag"
+    write_sr_bag(sr, np.flipud(np.where(np.isfinite(depth), depth, 1e6)),
+                 np.flipud(unc), resolution=2.0, origin=(500000.0, 4e6))
+    rg = np.random.default_rng(SEED + 71)
+    refs = [(r, c, (20 + rg.normal(0, 1, (16, 16))).astype(np.float32),
+             np.full((16, 16), 0.2, np.float32), 2.0)
+            for r in range(40) for c in range(40)]
+    vr = work / "stream_vr.bag"
+    write_vr_bag(vr, (40, 40), 32.0, refs)
+    out = {}
+    for name, src in (("sr", sr), ("vr", vr)):
+        stats = cli.main(["--input", str(src), "--output",
+                          str(work / f"stream_{name}.tif"), "--model",
+                          str(ckpt), "--streaming"])
+        check(stats["tiles_processed"] > 0 and stats["valid_cells"] > 0,
+              f"[3h] {name} BAG stats {stats}")
+        log(f"[3h] cli.inference --streaming on a {name.upper()} BAG: "
+            f"{stats}")
+        out[name] = stats
+    return out
 
 
 # -- phase 4c ------------------------------------------------------------------
@@ -3711,6 +4083,11 @@ def main() -> int:
                                 work, ksamples)
         phase = "3g the default VR route"
         dvr = phase_vr_default(torch, np, work, vr)
+        phase = "3h streaming survey inference"
+        t3h = time.perf_counter()
+        stream = phase_streaming(torch, np, work, e2e)
+        stream["phase_s"] = time.perf_counter() - t3h
+        log(f"[3h] phase 3h took {stream['phase_s']:.3f} s")
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         srows, slab_fwd = phase_slab_timings(torch, np, scases, dvr)
@@ -3768,6 +4145,7 @@ def main() -> int:
             "max_abs_err_slab_shape": {r["shape"]: errs[r["shape"]]
                                        for r in srows},
         },
+        "streaming": {k: v for k, v in stream.items() if k != "bags"},
     }]
     trow = next(r for r in trows if r["shape"].startswith("mid")
                 and "float32" in r["shape"])

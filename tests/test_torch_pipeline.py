@@ -228,7 +228,7 @@ for m in ("training.grid_trainer", "training.losses", "training.optim",
           "io.bag", "io.loaders", "ops.graph", "ops.ell",
           "ops.cuda.ell_gat_fused", "models.conv_ell", "models.gnn_ell",
           "inference.native_vr", "cli.inference_native",
-          "ops.cuda.segment_reduce", "utils.prof"):
+          "ops.cuda.segment_reduce", "utils.prof", "inference.streaming"):
     assert pkg.__name__ + "." + m in names, m
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
