@@ -1,22 +1,22 @@
 """Training CLI on the PyTorch port (port of ``bathymetric_gnn_tpu/cli/train.py``).
 
-    python -m bathymetric_gnn_tpu_torch.cli.train --trainer graph --knn-k 8 \\
-        --data-dir SURVEYS --output-dir RUN [--device cpu]
+    python -m bathymetric_gnn_tpu_torch.cli.train --data-dir SURVEYS \\
+        --output-dir RUN [--gnn-type GCN] [--knn-k 8] [--device cpu]
     python -m bathymetric_gnn_tpu_torch.cli.train --trainer grid \\
         --data-dir SURVEYS --output-dir RUN [--device cpu]
 
 The flags and defaults are the JAX CLI's, plus ``--device``. Two data
 modes: ``--ground-truth-dir`` (5-band GT rasters) or ``--data-dir`` (clean
-surveys + synthetic noise). Two trainers: ``--trainer graph`` with
-``--knn-k K`` (K > 0) trains the ELL model on k-NN tile graphs
-(``training/trainer.Trainer``); ``--trainer grid`` trains the batched
+surveys + synthetic noise). Two trainers: ``--trainer graph`` (the
+default) trains on tile graphs (``training/trainer.Trainer``): the COO
+model on grid-connectivity graphs at the defaults (``knn_k`` 0), any
+``--gnn-type``; with ``--knn-k K`` (K > 0) k-NN graphs, through the ELL
+model on kernels C and C' for GAT (the COO model for the other types or
+``--sparse-kernel xla``). ``--trainer grid`` trains the batched
 dense-grid GAT model, which reads neither ``graph.knn_k`` nor
 ``model.gnn_type`` (the JAX CLI builds its grid trainer without them; a
-log line says each set one is ignored). Not ported: the graph trainer on
-grid-connectivity graphs (``knn_k == 0``) or with ``--sparse-kernel xla``
-(the COO path), and its non-GAT layer types; they exit naming ROADMAP
-queue 1 item 11. Runs on the CUDA card unless ``--device cpu`` is given;
-fails without a card.
+log line says each set one is ignored). Runs on the CUDA card unless
+``--device cpu`` is given; fails without a card.
 """
 
 from __future__ import annotations
@@ -32,9 +32,6 @@ from .common import resolve_config, setup_logging
 logger = logging.getLogger(__name__)
 
 SURVEY_EXTS = (".bag", ".tif", ".tiff", ".asc")
-NOT_PORTED = ("{what} is not ported to the PyTorch port yet (ROADMAP queue 1 "
-              "item 11: the COO graph path); use --trainer graph --knn-k 8 "
-              "or --trainer grid, with GAT, or the JAX package")
 
 
 def find_survey_files(directory):
@@ -65,13 +62,14 @@ def parse_args(argv=None):
                    help="host input-pipeline worker processes (kept for the "
                         "config; the trainers prefetch in a thread)")
     p.add_argument("--knn-k", type=int,
-                   help=">0: train on k-NN graphs over valid cells (the "
-                        "graph trainer; kernels C, C' and F on the card)")
+                   help=">0: train on k-NN graphs over valid cells (GAT: "
+                        "kernels C, C' and F on the card) instead of grid "
+                        "connectivity (the COO model, kernel F)")
     p.add_argument("--sparse-kernel",
                    choices=["auto", "xla", "banded", "banded_pallas"],
                    help="sparse message-passing kernel for knn graphs")
     p.add_argument("--trainer", choices=["graph", "grid"], default="graph",
-                   help="graph: batched-graph trainer (k-NN graphs only); "
+                   help="graph: batched-graph trainer (any graph); "
                         "grid: batched dense-grid trainer")
     p.add_argument("--resume", action="store_true",
                    help="resume from output-dir/last")
@@ -111,15 +109,6 @@ def main(argv=None):
     cfg.validate()
 
     if args.trainer == "graph":
-        if cfg.model.gnn_type != "GAT":
-            raise SystemExit(NOT_PORTED.format(
-                what=f"--gnn-type {cfg.model.gnn_type}"))
-        if cfg.graph.knn_k <= 0:
-            raise SystemExit(NOT_PORTED.format(
-                what="--trainer graph on grid-connectivity graphs (knn_k 0)"))
-        if cfg.model.sparse_kernel == "xla":
-            raise SystemExit(NOT_PORTED.format(
-                what="--trainer graph --sparse-kernel xla"))
         return _train_graph(args, cfg)
     # the grid model is always GAT on the grid's connectivity
     if cfg.graph.knn_k > 0:
@@ -182,8 +171,7 @@ def _load_surveys(args):
 
 
 def _train_graph(args, cfg):
-    """The graph trainer on k-NN tile graphs (the JAX CLI's graph
-    branch)."""
+    """The graph trainer on tile graphs (the JAX CLI's graph branch)."""
     from ..training.datasets import (GroundTruthTileDataset,
                                      SyntheticTileDataset)
     from ..training.trainer import Trainer

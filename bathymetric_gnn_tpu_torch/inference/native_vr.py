@@ -22,6 +22,13 @@ grids, in input order. Two routes, as in the JAX processor:
   chunk's band/spill decomposition (``ops/ell_banded.band_ell``, 128-row
   bands, built on the host beside the graph).
 
+A GCN, GraphSAGE or GIN model takes the same routes with the ELL model's
+plain layers (slabs as ELL graphs, ``build_slab_ell``: the dense grid
+model is GAT only). ``use_ell=False`` serves the COO model
+(``models/gnn.BathymetricGNN``, any type): no slabs, every grid's graph
+batched (``batch_graphs``) into a ``CooGraph`` with its destination table,
+whose segment sums run kernel F on the card.
+
 On the CPU (only when asked for with ``device="cpu"``) the kernels' plain
 versions run. Chunks hold at most the largest node bucket's nodes, slab
 chunks at most ``slab_batch_buckets[-1]`` grids (the JAX processor splits
@@ -50,20 +57,16 @@ from ..config.constants import CORRECTION_NORM_FLOOR
 from ..data.graph_build import GraphBuilder
 from ..data.slab_build import (build_slab_ell, build_slab_grid_inputs,
                                pack_slab)
+from ..models.gnn import make_model
 from ..models.gnn_ell import make_ell_model
 from ..models.grid_gat import GridBathymetricGNN
 from ..ops.ell import coo_to_ell
 from ..ops.ell_banded import band_ell
-from ..ops.graph import batch_graphs, round_up_to_bucket
+from ..ops.graph import CooGraph, batch_graphs, round_up_to_bucket
 from ..utils.weights import coo_state_dict
 from .pipeline import _DTYPES, infer_in_channels, resolve_device
 
 logger = logging.getLogger(__name__)
-
-COO_MODEL_NOT_PORTED = (
-    "NativeVRProcessor(use_ell=False) serves the COO model, which is not "
-    "ported to the PyTorch port yet (ROADMAP.md queue 1 item 5: the COO "
-    "graph path)")
 
 
 def _pack_outputs(out: Dict[str, torch.Tensor],
@@ -115,7 +118,8 @@ class NativeVRProcessor:
     ``knn_k == 0`` and no explicit self loops; ``use_grid`` (default on for
     GAT) serves slabs through the dense grid model in ``compute_dtype``
     (None: bf16 on the card, which plays the TPU's role, f32 on the CPU).
-    ``use_ell=False`` (the COO model) is not ported and raises.
+    ``use_ell=False`` serves the COO model on graphs only, as the JAX
+    processor does.
     """
 
     def __init__(
@@ -133,8 +137,7 @@ class NativeVRProcessor:
         compute_dtype: Optional[str] = None,
     ):
         self.config = cfg = config or Config()
-        if not use_ell:
-            raise NotImplementedError(COO_MODEL_NOT_PORTED)
+        self.use_ell = use_ell
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -150,7 +153,7 @@ class NativeVRProcessor:
         self.sparse_kernel = sk
         # the slab ELL has exactly `connectivity` incoming slots: explicit
         # self-loop edges would need one more
-        self.use_slab = (use_slab and self.knn_k == 0
+        self.use_slab = (use_slab and use_ell and self.knn_k == 0
                          and not cfg.graph.include_self_loops)
         if use_grid is None:
             use_grid = gat
@@ -158,8 +161,11 @@ class NativeVRProcessor:
         self.slab_size = slab_size
         self.slab_batch_buckets = slab_batch_buckets
         self.in_channels = infer_in_channels(state_dict)
-        self.model = make_ell_model(cfg.model, self.in_channels, edge_dim=3,
-                                    sparse_kernel=sk)
+        if use_ell:
+            self.model = make_ell_model(cfg.model, self.in_channels,
+                                        edge_dim=3, sparse_kernel=sk)
+        else:
+            self.model = make_model(cfg.model, self.in_channels, edge_dim=3)
         self.model.load_state_dict(coo_state_dict(state_dict))
         self.model.to(self.device).eval()
         self.compute_dtype = None
@@ -370,8 +376,9 @@ class NativeVRProcessor:
 
     @torch.no_grad()
     def _launch_graphs_chunk(self, idx: List[int]):
-        """Host concat + ELL pack, one copy to the device, one forward, and
-        a non-blocking copy of the packed outputs back."""
+        """Host concat + ELL pack (or the COO tables), one copy to the
+        device, one forward, and a non-blocking copy of the packed outputs
+        back."""
         entries = [self.pending[i] for i in idx]
         n_total = sum(p["num_nodes"] for p in entries)
         if n_total > self.node_buckets[-1]:
@@ -386,12 +393,16 @@ class NativeVRProcessor:
             [(p["x"], p["edge_index"], p["edge_attr"]) for p in entries],
             n_pad=n_pad, e_pad=n_pad * max_deg,
             local_std_list=[p["local_std"] for p in entries])
-        ell = coo_to_ell(graph, max_degree=max_deg)
-        banded = (band_ell(ell, band_rows=128).to(self.device)
-                  if self.sparse_kernel == "banded" else None)
-        g = ell.to(self.device)
-        packed = _pack_outputs(self.model(g, banded=banded),
-                               g.local_std)[:n_total]
+        if self.use_ell:
+            ell = coo_to_ell(graph, max_degree=max_deg)
+            banded = (band_ell(ell, band_rows=128).to(self.device)
+                      if self.sparse_kernel == "banded" else None)
+            g = ell.to(self.device)
+            out = self.model(g, banded=banded)
+        else:
+            g = CooGraph.from_padded(graph, src_table=False).to(self.device)
+            out = self.model(g)
+        packed = _pack_outputs(out, g.local_std)[:n_total]
         host, done = self._copy_back(packed)
         logger.debug("launched %d graphs (%d nodes, bucket %d)",
                      len(entries), n_total, n_pad)

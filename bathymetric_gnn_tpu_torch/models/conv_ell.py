@@ -1,6 +1,7 @@
-"""GAT layers on the ELL layout (port of ``bathymetric_gnn_tpu/models/conv_ell.py``:
-``GATConvELL``, ``GATConvEllBanded``, ``make_banded_dropout_masks`` and
-``banded_masks_wide_to_khn``).
+"""Message-passing layers on the ELL layout (port of
+``bathymetric_gnn_tpu/models/conv_ell.py``: ``GATConvELL``,
+``GATConvEllBanded``, ``GCNConvELL``, ``SAGEConvELL``, ``GINConvELL``,
+``make_banded_dropout_masks`` and ``banded_masks_wide_to_khn``).
 
 Both layers compute the PyG-exact GAT layer of the JAX modules, with their
 parameter names and shapes (``lin_src`` [F, HC], ``att_src`` /
@@ -30,7 +31,10 @@ layer's output is bf16 on routes C and D and f32 on route E (its spill
 fold works in f32), the bias added in the output's dtype, as in JAX.
 
 On the card the kernels run, on the CPU their plain versions. The GCN,
-GraphSAGE and GIN ELL layers of the JAX module are not ported.
+GraphSAGE and GIN layers (the JAX module's, which run no kernel either) are
+gathers over the slots and masked sums over the slot axis in torch ops on
+both devices, their products through ``layers.matmul`` (fixed-row
+products on the card); the serving paths run them.
 """
 
 from __future__ import annotations
@@ -41,12 +45,12 @@ import torch
 from torch import nn
 
 from ..ops.cuda import ell_gat_banded, ell_gat_fused
-from ..ops.ell import EllTrainGraph
+from ..ops.ell import EllTrainGraph, ell_gather
 from ..ops.ell_banded import (NEG_BIG, banded_gat_band_part_xla,
                               banded_gat_spill_pass,
                               banded_gat_spill_pass_flat)
 from .grid_gat import _glorot
-from .layers import keep_mask
+from .layers import TorchLinear, keep_mask, matmul, zero_padded_nodes
 
 BANDED_DROPOUT_NEEDS_FUSED = (
     "attention dropout on the banded path needs the fused kernel "
@@ -217,9 +221,10 @@ class GATConvELL(_EllGATParams):
     route (then concat or head mean, bias and the node mask): kernel C
     (``ell_gat_fused``) when serving, kernels C and C'
     (``ell_gat_fused_train``) when a gradient is wanted, on the card; their
-    plain version on the CPU. It has no attention dropout: the COO/XLA
-    training path comes with ROADMAP queue 1 item 11, so training mode
-    with ``dropout`` > 0 raises."""
+    plain version on the CPU. It has no attention dropout: no path trains
+    it (the graph trainer trains the ``"xla"`` route through the COO model,
+    ``models/gnn``, as JAX's does), so training mode with ``dropout`` > 0
+    raises."""
 
     def forward(self, g, x: torch.Tensor,
                 dropout_rng: Optional[torch.Generator] = None,
@@ -228,9 +233,9 @@ class GATConvELL(_EllGATParams):
         are unused (no attention dropout, no band layout here)."""
         if self.training and self.dropout > 0:
             raise NotImplementedError(
-                "attention dropout on the plain ELL layer (the COO/XLA "
-                "training path, ROADMAP.md queue 1 item 11) is not ported; "
-                "train with sparse_kernel='banded_pallas'")
+                "attention dropout on the plain ELL layer is not ported; "
+                "train the COO model (models/gnn, the trainer's 'xla' "
+                "route) or sparse_kernel='banded_pallas'")
         return self._forward_c(g, x)
 
 
@@ -406,3 +411,86 @@ class GATConvEllBanded(_EllGATParams):
         return banded_gat_spill_pass(
             y, m, denom, kw["xh"], kw["a_src"], kw["a_dst"], m_edge, banded,
             negative_slope=self.negative_slope)
+
+
+def _slot_mask(g, like: torch.Tensor) -> torch.Tensor:
+    """g's [N, K] slot mask against [N, K, ...] data."""
+    m = g.nbr_mask.to(torch.bool)
+    return m.reshape(m.shape + (1,) * (like.dim() - 2))
+
+
+class GCNConvELL(nn.Module):
+    """PyG-exact GCN layer on the ELL layout (``models/conv.GCNConv``'s
+    function and parameters): d = 1 + live slots, each live slot's row
+    W x_j scaled by 1 / sqrt(d_i d_j), summed over the slots, plus the self
+    loop W x_i / d_i and the bias."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = _glorot(generator, in_channels, out_channels)
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
+
+    def forward(self, g, x: torch.Tensor, dropout_rng=None,
+                banded=None) -> torch.Tensor:
+        xw = matmul(x, self.kernel)
+        m = g.nbr_mask.to(torch.bool)
+        deg = m.to(torch.float32).sum(1) + g.node_mask.to(torch.float32)
+        dinv = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)),
+                           torch.zeros_like(deg))
+        nbr = ell_gather(xw, g.nbr_src)                         # [N, K, C]
+        msgs = nbr * ell_gather(dinv, g.nbr_src)[..., None] \
+            * dinv[:, None, None]
+        msgs = torch.where(_slot_mask(g, msgs), msgs, torch.zeros_like(msgs))
+        out = msgs.sum(1) + xw * (dinv * dinv)[:, None]
+        if self.bias is not None:
+            out = out + self.bias
+        return zero_padded_nodes(out, g.node_mask)
+
+
+class SAGEConvELL(nn.Module):
+    """PyG-exact GraphSAGE (mean aggregator) on the ELL layout:
+    out_i = W_l mean of the live slots' x_j + b_l + W_r x_i."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lin_l = _glorot(generator, in_channels, out_channels)
+        self.bias_l = nn.Parameter(torch.zeros(out_channels))
+        self.lin_r = _glorot(generator, in_channels, out_channels)
+
+    def forward(self, g, x: torch.Tensor, dropout_rng=None,
+                banded=None) -> torch.Tensor:
+        nbr = ell_gather(x, g.nbr_src)
+        live = _slot_mask(g, nbr)
+        cnt = g.nbr_mask.to(x.dtype).sum(1).clamp_min(1.0)
+        agg = torch.where(live, nbr, torch.zeros_like(nbr)).sum(1) \
+            / cnt[:, None]
+        out = matmul(agg, self.lin_l) + self.bias_l + matmul(x, self.lin_r)
+        return zero_padded_nodes(out, g.node_mask)
+
+
+class GINConvELL(nn.Module):
+    """PyG-exact GIN on the ELL layout: mlp((1 + eps) x_i + the sum of the
+    live slots' x_j), eps 0 fixed (``TorchLinear_0``, ReLU,
+    ``TorchLinear_1``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 eps: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.eps = eps
+        self.TorchLinear_0 = TorchLinear(in_channels, out_channels, generator)
+        self.TorchLinear_1 = TorchLinear(out_channels, out_channels,
+                                         generator)
+
+    def forward(self, g, x: torch.Tensor, dropout_rng=None,
+                banded=None) -> torch.Tensor:
+        nbr = ell_gather(x, g.nbr_src)
+        agg = torch.where(_slot_mask(g, nbr), nbr,
+                          torch.zeros_like(nbr)).sum(1)
+        z = (1.0 + self.eps) * x + agg
+        z = self.TorchLinear_1(torch.relu(self.TorchLinear_0(z)))
+        return zero_padded_nodes(z, g.node_mask)

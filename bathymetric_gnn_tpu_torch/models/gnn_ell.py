@@ -26,30 +26,33 @@ the last (fused with its ReLU) and the heads, drawing from the
 it, in either package) runs the banded GAT layers in their bf16 forms: a
 bf16 layer output reaches its BatchNorm, which then computes in f32 and
 returns bf16, and a bf16 activation reaching the heads is cast to f32
-first, as jnp promotes bf16 @ f32. Only GAT is ported.
+first, as jnp promotes bf16 @ f32. GCN, GraphSAGE and GIN backbones
+(``GCNConv_i``, ``SAGEConv_i``, ``GINConv_i``) take the plain ELL layers
+of ``conv_ell`` whatever ``sparse_kernel`` says, as the JAX model does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from .conv_ell import GATConvELL, GATConvEllBanded
+from .conv_ell import (GATConvELL, GATConvEllBanded, GCNConvELL,
+                       GINConvELL, SAGEConvELL)
+from .gnn import CONV_NAMES, conv_width, make_conv
 from .layers import (ClassificationHead, ConfidenceHead, CorrectionHead,
                      MaskedBatchNorm, MLPFeatureExtractor, keep_mask)
 
 SPARSE_KERNELS = ("xla", "banded", "banded_pallas")
-NON_GAT_NOT_PORTED = (
-    "gnn_type={!r}: only GAT is ported to the PyTorch port's ELL model "
-    "(ROADMAP.md, queue 1: 'GCN/SAGE/GIN ELL convs')")
+ELL_CONVS = {"GCN": GCNConvELL, "GraphSAGE": SAGEConvELL, "GIN": GINConvELL}
 
 
 class EllGNNBackbone(nn.Module):
-    """``num_layers`` GAT layers (``heads`` heads concatenated; the last
-    one 1 head), each followed by a masked BatchNorm (+ ReLU but on the
-    last)."""
+    """``num_layers`` conv layers (GAT: ``heads`` heads concatenated, the
+    last one 1 head), each followed by a masked BatchNorm (+ ReLU but on
+    the last)."""
 
     def __init__(self, in_channels: int, hidden_channels: int,
                  num_layers: int, gnn_type: str = "GAT", heads: int = 4,
@@ -57,27 +60,26 @@ class EllGNNBackbone(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dropout: float = 0.0, compute_dtype: str = "float32"):
         super().__init__()
-        if gnn_type != "GAT":
-            raise NotImplementedError(NON_GAT_NOT_PORTED.format(gnn_type))
         if sparse_kernel not in SPARSE_KERNELS:
             raise ValueError(f"unknown sparse_kernel {sparse_kernel!r}")
-        if sparse_kernel == "xla":
-            conv, kw = GATConvELL, {}
+        if gnn_type != "GAT":
+            families = ELL_CONVS
+        elif sparse_kernel == "xla":
+            families = {"GAT": GATConvELL}
         else:
-            conv = GATConvEllBanded
-            kw = dict(use_pallas=sparse_kernel == "banded_pallas",
-                      compute_dtype=compute_dtype)
+            families = {"GAT": functools.partial(
+                GATConvEllBanded, use_pallas=sparse_kernel == "banded_pallas",
+                compute_dtype=compute_dtype)}
         self.num_layers = num_layers
         self.dropout = dropout
+        self.conv_name = CONV_NAMES.get(gnn_type, gnn_type)
         width = in_channels
         for i in range(num_layers):
             last = i == num_layers - 1
-            hds = 1 if last else heads
-            self.add_module(f"GATConv_{i}", conv(
-                width, hidden_channels, heads=hds, concat=not last,
-                edge_dim=edge_dim, generator=generator, dropout=dropout,
-                **kw))
-            width = hidden_channels * hds
+            self.add_module(f"{self.conv_name}_{i}", make_conv(
+                gnn_type, width, hidden_channels, last, heads, edge_dim,
+                generator, dropout, families))
+            width = conv_width(gnn_type, hidden_channels, heads, last)
             self.add_module(f"MaskedBatchNorm_{i}", MaskedBatchNorm(width))
 
     def forward(self, g, x: torch.Tensor,
@@ -87,7 +89,7 @@ class EllGNNBackbone(nn.Module):
         drop = self.training and self.dropout > 0
         for i in range(self.num_layers):
             last = i == self.num_layers - 1
-            conv = getattr(self, f"GATConv_{i}")
+            conv = getattr(self, f"{self.conv_name}_{i}")
             x = conv(g, x, dropout_rng, banded)
             keep, keep_prob = None, 1.0
             if drop and not last:
@@ -118,7 +120,8 @@ class EllBathymetricGNN(nn.Module):
             dropout)
         self.GNNBackbone_0 = EllGNNBackbone(
             hidden_channels, hidden_channels, num_layers, gnn_type, heads,
-            edge_dim=edge_dim, sparse_kernel=sparse_kernel,
+            edge_dim=edge_dim if gnn_type == "GAT" else None,
+            sparse_kernel=sparse_kernel,
             generator=generator, dropout=dropout,
             compute_dtype=compute_dtype)
         self.ClassificationHead_0 = ClassificationHead(

@@ -158,14 +158,19 @@ class GridGATConv(nn.Module):
 def params_from_coo(coo_params: Dict, num_layers: int) -> Dict:
     """Translate BathymetricGNN (COO) params to the GridBathymetricGNN
     layout: same layer math and shapes; only the nesting differs (COO
-    nests convs/norms under GNNBackbone_0)."""
+    nests convs/norms under GNNBackbone_0). GAT layers become
+    ``GridGATConv_i``; the GCN, GraphSAGE and GIN layers, which have no
+    grid model, keep their names (``GCNConv_i``, ``SAGEConv_i``,
+    ``GINConv_i``) at the top, beside the norms."""
     out = {k: v for k, v in coo_params.items() if k != "GNNBackbone_0"}
     bb = coo_params.get("GNNBackbone_0", {})
     for i in range(num_layers):
         if f"GATConv_{i}" in bb:
             out[f"GridGATConv_{i}"] = bb[f"GATConv_{i}"]
-        if f"MaskedBatchNorm_{i}" in bb:
-            out[f"MaskedBatchNorm_{i}"] = bb[f"MaskedBatchNorm_{i}"]
+        for name in (f"GCNConv_{i}", f"SAGEConv_{i}", f"GINConv_{i}",
+                     f"MaskedBatchNorm_{i}"):
+            if name in bb:
+                out[name] = bb[name]
     return out
 
 

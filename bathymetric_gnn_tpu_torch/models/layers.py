@@ -196,6 +196,22 @@ def fixed_rows_matmul(x: torch.Tensor, k: torch.Tensor,
     return y[:n].reshape(*x.shape[:-1], k.shape[-1])
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w: in ``fixed_rows_matmul`` products on the card, one product
+    on the CPU."""
+    if x.device.type == "cuda" and x.numel():
+        return fixed_rows_matmul(x, w)
+    return x @ w
+
+
+def zero_padded_nodes(out: torch.Tensor, node_mask: torch.Tensor
+                      ) -> torch.Tensor:
+    """out [N, ...] with the rows of padded nodes (node_mask [N] false)
+    set to 0 (selected, so a NaN there goes too)."""
+    return torch.where(node_mask.to(torch.bool)[:, None], out,
+                       torch.zeros_like(out))
+
+
 class TorchLinear(nn.Module):
     """Dense layer with torch's default init, U(-1/sqrt(in), 1/sqrt(in)),
     for both kernel and bias. ``kernel`` is [in, out] (JAX layout).
@@ -216,9 +232,7 @@ class TorchLinear(nn.Module):
         self.bias = uniform(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cuda" and x.numel():
-            return fixed_rows_matmul(x, self.kernel) + self.bias
-        return x @ self.kernel + self.bias
+        return matmul(x, self.kernel) + self.bias
 
 
 class MLPFeatureExtractor(nn.Module):

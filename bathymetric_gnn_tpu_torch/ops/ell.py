@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .graph import PaddedGraph
+from .graph import PaddedGraph, sorted_segments
 
 
 @dataclasses.dataclass
@@ -128,22 +128,6 @@ def src_sorted_slots(nbr_src: np.ndarray, nbr_mask: np.ndarray,
     if node_mask is not None:
         live = live & np.asarray(node_mask, bool)[:, None]
     return sorted_segments(src.reshape(-1), live.reshape(-1), n)
-
-
-def sorted_segments(ids: np.ndarray, live: np.ndarray, n: int
-                    ) -> Tuple[np.ndarray, np.ndarray]:
-    """(perm, row_ptr) of the entries of ``ids`` [S] grouped by the node
-    (< n) each names: a stable argsort with the entries that ``live`` [S]
-    marks dead keyed to n, and each node's range of it. The tables of
-    ``src_sorted_slots`` and of ``ops/ell_banded.band_ell``."""
-    ids = np.asarray(ids).reshape(-1)
-    if ids.size >= 2 ** 31:
-        raise ValueError(f"{ids.size} entries exceed int32")
-    key = np.where(np.asarray(live, bool).reshape(-1), ids, n
-                   ).astype(np.int64)
-    perm = np.argsort(key, kind="stable").astype(np.int32)
-    row_ptr = np.searchsorted(key[perm], np.arange(n + 1)).astype(np.int32)
-    return perm, row_ptr
 
 
 def ell_gather(x: torch.Tensor, nbr_src: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ with ``e_s = exp(min(l_s - m, 60))``.
 ``band_ell`` splits a (NumPy) ``EllGraph`` on the host, as the JAX
 function does; ``BandedEll.to`` moves the result to a device. In place of
 the JAX package's Pallas reducer tables (``spill_red_*``, the sorted key
-arrays) it carries (perm, row_ptr) tables of ``ops/ell.sorted_segments``:
+arrays) it carries (perm, row_ptr) tables of ``ops/graph.sorted_segments``:
 over the flat per-band spill entries by source and by destination (the
 backward of the spill-row gathers, kernel F mode (a)), and over the
 in-band slots by their window source (the source side of kernel D').
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .cuda import segment_reduce
-from .ell import sorted_segments
+from .graph import sorted_segments
 
 NEG_BIG = -1e30  # pre-LeakyReLU "minus infinity" for dead slots
 

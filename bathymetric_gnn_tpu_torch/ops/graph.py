@@ -1,15 +1,21 @@
 """Padded graph containers, packed on the host (port of
 ``bathymetric_gnn_tpu/ops/graph.py``: ``round_up_to_bucket``,
 ``PaddedGraph``, ``make_padded_graph``, ``batch_graphs``,
-``merge_stacked``).
+``merge_stacked``, ``csr_row_offsets``).
 
-Everything stays NumPy here: graphs are built and batched on the host, and
-a batch goes to the device once, after ``ops/ell.coo_to_ell``. Sizes are
-padded to node buckets so a serving run sees a few shapes only; validity
-masks mark live nodes and edges. Edges are stored COO sorted by
-destination (stable, so each destination keeps its edges' input order),
-and padded edges point at the last node slot so the destination array
-stays non-decreasing.
+Graphs are built and batched on the host (NumPy), and a batch goes to the
+device once: as an ELL graph (``ops/ell.coo_to_ell``) or, for the COO
+model, as a ``CooGraph`` with its edge tables. Sizes are padded to node
+buckets so a serving run sees a few shapes only; validity masks mark live
+nodes and edges. Edges are stored COO sorted by destination (stable, so
+each destination keeps its edges' input order), and padded edges point at
+the last node slot so the destination array stays non-decreasing.
+
+``sorted_segments`` groups entries by the node they name (a permutation
+and a row pointer): the tables over which kernel F sums in sorted order
+(``ops/cuda/segment_reduce``), for the COO model's segment sums and for
+the backward of its gathers (``CooGraph``), and for the ELL layouts'
+gathers (``ops/ell``, ``ops/ell_banded``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def round_up_to_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -190,3 +197,91 @@ def merge_stacked(batched: PaddedGraph) -> PaddedGraph:
         local_std=flat(batched.local_std),
         graph_id=np.repeat(np.arange(b, dtype=np.int32), n_pad),
     )
+
+
+def csr_row_offsets(edge_dst: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Row offsets per destination for dst-sorted edges (CSR by
+    destination)."""
+    counts = np.bincount(edge_dst, minlength=num_nodes)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def sorted_segments(ids: np.ndarray, live: np.ndarray, n: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """(perm, row_ptr) of the entries of ``ids`` [S] grouped by the node
+    (< n) each names: a stable argsort with the entries that ``live`` [S]
+    marks dead keyed to n, and each node's range of it. The tables of
+    ``src_sorted_slots``, of ``ops/ell_banded.band_ell`` and of
+    ``CooGraph``."""
+    ids = np.asarray(ids).reshape(-1)
+    if ids.size >= 2 ** 31:
+        raise ValueError(f"{ids.size} entries exceed int32")
+    key = np.where(np.asarray(live, bool).reshape(-1), ids, n
+                   ).astype(np.int64)
+    perm = np.argsort(key, kind="stable").astype(np.int32)
+    row_ptr = np.searchsorted(key[perm], np.arange(n + 1)).astype(np.int32)
+    return perm, row_ptr
+
+
+@dataclasses.dataclass
+class CooGraph:
+    """A PaddedGraph (the same nine fields) with the edge tables of the COO
+    model's segment sums and of its gathers' backward, NumPy arrays as
+    ``from_padded`` builds them, tensors after ``to``:
+
+    - ``dst_perm`` / ``dst_row_ptr``: the live edges grouped by destination
+      (``sorted_segments``), for every sum into destinations
+      (``ops/segment.segment_sum`` and the backward of a gather by
+      destination);
+    - ``src_perm`` / ``src_row_ptr`` (None when no gradient is wanted):
+      the live edges grouped by source (``sorted_segments``, a stable
+      argsort), for the backward of a gather by source.
+
+    Dead (padded) edges are in neither table: every layer selects them out
+    before they reach an output, so their cotangents are zero."""
+
+    x: object
+    edge_src: object
+    edge_dst: object
+    edge_attr: object
+    node_mask: object
+    edge_mask: object
+    pos: object
+    local_std: object
+    graph_id: object
+    dst_perm: object
+    dst_row_ptr: object
+    src_perm: object = None
+    src_row_ptr: object = None
+
+    @property
+    def dst_table(self):
+        return self.dst_perm, self.dst_row_ptr
+
+    @property
+    def src_table(self):
+        return (None if self.src_perm is None
+                else (self.src_perm, self.src_row_ptr))
+
+    @classmethod
+    def from_padded(cls, g: PaddedGraph, src_table: bool = True
+                    ) -> "CooGraph":
+        """The tables of ``g`` (NumPy, on the host), the source table only
+        with ``src_table`` (training)."""
+        n = g.num_nodes_padded
+        live = np.asarray(g.edge_mask, bool)
+        fields = {f.name: np.asarray(getattr(g, f.name))
+                  for f in dataclasses.fields(PaddedGraph)}
+        dperm, dptr = sorted_segments(g.edge_dst, live, n)
+        sperm = sptr = None
+        if src_table:
+            sperm, sptr = sorted_segments(g.edge_src, live, n)
+        return cls(**fields, dst_perm=dperm, dst_row_ptr=dptr,
+                   src_perm=sperm, src_row_ptr=sptr)
+
+    def to(self, device) -> "CooGraph":
+        """The same graph as torch tensors on ``device``."""
+        return type(self)(**{
+            f.name: (None if getattr(self, f.name) is None else
+                     torch.as_tensor(getattr(self, f.name)).to(device))
+            for f in dataclasses.fields(self)})

@@ -1,33 +1,37 @@
-"""Training loop on k-NN graphs (port of ``bathymetric_gnn_tpu/training/trainer.py``):
+"""Training loop on graphs (port of ``bathymetric_gnn_tpu/training/trainer.py``):
 the per-epoch learning-rate schedules, the train state and the dropout
-generator that the grid trainer shares, and the graph ``Trainer`` on its
-k-NN path (``knn_k > 0``, GAT: the JAX trainer's ``banded_pallas`` route,
-or its ``banded`` route).
+generator that the grid trainer shares, and the graph ``Trainer`` on the
+JAX trainer's two paths, picked as JAX picks them:
 
-Each batch of k-NN tile graphs is merged on the host (``merge_stacked``),
-packed into the ELL layout with its source-sorted slot tables
-(``coo_to_ell``, ``src_sorted_slots``), and on the ``"banded"`` route
-split into 128-row bands (``ops/ell_banded.band_ell``, as the JAX trainer
-does), in a prefetch thread, and moved to the device once. On the card
-every GAT layer of a train step runs kernel C's dropout form forward and
-kernel C' (with kernel F's source-side reduction) backward; on the
-``"banded"`` route (dropout 0: the JAX layer refuses attention dropout
-there) the JAX XLA route's band part and spill pass, differentiated by
-autograd, as JAX differentiates them. The losses, clipping and AdamW
-follow the JAX trainer. After training, the confidence head is
-Platt-calibrated through the ELL model and ``calibration.json`` is written
-beside every checkpoint.
+- the k-NN path (``knn_k > 0`` and GAT, ``sparse_kernel`` not "xla"): the
+  ELL model on the ``banded_pallas`` route (kernel C's dropout form
+  forward, kernel C' with kernel F's source-side reduction backward) or
+  the ``banded`` route (dropout 0: the JAX layer refuses attention dropout
+  there; the JAX XLA route's band part and spill pass, differentiated by
+  autograd). Each batch is merged on the host (``merge_stacked``), packed
+  into the ELL layout with its source-sorted slot tables (``coo_to_ell``,
+  ``src_sorted_slots``) and, on the ``banded`` route, split into 128-row
+  bands (``ops/ell_banded.band_ell``);
+- the COO path (``knn_k == 0``, the CLI's default, or
+  ``sparse_kernel="xla"``, or a GCN, GraphSAGE or GIN model): the COO
+  model (``models/gnn.BathymetricGNN``) on the merged batch, carried as a
+  ``CooGraph`` with its destination and source tables, so that every
+  segment sum and every gather's backward is kernel F on the card (a step
+  repeats bit for bit).
+
+The host work runs in a prefetch thread and a batch moves to the device
+once. The losses, clipping and AdamW follow the JAX trainer. After
+training, the confidence head is Platt-calibrated through the same model
+and ``calibration.json`` is written beside every checkpoint.
 
 Checkpoints are port checkpoints (``utils/weights.save_checkpoint``, the
 weights grid-named, ``meta["param_layout"] = "coo"``) under ``best/``,
 ``last/``, ``final/`` (and ``epoch_N/`` every ``checkpoint_every``
 epochs), each with ``train_state.pt`` for ``--resume``;
-``cli/inference_native --knn-k K`` serves them. Not ported: the COO graph
-trainer (``knn_k == 0`` or ``sparse_kernel="xla"``, ROADMAP queue 1 item
-11) and the worker-process loader (``num_workers > 0`` loads in a
-prefetch thread). With dropout the ``"banded"`` route raises the JAX
-layer's own refusal when the trainer is built (JAX raises it at the first
-step).
+``cli/inference_native`` serves them. Not ported: the worker-process
+loader (``num_workers > 0`` loads in a prefetch thread). With dropout the
+``"banded"`` route raises the JAX layer's own refusal when the trainer is
+built (JAX raises it at the first step).
 """
 
 from __future__ import annotations
@@ -44,12 +48,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
-
-COO_TRAINER_NOT_PORTED = (
-    "the COO graph trainer (graph.knn_k == 0 or sparse_kernel='xla') is not "
-    "ported to the PyTorch port yet (ROADMAP.md queue 1 item 11); train on "
-    "k-NN graphs (--knn-k 8) or use --trainer grid")
-
 
 def cosine_warm_restarts(epoch: int, base_lr: float, t0: int = 10,
                          t_mult: int = 2, eta_min: float = 0.0) -> float:
@@ -115,9 +113,9 @@ def _to_device_targets(targets: Dict[str, np.ndarray], device
 
 
 class Trainer:
-    """The graph trainer on k-NN tile graphs (``config.graph.knn_k > 0``,
-    GAT). The ELL model (``models/gnn_ell.EllBathymetricGNN``) is built by
-    ``init_state`` from the first sample's feature widths.
+    """The graph trainer over tile graphs. The model (the ELL model on the
+    k-NN path, the COO model otherwise) is built by ``init_state`` from
+    the first sample's feature widths.
 
     ``device=None`` trains on the card and raises without one; the CPU
     runs only when asked for (``device="cpu"``), on the kernels' plain
@@ -132,22 +130,23 @@ class Trainer:
         mc = config.model
         self.knn_k = int(config.graph.knn_k)
         sk = mc.sparse_kernel
+        gat = mc.gnn_type == "GAT"
         if sk == "auto":
-            # the kernel route on any device, as the k-NN serving path
-            sk = "banded_pallas"
-        if self.knn_k <= 0 or sk == "xla":
-            raise NotImplementedError(COO_TRAINER_NOT_PORTED)
+            # the kernel route on any device for k-NN GAT, as the k-NN
+            # serving path; the COO path otherwise
+            sk = "banded_pallas" if self.knn_k > 0 and gat else "xla"
+        if sk != "xla" and (self.knn_k == 0 or not gat):
+            logger.warning("sparse_kernel=%s needs knn_k>0 and GAT; "
+                           "training on the COO path", sk)
+            sk = "xla"
         if sk == "banded" and mc.dropout > 0:
             # the JAX trainer runs this route with use_pallas=False, whose
             # layer refuses attention dropout
             from ..models.conv_ell import BANDED_DROPOUT_NEEDS_FUSED
 
             raise NotImplementedError(BANDED_DROPOUT_NEEDS_FUSED)
-        if mc.gnn_type != "GAT":
-            raise NotImplementedError(
-                f"gnn_type {mc.gnn_type!r} on k-NN graphs: only GAT is "
-                "ported (ROADMAP.md queue 1 item 11)")
         self.sparse_kernel = sk
+        self.use_banded_training = sk != "xla"
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -205,13 +204,17 @@ class Trainer:
                              "defaults")
             return np.ones(nc, np.float32), 1.0
 
-    def sparse_batch(self, stacked_graph):
-        """Stacked [B, ...] batch -> its merged ELL graph with the
-        source-sorted slot tables, on the host (NumPy)."""
+    def sparse_batch(self, stacked_graph, train: bool = True):
+        """Stacked [B, ...] batch -> its merged graph on the host (NumPy):
+        on the k-NN path the ELL graph with the source-sorted slot tables,
+        on the COO path a ``CooGraph`` with its destination table and, for
+        a train step (``train``), its source table."""
         from ..ops.ell import coo_to_ell
-        from ..ops.graph import merge_stacked
+        from ..ops.graph import CooGraph, merge_stacked
 
         merged = merge_stacked(stacked_graph)
+        if not self.use_banded_training:
+            return CooGraph.from_padded(merged, src_table=train)
         return coo_to_ell(merged, max_degree=self.knn_k
                           ).with_src_sorted_slots()
 
@@ -228,15 +231,16 @@ class Trainer:
         return band_ell(g, band_rows=128)
 
     def _host_batches(self, dataset, shuffle: bool):
-        """(ELL graph, stacked targets, live edges, live nodes, tiles,
-        BandedEll or None) per batch, all built on the host."""
+        """(merged graph, stacked targets, live edges, live nodes, tiles,
+        BandedEll or None) per batch, all built on the host; shuffled
+        batches are the training epoch's."""
         from .datasets import epoch_batches
 
         rng = self.rng if shuffle else np.random.default_rng(0)
         for graph, targets in epoch_batches(
                 dataset, self.config.training.batch_size, rng,
                 shuffle=shuffle):
-            g = self.sparse_batch(graph)
+            g = self.sparse_batch(graph, train=shuffle)
             yield (g, targets,
                    int(np.asarray(graph.edge_mask).sum()),
                    int(np.asarray(graph.node_mask).sum()),
@@ -249,19 +253,24 @@ class Trainer:
         """A new model (random weights from ``training.seed``) and its
         AdamW state, for graphs shaped like ``sample_graph`` (a
         PaddedGraph)."""
+        from ..models.gnn import make_model
         from ..models.gnn_ell import make_ell_model
         from .optim import AdamW
 
         tc = self.config.training
-        model = make_ell_model(
-            self.config.model, int(np.asarray(sample_graph.x).shape[-1]),
-            edge_dim=int(np.asarray(sample_graph.edge_attr).shape[-1]),
-            sparse_kernel=self.sparse_kernel,
-            dropout=self.config.model.dropout,
-            generator=torch.Generator().manual_seed(tc.seed)
-        ).to(self.device)
-        logger.info("ELL model initialized (k-NN path, %s): %d parameters",
-                    self.sparse_kernel,
+        kw = dict(edge_dim=int(np.asarray(sample_graph.edge_attr).shape[-1]),
+                  dropout=self.config.model.dropout,
+                  generator=torch.Generator().manual_seed(tc.seed))
+        in_channels = int(np.asarray(sample_graph.x).shape[-1])
+        if self.use_banded_training:
+            model = make_ell_model(self.config.model, in_channels,
+                                   sparse_kernel=self.sparse_kernel, **kw)
+        else:
+            model = make_model(self.config.model, in_channels, **kw)
+        model = model.to(self.device)
+        logger.info("model initialized (%s path): %d parameters",
+                    f"k-NN, {self.sparse_kernel}"
+                    if self.use_banded_training else "COO",
                     sum(p.numel() for p in model.parameters()))
         return TrainState(model, AdamW(model.parameters(), tc.weight_decay),
                           0)
@@ -270,15 +279,16 @@ class Trainer:
 
     def loss_fn(self, model, g, targets: Dict[str, torch.Tensor],
                 train: bool, banded=None):
-        """Forward + the 5-component loss of one merged batch (``g`` an
-        ELL graph on the device, ``banded`` its BandedEll on the device on
-        the ``"banded"`` route); returns (losses, accuracy over live
+        """Forward + the 5-component loss of one merged batch (``g`` the
+        merged graph on the device, ``banded`` its BandedEll on the device
+        on the ``"banded"`` route); returns (losses, accuracy over live
         nodes)."""
         from . import losses as L
 
         tc = self.config.training
         model.train(train)
-        out = model(g, self.dropout_rng if train else None, banded=banded)
+        out = self._forward(model, g, self.dropout_rng if train else None,
+                            banded)
         node_mask = g.node_mask.to(torch.bool)
         terms = L.combined_loss_terms(
             out, targets, node_mask, class_weights=self.class_weights,
@@ -295,10 +305,18 @@ class Trainer:
                         ) / m.sum().clamp_min(1.0)
         return losses, acc
 
+    def _forward(self, model, g, dropout_rng=None, banded=None):
+        """The model on one merged graph (the ELL model takes ``banded``,
+        the COO model has no such input)."""
+        if self.use_banded_training:
+            return model(g, dropout_rng, banded=banded)
+        return model(g, dropout_rng)
+
     def train_step(self, state: TrainState, g, targets, lr: float,
                    banded=None):
-        """One step: forward (kernel C's dropout form on the card),
-        backward (kernels C' and F), clip, AdamW. ``g``/``targets`` (and
+        """One step: forward (kernel C's dropout form on the k-NN path,
+        kernel F's sums on the COO path, on the card), backward (kernels
+        C' and F; F), clip, AdamW. ``g``/``targets`` (and
         ``banded`` on the ``"banded"`` route) on the device. Returns
         (losses, accuracy) as device tensors."""
         from .optim import clip_by_global_norm_
@@ -456,11 +474,11 @@ class Trainer:
         when fewer than 200), against the benefit of applying the
         predicted correction (|error| shrinks, weighted by the change of
         squared error), or against label agreement when the targets carry
-        no correction. The forward runs the ELL model in eval mode (the
-        JAX k-NN trainer runs its COO model here, which cannot take the
-        banded graph, so it never writes the file). Writes
-        calibration.json into the run directory and beside every
-        checkpoint; inference applies (a, b). Returns a."""
+        no correction. The forward runs the trained model in eval mode (on
+        the k-NN path the ELL model: the JAX k-NN trainer runs its COO
+        model here, which cannot take the banded graph, so it never writes
+        the file). Writes calibration.json into the run directory and
+        beside every checkpoint; inference applies (a, b). Returns a."""
         from ..config.constants import CLASS_NOISE
 
         ds = self.val_dataset if self.val_dataset is not None \
@@ -469,8 +487,8 @@ class Trainer:
         confs, ys, sws, noise_sel = [], [], [], []
         for g, targets, *_, banded in self._host_batches(ds, shuffle=False):
             with torch.no_grad():
-                out = model(g.to(self.device),
-                            banded=self._device_banded(banded))
+                out = self._forward(model, g.to(self.device),
+                                    banded=self._device_banded(banded))
             m = np.asarray(g.node_mask).astype(bool).reshape(-1)
             c = out["confidence"].cpu().numpy().astype(np.float64)
             pc = out["predicted_class"].cpu().numpy().reshape(-1)[m]

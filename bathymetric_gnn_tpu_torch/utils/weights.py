@@ -16,14 +16,19 @@ A port checkpoint directory holds ``model.pt`` (the state_dict),
 ``"grid"`` for the dense-grid trainer, ``"coo"`` for the graph trainer),
 ``calibration.json`` and, when a config is given, ``config.yaml``.
 ``coo_state_dict`` renames a grid-named state_dict to the keys of the
-ELL model (``models/gnn_ell.py``), which nests its layers under
-``GNNBackbone_0`` as the JAX graph models do; ``grid_state_dict`` renames
-back, so the k-NN trainer writes grid-named checkpoints too.
+graph models (``models/gnn.py``, ``models/gnn_ell.py``), which nest their
+layers under ``GNNBackbone_0`` as the JAX graph models do;
+``grid_state_dict`` renames back, so the graph trainer writes grid-named
+checkpoints too. GAT layers are ``GridGATConv_i`` in the grid names; the
+GCN, GraphSAGE and GIN layers (``GCNConv_i``, ``SAGEConv_i`` with
+``lin_l`` / ``bias_l`` / ``lin_r``, ``GINConv_i.TorchLinear_{0,1}``) keep
+their names there, beside the ``MaskedBatchNorm_i``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -45,9 +50,13 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# a conv layer of a graph model's backbone, of any of the four families
+_CONV = re.compile(r"(GAT|GCN|SAGE|GIN)Conv_(\d+)$")
+
+
 def _coo_layers(params: Mapping) -> int:
     bb = params.get("GNNBackbone_0", {})
-    return sum(1 for k in bb if k.startswith("GATConv_"))
+    return sum(1 for k in bb if _CONV.match(k))
 
 
 def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping],
@@ -70,8 +79,9 @@ def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping],
 
 def coo_state_dict(state_dict: Mapping[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-    """A grid-named state_dict (``GridGATConv_i.*``, ``MaskedBatchNorm_i.*``
-    at the top) -> the ELL model's keys (``GNNBackbone_0.GATConv_i.*``,
+    """A grid-named state_dict (``GridGATConv_i.*``, ``GCNConv_i.*``,
+    ``SAGEConv_i.*``, ``GINConv_i.*``, ``MaskedBatchNorm_i.*`` at the top)
+    -> the graph models' keys (``GNNBackbone_0.GATConv_i.*``, ...,
     ``GNNBackbone_0.MaskedBatchNorm_i.*``): the inverse of
     ``params_from_coo`` on state_dict keys. Other keys are kept."""
     out = {}
@@ -79,7 +89,7 @@ def coo_state_dict(state_dict: Mapping[str, torch.Tensor]
         head, _, rest = key.partition(".")
         if head.startswith("GridGATConv_"):
             key = f"GNNBackbone_0.GATConv_{head[len('GridGATConv_'):]}.{rest}"
-        elif head.startswith("MaskedBatchNorm_"):
+        elif head.startswith("MaskedBatchNorm_") or _CONV.match(head):
             key = f"GNNBackbone_0.{key}"
         out[key] = t
     return out
@@ -87,10 +97,11 @@ def coo_state_dict(state_dict: Mapping[str, torch.Tensor]
 
 def grid_state_dict(state_dict: Mapping[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-    """The ELL model's keys (``GNNBackbone_0.GATConv_i.*``,
+    """The graph models' keys (``GNNBackbone_0.GATConv_i.*``, ...,
     ``GNNBackbone_0.MaskedBatchNorm_i.*``) -> the grid names of a port
-    checkpoint (``GridGATConv_i.*``, ``MaskedBatchNorm_i.*``): the inverse
-    of ``coo_state_dict``. Other keys are kept."""
+    checkpoint (``GridGATConv_i.*``, the other families' ``XConv_i.*`` and
+    ``MaskedBatchNorm_i.*`` at the top): the inverse of
+    ``coo_state_dict``. Other keys are kept."""
     out = {}
     for key, t in state_dict.items():
         head, _, rest = key.partition(".")

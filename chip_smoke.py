@@ -142,7 +142,37 @@ Run from the root of a checkout. Phases, each printing its own lines:
    as in 4e, the bf16 flush forward
    beside 4c's f32 one, and one bf16 train step on routes C and D (dropout
    0.1, f32 master weights) beside the f32 steps of 4d and 4e: launches,
-   ms and the device's busy share.
+   ms and the device's busy share;
+2g. (run after 2f) kernel F as the COO path's segment sum: on the
+   grid-connectivity graph of a synthetic 256^2 survey with 5 % holes
+   (65,536-node bucket, pads at N - 1), rows of width 256 (messages), 4
+   and 1 (softmax denominators, counts) and 3 (edge attributes) summed
+   over the destination table, and a gather's backward over the
+   source-sorted table, against the plain version / ``index_add_`` on the
+   card, two calls bit for bit;
+3i. (run after 3h) ``NativeVRProcessor(use_ell=False)``: the COO model at
+   full width on 3g's first 500 refinements and its 512^2 grid (every
+   grid a grid-connectivity graph): F launched 4 x 4 layers x the graph
+   chunks, no plain version, two runs bit for bit, classes against 3g's
+   f32 default route (>= 99 %), grids/s and busy share beside 3g's; GCN,
+   GraphSAGE and GIN models on the default route (slab ELL graphs and
+   the 512^2 graph, 200 refinements), card against CPU; and
+   ``cli.smoke_test`` on the card (all stages; A launched 2 times, F 8);
+3j. (run after 3i) ``cli.train --trainer graph`` at its defaults (no
+   ``--knn-k``: the COO model) for 1 epoch on 3d's survey: F launches
+   against the count the code implies, no plain version, finite losses,
+   best/last/final with calibration.json, the checkpoint served on the
+   default route; one step through F against the step on F's plain
+   version (dropout 0, N = 262,144: loss 1e-5; each gradient against the
+   step in f64, F's error no more than the f32 plain version's plus
+   1e-3: of each entry's sum of |terms| for lin_edge and att_edge, which
+   cancel, of the leaf's largest |entry| for the others); two steps
+   from one state and seed bit for bit; one epoch of ``--gnn-type GCN``
+   on 8 tiles;
+4g. (run after 4f) CUDA-event times of F at each COO shape (bound, plain
+   version, ``index_add_``), the COO model's 65,536-node flush forward
+   beside route C on the same chunk, and the COO train step at
+   N = 262,144 (busy share) beside 4d's route-C step.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -321,7 +351,13 @@ def seeded_model(torch, np, in_channels=7):
 
     g = torch.Generator().manual_seed(SEED)
     model = GridBathymetricGNN(in_channels, 64, MODEL_LAYERS, 4, generator=g)
-    rg = np.random.default_rng(SEED)
+    return random_bn_stats(torch, np, model, SEED).eval()
+
+
+def random_bn_stats(torch, np, model, seed):
+    """``model`` with random BatchNorm running statistics from ``seed``
+    (means N(0, 0.2), variances U(0.5, 2))."""
+    rg = np.random.default_rng(seed)
     with torch.no_grad():
         for name, buf in model.named_buffers():
             if name.endswith(".mean"):
@@ -330,7 +366,7 @@ def seeded_model(torch, np, in_channels=7):
             elif name.endswith(".var"):
                 buf.copy_(torch.from_numpy(
                     rg.uniform(0.5, 2.0, buf.shape).astype(np.float32)))
-    return model.eval()
+    return model
 
 
 # -- phase 2 ---------------------------------------------------------------------
@@ -1154,15 +1190,19 @@ def phase_train_timings(torch, np, cases, work, data):
     return rows, steps
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, cpu=True):
     """fn() under torch.profiler: (wall s, [(device ms, count, kernel)])
     over the device-side events (kernels, copies; the CPU ops that
     launched them would count twice). The profiler slows the host, so the
-    idle share it gives is an upper bound."""
+    idle share it gives is an upper bound. ``cpu=False`` records the
+    device's activity only: on a path whose host runs many small torch
+    ops (the COO route's per-grid graph builds: ~1,500 a refinement),
+    recording them slows the host several times and summing them takes
+    about a minute."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1684,12 +1724,14 @@ def phase_vr_default(torch, np, work, vr):
     busy32 = log_profile("3g", "500 refinement grids, f32", wall_p, prows,
                          top=6)
     cli_stats = vr_cli(np, work, vr["ckpt"], grids[:300], "3g", None)
+    results32 = runs["float32"]["results"]
     for name, r in runs.items():
         r.pop("results")
         r["device_busy_share"] = busy if name == "bfloat16" else busy32
     return dict(runs=runs, bf16_class_agreement=bf_agree,
                 small_flush_chunks=sizes, small_flush_s=wall_small,
-                cli=cli_stats, procs=procs, flush=flush)
+                cli=cli_stats, procs=procs, flush=flush,
+                results32=results32)
 
 
 # -- phase 3h: streaming survey inference ----------------------------------------
@@ -4001,6 +4043,686 @@ def bf16_entries(errs, bmod, rows, flush_ms, steps):
     }]
 
 
+# -- phase 2g: kernel F as the COO segment sum ------------------------------------
+
+COO_N = 65536          # the COO flush: a 256^2 survey's grid graph, 5 % holes
+COO_WIDTHS = {256: "message rows (wide layers)", 4: "denominators (4 heads)",
+              1: "denominators (last layer), counts", 3: "edge attributes"}
+# F per GAT layer with edge attributes on the COO path: forward 4 (the
+# self loop's mean attribute: sum and count; the softmax denominator; the
+# message sum), backward 4 (the gathers of alpha_src, alpha_dst, the
+# denominator and xh); GCN 2 forward (degree, message sum) + 1 backward
+# (the gather of x W)
+COO_F = {"GAT": (4, 4), "GCN": (2, 1)}
+COO_VR_GRIDS = 500     # 3i serves 3g's first 500 refinements + the 512^2 grid
+COO_GCN_SURVEY = (480, 928)   # 2 x 4 tiles of 256^2 at stride 224
+
+
+def coo_flush_graph(torch, np, dev):
+    """The grid-connectivity graph (the port's GraphBuilder, knn_k 0) of a
+    synthetic 256^2 survey with 5 % holes and uncertainty (8 features), in
+    the 65,536-node bucket with its pads at N - 1: the PaddedGraph, its
+    CooGraph (both tables) on the card, and its ELL form (route C's
+    input) on the card."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.graph import CooGraph
+
+    depth, unc = knn_survey(np, KNN_SURVEY, SEED + 100)
+    valid = np.isfinite(depth)
+    bg = GraphBuilder().build_graph(depth, valid, unc, (1.0, 1.0))
+    pg = bg.graph
+    check(pg.x.shape == (COO_N, 8), f"COO flush graph {pg.x.shape}")
+    return pg, CooGraph.from_padded(pg).to(dev), coo_to_ell(pg, 8).to(dev)
+
+
+def phase_coo_segment_vs_plain(torch, np, dev):
+    """Kernel F as the COO segment sum (the destination table), at the COO
+    flush's widths, and as a gather's backward (the source table), against
+    its plain version (index_add_) on the same card tensors; two calls bit
+    for bit. f32 sums of <= 9 rows in another order: |err| <= 1e-5 (1 +
+    |ref|)."""
+    from bathymetric_gnn_tpu_torch.ops import segment as seg
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    pg, g, ell = coo_flush_graph(torch, np, dev)
+    n, e = g.x.shape[0], g.edge_src.shape[0]
+    live = int(g.edge_mask.sum())
+    gen = torch.Generator().manual_seed(SEED + 101)
+    errs = {}
+    for f, what in COO_WIDTHS.items():
+        ct = torch.randn(e, f, generator=gen).to(dev)
+        out = seg.segment_sum(ct, g.edge_dst, n, g.edge_mask, g.dst_table)
+        again = seg.segment_sum(ct, g.edge_dst, n, g.edge_mask, g.dst_table)
+        ref = sr.segment_reduce_reference(ct, *g.dst_table, n)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        errs[f"sum [E, {f}]"] = err
+        check(torch.equal(out, again), f"[2g] F [E, {f}] differs between "
+              "two calls")
+        check(err <= 1e-5 * (1 + ref.abs().max().item()),
+              f"[2g] F [E, {f}] vs plain: {err:.3e}")
+        log(f"[2g] segment_sum over {live} live of {e} edges into {n} "
+            f"nodes, [E, {f}] ({what}): F vs plain max |err| {err:.3e}, "
+            f"two calls bit for bit")
+    ct = torch.randn(e, 256, generator=gen).to(dev)
+    x = torch.zeros(n, 256, device=dev, requires_grad=True)
+    seg.gather(x, g.edge_src, g.src_table).backward(ct)
+    out = sr.segment_reduce_sorted(ct, *g.src_table, n)
+    again = sr.segment_reduce_sorted(ct, *g.src_table, n)
+    m = g.edge_mask
+    ref = torch.zeros(n, 256, device=dev).index_add_(
+        0, g.edge_src[m].long(), ct[m])
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    errs["gather backward [E, 256]"] = err
+    check(torch.equal(out, again) and torch.equal(out, x.grad),
+          "[2g] the gather's backward differs between calls")
+    check(err <= 1e-5 * (1 + ref.abs().max().item()),
+          f"[2g] gather backward vs index_add_: {err:.3e}")
+    log(f"[2g] gather backward through the source-sorted table, [E, 256]: "
+        f"F vs index_add_ max |err| {err:.3e}, autograd's and two direct "
+        f"calls bit for bit")
+    return errs, dict(pg=pg, g=g, ell=ell)
+
+
+# -- phase 3i: COO serving, non-GAT serving and the smoke test -----------------
+
+def seeded_graph_state(torch, np, gnn_type, seed):
+    """The grid-named state_dict of a full-width COO model of ``gnn_type``
+    (8 input channels), random weights and BatchNorm statistics from
+    ``seed``."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.models.gnn import make_model
+    from bathymetric_gnn_tpu_torch.utils.weights import grid_state_dict
+
+    cfg = Config()
+    cfg.model.gnn_type = gnn_type
+    model = random_bn_stats(torch, np, make_model(
+        cfg.model, 8, generator=torch.Generator().manual_seed(seed)), seed)
+    return cfg, grid_state_dict(model.state_dict())
+
+
+def counted_calls(fn, calls):
+    def wrapped(*a, **k):
+        calls.append(getattr(fn, "__name__", "plain"))
+        return fn(*a, **k)
+    return wrapped
+
+
+def class_agreement(np, grids, a, b):
+    agree = n = 0
+    dconf = 0.0
+    for (depth, _, _), ra, rb in zip(grids, a, b):
+        v = np.abs(depth) < 1e5
+        agree += int((ra["classification"][v]
+                      == rb["classification"][v]).sum())
+        n += int(v.sum())
+        dconf = max(dconf, float(np.abs(ra["confidence"]
+                                        - rb["confidence"]).max()))
+    return agree / n, dconf
+
+
+def phase_vr_coo(torch, np, work, vr, dvr):
+    """NativeVRProcessor(use_ell=False) (the COO model at full width, every
+    grid a grid-connectivity graph, kernel F behind its sums) on 3g's
+    first COO_VR_GRIDS refinements and its 512^2 grid, from 3c's
+    checkpoint; GCN, GraphSAGE and GIN models on the default route, card
+    against CPU; cli.smoke_test on the card."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.inference.native_vr import (
+        NativeVRProcessor)
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.utils.weights import load_state_dict
+
+    sd, _ = load_state_dict(vr["ckpt"])
+    grids = vr["grid_list"]
+    idx = list(range(COO_VR_GRIDS)) + [VR_GRIDS // 2]
+    sub = [grids[i] for i in idx]
+    check(sub[-1][0].shape == (VR_BIG, VR_BIG), "the 512^2 grid")
+    n_nodes = sum(int((np.abs(d) < 1e5).sum()) for d, _, _ in sub)
+    proc = NativeVRProcessor(sd, Config(), node_budget=VR_BUDGET,
+                             use_ell=False)
+    check(not proc.use_slab and not proc.use_grid, "COO route took slabs")
+    serve(proc, sub[:100])              # warm-up (allocator, first launches)
+    torch.cuda.synchronize()
+    chunks, plain = [], []
+    launch = proc._launch_graphs_chunk
+
+    def counted_chunk(idx_):
+        chunks.append(len(idx_))
+        return launch(idx_)
+
+    runs = []
+    with mock.patch.object(proc, "_launch_graphs_chunk", counted_chunk), \
+            mock.patch.object(sr, "segment_reduce_reference",
+                              counted_calls(sr.segment_reduce_reference,
+                                            plain)):
+        for _ in range(2):
+            chunks.clear()
+            sr.launches = 0             # counts of the main path's run
+            t0 = time.perf_counter()
+            results = serve(proc, sub)
+            torch.cuda.synchronize()
+            runs.append((results, time.perf_counter() - t0, sr.launches,
+                         len(chunks)))
+    (results, wall, launches, n_chunks), (results2, wall2, _, _) = runs
+    check_results(np, sub, results, "3i")
+    check(not plain, f"the plain version ran {len(plain)} times")
+    per_layer = COO_F["GAT"][0]         # serving: the forward's launches
+    check(launches == per_layer * MODEL_LAYERS * n_chunks,
+          f"[3i] F launches {launches} != {per_layer} x {MODEL_LAYERS} "
+          f"layers x {n_chunks} graph chunks")
+    same = all(np.array_equal(a[c], b[c]) for a, b in zip(results, results2)
+               for c in ("classification", "confidence", "correction"))
+    check(same, "[3i] two COO serving runs differ")
+    ref = [dvr["results32"][i] for i in idx]
+    agree, dconf = class_agreement(np, sub, results, ref)
+    check(agree >= 0.99, f"[3i] classes vs 3g's f32 route: {agree}")
+    wall_p, prows = device_profile(torch, lambda: serve(proc, sub),
+                                   cpu=False)
+    busy = log_profile("3i", f"{len(sub)} grids on the COO route (device "
+                       "activity only)", wall_p, prows, top=10)
+    r32 = dvr["runs"]["float32"]
+    log(f"[3i] NativeVRProcessor(use_ell=False), GAT full width, budget "
+        f"{VR_BUDGET}: 3g's first {COO_VR_GRIDS} refinements + its "
+        f"{VR_BIG}^2 grid ({len(sub)} grids, {n_nodes} nodes) in "
+        f"{wall:.3f} s ({wall2:.3f} s again): {len(sub) / wall:.3f} "
+        f"grids/s, {n_nodes / wall / 1e6:.4f} Mnodes/s, device busy "
+        f"{busy}; {n_chunks} graph chunks, F launches {launches} = "
+        f"{per_layer} x {MODEL_LAYERS} x {n_chunks}; plain version called "
+        f"0 times; two runs bit for bit; classes vs 3g's f32 default route "
+        f"{agree:.6f} (want >= 0.99), max |d confidence| {dconf:.3e}; "
+        f"beside 3g in this run (all {len(grids)} grids): f32 "
+        f"{r32['grids_per_s']:.3f} grids/s, busy "
+        f"{r32['device_busy_share']}; bf16 "
+        f"{dvr['runs']['bfloat16']['grids_per_s']:.3f} grids/s")
+
+    # GCN, GraphSAGE and GIN on the default route, card against the CPU
+    sub2 = grids[:200] + [grids[VR_GRIDS // 2]]
+    others = {}
+    for i, t in enumerate(("GCN", "GraphSAGE", "GIN")):
+        cfg, sd_t = seeded_graph_state(torch, np, t, SEED + 110 + i)
+        card = NativeVRProcessor(sd_t, cfg, node_budget=VR_BUDGET)
+        cpu = NativeVRProcessor(sd_t, cfg, node_budget=VR_BUDGET,
+                                device="cpu")
+        check(card.use_slab and not card.use_grid, f"[3i] {t} route")
+        t0 = time.perf_counter()
+        a = serve(card, sub2)
+        torch.cuda.synchronize()
+        wall_t = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = serve(cpu, sub2)
+        wall_cpu = time.perf_counter() - t0
+        check_results(np, sub2, a, "3i")
+        agree_t, dconf_t = class_agreement(np, sub2, a, b)
+        others[t] = dict(class_agreement=agree_t, max_dconf=dconf_t,
+                         grids_per_s=len(sub2) / wall_t)
+        log(f"[3i] {t} (full width, random weights) on the default route, "
+            f"{len(sub2)} grids (200 refinements + the {VR_BIG}^2): card "
+            f"{wall_t:.3f} s, CPU {wall_cpu:.3f} s; card vs CPU classes "
+            f"{agree_t:.6f} (want >= "
+            f"0.999), max |d confidence| {dconf_t:.3e} (want <= 2e-3)")
+        check(agree_t >= 0.999 and dconf_t <= 2e-3, f"[3i] {t} card vs CPU")
+
+    smoke = smoke_test_on_card(torch)
+    return dict(launches=launches, chunks=n_chunks, wall=wall, wall2=wall2,
+                grids=len(sub), nodes=n_nodes, busy_share=busy,
+                class_agreement_with_3g_f32=agree, max_dconf=dconf,
+                non_gat=others, smoke=smoke)
+
+
+def smoke_test_on_card(torch):
+    """cli.smoke_test's main on the card (as ``python -m``), its output
+    captured: every stage passes, kernel F launched by the COO model
+    stage (2 GAT layers x 4) and kernel A by the dense grid stage (2)."""
+    import contextlib
+    import io
+
+    from bathymetric_gnn_tpu_torch.cli import smoke_test
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    buf = io.StringIO()
+    gf.launches = sr.launches = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            smoke_test.main([])
+        except SystemExit as e:
+            raise Failed(f"[3i] cli.smoke_test exited {e.code}: "
+                         f"{buf.getvalue()}")
+    torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[3i] smoke_test | {line}")
+    a, f = gf.launches, sr.launches
+    check(lines[-1] == "all stages passed", "[3i] cli.smoke_test")
+    check(a == 2 and f == 2 * COO_F["GAT"][0],
+          f"[3i] smoke test launches: A {a} (want 2), F {f} (want 8)")
+    log(f"[3i] cli.smoke_test on the card: all stages passed; kernel A "
+        f"launched {a} times (2 layers), F {f} times (2 GAT layers x 4)")
+    return dict(grid_gat_fwd_launches=a, segment_reduce_launches=f)
+
+
+# -- phase 3j: COO training -----------------------------------------------------
+
+def coo_train_cli(torch, np, data, run, extra, tiles, gnn_type):
+    """cli.train --trainer graph (no --knn-k) on ``data``, 1 epoch: the
+    kernel F launches against the count the code implies (per step:
+    COO_F's forward + backward per layer; eval over the training set and
+    the calibration pass: forward per layer per batch), no plain version;
+    finite losses; best/, last/, final/ with calibration.json."""
+    import json
+    import shutil
+
+    from bathymetric_gnn_tpu_torch.cli import train as tcli
+    from bathymetric_gnn_tpu_torch.models.gnn import BathymetricGNN
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    shutil.rmtree(run, ignore_errors=True)
+    argv = ["--trainer", "graph", "--data-dir", str(data), "--output-dir",
+            str(run), "--epochs", "1", "--seed", str(SEED), "--tile-size",
+            str(TRAIN_TILE)] + extra
+    plain = []
+    sr.launches = 0
+    with mock.patch.object(sr, "segment_reduce_reference",
+                           counted_calls(sr.segment_reduce_reference,
+                                         plain)):
+        t0 = time.perf_counter()
+        state = tcli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = sr.launches
+    batches = tiles // TRAIN_BATCH
+    fwd, bwd = COO_F[gnn_type]
+    want = MODEL_LAYERS * ((fwd + bwd) * state.step + fwd * 2 * batches)
+    check(isinstance(state.model, BathymetricGNN), "not the COO model")
+    check(state.step == batches, f"steps {state.step} != {batches}")
+    check(not plain, f"the plain version ran {len(plain)} times")
+    check(launches == want, f"F launches {launches} != {want} ({MODEL_LAYERS}"
+          f" x ({fwd + bwd} x {state.step} steps + {fwd} x 2 x {batches} "
+          "eval and calibration batches))")
+    hist = json.loads((run / "history.json").read_text())
+    check(all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
+          f"losses {hist}")
+    cals = [json.loads((run / nm / "calibration.json").read_text())
+            for nm in ("best", "last", "final")]
+    check(all("fit_on" in c and c["confidence_scale"] > 0 for c in cals),
+          "calibration.json")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    return dict(state=state, wall=wall, launches=launches, steps=state.step,
+                hist=hist, cal=cals[0], metrics=metrics)
+
+
+def coo_train_samples(np, depth):
+    """TRAIN_BATCH training samples (grid-connectivity graphs of 256^2
+    tiles with synthetic noise and targets: knn_k 0) of ``depth``."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.training.datasets import (
+        SyntheticTileDataset)
+
+    ds = SyntheticTileDataset([depth], Config(), tile_size=TRAIN_TILE,
+                              overlap=32, seed=SEED)
+    return FixedSamples([ds[i] for i in range(TRAIN_BATCH)])
+
+
+def coo_step_setup(torch, np, work, samples, dropout):
+    """A COO Trainer (full width, ``dropout``, class weights 1) on the
+    fixed samples, its initial state, and their merged batch on the card
+    (the CooGraph with both tables, as the prefetch thread builds it)."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.training.datasets import collate_samples
+    from bathymetric_gnn_tpu_torch.training.trainer import (
+        Trainer, _to_device_targets)
+
+    cfg = Config()
+    cfg.model.dropout = dropout
+    cfg.training.class_weights = (1.0, 1.0, 1.0)
+    trainer = Trainer(cfg, samples, output_dir=str(work / "coo_step"))
+    check(not trainer.use_banded_training, "not the COO path")
+    state = trainer.init_state(samples[0].graph)
+    graph, targets = collate_samples(samples.samples)
+    g = trainer.sparse_batch(graph).to(trainer.device)
+    return trainer, state, g, _to_device_targets(targets, trainer.device)
+
+
+def coo_step_f64(torch, trainer, model, snapshot, g, targets):
+    """(loss, gradients, term scales) of the train step's loss at
+    ``snapshot`` in f64: a copy of the model, the graph's float fields and
+    the targets in f64, every segment sum on the plain version in f64.
+
+    The term scales are, for each GAT layer's ``lin_edge`` and
+    ``att_edge``, the sum of the |terms| that make up each entry of its
+    gradient: both reach the loss only through m_edge [edge_dim, heads],
+    whose gradient sums x^T dy over every edge (and every node's self
+    loop) of ``matmul(x, m_edge)``, and those terms cancel. The scale of
+    m_edge's entry is |x|^T |dy|, taken by a hook on each such product;
+    lin_edge[f, a, c]'s is that times |att_edge[a, c]|, att_edge[a, c]'s
+    the sum over f of it times |lin_edge[f, a, c]|."""
+    import copy
+    import dataclasses
+
+    from bathymetric_gnn_tpu_torch.models import conv as conv_mod
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    f64 = torch.float64
+    m64 = copy.deepcopy(model)
+    m64.load_state_dict(snapshot)
+    m64 = m64.to(f64)
+    g64 = dataclasses.replace(g, **{
+        f: getattr(g, f).to(f64) for f in ("x", "edge_attr", "local_std")})
+    t64 = {k: v.to(f64) if v.is_floating_point() else v
+           for k, v in targets.items()}
+
+    def plain64(ct, perm, row_ptr, n):
+        live = perm[:int(row_ptr[n])].long()
+        return torch.zeros(n, ct.shape[1], dtype=ct.dtype,
+                           device=ct.device).index_add_(
+            0, sr._segment_of_sorted(row_ptr, n), ct[live])
+
+    m_scales = {}                  # id(m_edge) -> [m_edge, |x|^T |dy|]
+    product = conv_mod.matmul
+
+    def matmul_terms(x, w):
+        y = product(x, w)
+        if w.grad_fn is not None:  # m_edge; lin_src is a leaf
+            ent = m_scales.setdefault(id(w), [w, torch.zeros_like(w)])
+            xa = x.detach().abs()
+
+            def hook(dy):
+                ent[1].add_(xa.t() @ dy.abs())
+
+            y.register_hook(hook)
+        return y
+
+    with mock.patch.object(sr, "segment_reduce_sorted", plain64), \
+            mock.patch.object(conv_mod, "matmul", matmul_terms):
+        losses, _ = trainer.loss_fn(m64, g64, t64, train=True)
+        losses["total"].backward()
+    out = {n: p.grad.to(torch.float32) for n, p in m64.named_parameters()}
+    params = dict(m64.named_parameters())
+    convs = [n[:-len(".lin_edge")] for n in params if n.endswith(".lin_edge")]
+    check(len(convs) == len(m_scales),
+          f"[3j] {len(m_scales)} m_edge products for {len(convs)} layers")
+    scales = {}
+    for name, (_, sm) in zip(convs, m_scales.values()):
+        att = params[name + ".att_edge"].detach()        # [1, H, C]
+        lin = params[name + ".lin_edge"].detach()        # [F, H * C]
+        h, c = att.shape[1:]
+        lin3 = lin.reshape(lin.shape[0], h, c).abs()
+        scales[name + ".lin_edge"] = (sm[:, :, None] * att.abs()).reshape(
+            lin.shape).to(torch.float32)
+        scales[name + ".att_edge"] = (sm[:, :, None] * lin3).sum(0)[
+            None].to(torch.float32)
+    loss = float(losses["total"])
+    del m64, g64, t64, losses, params
+    return loss, out, scales
+
+
+def phase_coo_train(torch, np, work, samples):
+    """cli.train --trainer graph at its defaults on 3d's 1024^2 survey; the
+    checkpoint served on the default route; one step through F against
+    the same step on F's plain version (dropout 0, N = 262,144); two steps
+    from one state and seed bit for bit (dropout 0.1); one epoch of
+    --gnn-type GCN on 8 tiles."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.data.tiling import TileManager
+    from bathymetric_gnn_tpu_torch.inference.native_vr import (
+        NativeVRProcessor)
+    from bathymetric_gnn_tpu_torch.io.geotiff import read_geotiff, write_geotiff
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.training.optim import AdamW
+    from bathymetric_gnn_tpu_torch.training.trainer import make_dropout_key
+    from bathymetric_gnn_tpu_torch.utils.weights import load_state_dict
+
+    data = work / "knn_train_data"          # 3d's survey
+    depth = read_geotiff(data / "survey.tif")[0][0]
+    n_tiles = sum(1 for _ in TileManager(TRAIN_TILE, 32, 0.3).iterate_tiles(
+        depth))
+    run = work / "coo_train_run"
+    tr = coo_train_cli(torch, np, data, run, [], n_tiles, "GAT")
+    hist, cal = tr["hist"], tr["cal"]
+    log(f"[3j] cli.train --trainer graph (no --knn-k: the COO model, GAT "
+        f"full width, dropout 0.1, f32) on 3d's {KNN_TRAIN_SURVEY}^2 survey:"
+        f" {n_tiles} tiles, 1 epoch, {tr['steps']} steps of {TRAIN_BATCH} "
+        f"in {tr['wall']:.3f} s (with the training-stats sample, eval, "
+        f"calibration and checkpoints); F launches {tr['launches']} = "
+        f"{MODEL_LAYERS} x (8 x {tr['steps']} steps + 4 x 2 x "
+        f"{tr['steps']} eval and calibration batches); "
+        f"plain version called 0 times; train loss {hist['train_loss']}, "
+        f"val loss {hist['val_loss']}; best/calibration.json scale "
+        f"{cal['confidence_scale']:.4f} bias {cal['confidence_bias']:.4f} on "
+        f"{cal['fit_on']}; training loop {tr['metrics']['tiles_per_s']} "
+        f"tiles/s (host clock, metrics.jsonl)")
+    sd, meta = load_state_dict(run / "best")
+    check(meta["trained_layout"] == "coo", f"checkpoint meta {meta}")
+    cfg = Config.load(run / "config.yaml")
+    check(cfg.graph.knn_k == 0, "the run's knn_k")
+    proc = NativeVRProcessor(sd, cfg, node_budget=VR_BUDGET)
+    grids = make_refinements(np, 200, SEED + 120)
+    big, big_unc = knn_survey(np, VR_BIG // 4, SEED + 121)
+    big[np.isnan(big)] = 1.0e6
+    grids.append((big, big_unc, (2.0, 2.0)))
+    a0, c0 = gf.launches, ef.launches
+    results = serve(proc, grids)
+    torch.cuda.synchronize()
+    check_results(np, grids, results, "3j")
+    check(gf.launches > a0 and ef.launches > c0,
+          "serving did not launch kernels A and C")
+    log(f"[3j] NativeVRProcessor (default route) served {len(grids)} grids "
+        f"from {run / 'best'}: kernel A {gf.launches - a0} launches, C "
+        f"{ef.launches - c0}")
+
+    # one step through F vs the same step on F's plain version
+    trainer, state, g, targets = coo_step_setup(torch, np, work, samples,
+                                                dropout=0.0)
+    model = state.model
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step():
+        model.load_state_dict(snapshot)
+        state.optimizer = AdamW(model.parameters(),
+                                trainer.config.training.weight_decay)
+        trainer.dropout_rng = make_dropout_key(SEED, trainer.device)
+        losses, _ = trainer.train_step(state, g, targets, LR)
+        return (float(losses["total"]),
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    n0 = sr.launches
+    lk, gk, pk = step()
+    torch.cuda.synchronize()
+    f_step = sr.launches - n0
+    check(f_step == MODEL_LAYERS * sum(COO_F["GAT"]),
+          f"[3j] F launches a step {f_step}")
+    with mock.patch.object(sr, "segment_reduce_sorted",
+                           lambda ct, p, r, n: sr.segment_reduce_reference(
+                               ct, p, r, n)):
+        n0 = sr.launches
+        lp, gp, _ = step()
+        check(sr.launches == n0, "the plain step launched F")
+    l64, g64, terms = coo_step_f64(torch, trainer, model, snapshot, g,
+                                   targets)
+    # each gradient against the step in f64 (plain version): F's error no
+    # more than the f32 plain version's own plus 1e-3 (3b's and 3d's
+    # bound). Both f32 steps miss the f64 one by the model's own f32
+    # error, which F does not change. Units: lin_edge and att_edge sum
+    # over all ~1.9M edges and cancel, so their error is taken entry by
+    # entry over the sum of the entry's |terms|; every other leaf over its
+    # largest |entry|, and a leaf whose gradient is ~0 (the GAT biases
+    # under a batch-statistics BatchNorm; any below 1e-3 of the largest)
+    # over the largest gradient of all
+    rel = abs(lk - lp) / abs(lp)
+    big_g = max(r.abs().max().item() for r in g64.values())
+    errs = {}
+    for name, r in g64.items():
+        if name in terms:
+            t = terms[name].clamp_min(1e-30)
+            errs[name] = (((gk[name] - r).abs() / t).max().item(),
+                          ((gp[name] - r).abs() / t).max().item())
+            continue
+        scale = r.abs().max().item()
+        if (scale < 1e-3 * big_g
+                or ("GATConv" in name and name.endswith(".bias"))):
+            scale = big_g
+        errs[name] = ((gk[name] - r).abs().max().item() / scale,
+                      (gp[name] - r).abs().max().item() / scale)
+    rest = [k for k in errs if k not in terms]
+    over = max(errs, key=lambda k: errs[k][0] - errs[k][1])
+    worst_t = max(terms, key=lambda k: errs[k][0])
+    worst_r = max(rest, key=lambda k: errs[k][0])
+    log(f"[3j] one COO train step (merged batch of {TRAIN_BATCH} tiles, "
+        f"N={g.x.shape[0]}, {int(g.edge_mask.sum())} live edges, dropout 0),"
+        f" F ({f_step} launches) vs its plain version on the card: loss "
+        f"{lk:.6f} vs {lp:.6f} (rel {rel:.2e}, tol 1e-5; f64 {l64:.6f}); "
+        f"{len(gp)} gradients against the f64 step: {len(terms)} cancelling"
+        f" leaves, F worst {errs[worst_t][0]:.3e} of the sum of |terms| "
+        f"({worst_t}; plain f32 there {errs[worst_t][1]:.3e}); the other "
+        f"{len(rest)}, F worst {errs[worst_r][0]:.3e} of scale ({worst_r}; "
+        f"plain f32 there {errs[worst_r][1]:.3e}); F's largest excess over "
+        f"the plain version {errs[over][0] - errs[over][1]:.3e} ({over}; "
+        f"tol 1e-3)")
+    check(rel <= 1e-5, f"[3j] step loss {lk} vs {lp}")
+    for name, (ef_, ep_) in errs.items():
+        check(ef_ <= ep_ + 1e-3,
+              f"[3j] gradient {name}: F {ef_:.3e}, plain {ep_:.3e} (tol "
+              f"plain + 1e-3)")
+    worst = errs[over][0] - errs[over][1]
+
+    # two steps from one state and seed: the same bits (dropout 0.1)
+    trainer.config.model.dropout = 1.0 - KEEP
+    for m in model.modules():
+        if hasattr(m, "dropout"):
+            m.dropout = 1.0 - KEEP
+    (l1, _, p1), (l2, _, p2) = step(), step()
+    same = l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1)
+    check(same, "[3j] two COO train steps differ")
+    log(f"[3j] two COO train steps from one state and seed (dropout "
+        f"{1 - KEEP:.1f}): loss {l1:.6f} both, every parameter bit for bit")
+
+    # one epoch of --gnn-type GCN on 8 tiles
+    h, w = COO_GCN_SURVEY
+    gdata = work / "coo_gcn_data"
+    gdata.mkdir(parents=True, exist_ok=True)
+    write_geotiff(gdata / "survey.tif", depth[None, :h, :w],
+                  pixel_scale=(1.0, 1.0), origin=(500000.0, 4000000.0),
+                  nodata=float("nan"))
+    g_tiles = sum(1 for _ in TileManager(TRAIN_TILE, 32, 0.3).iterate_tiles(
+        depth[:h, :w]))
+    check(g_tiles == 8, f"GCN survey tiles {g_tiles}")
+    gtr = coo_train_cli(torch, np, gdata, work / "coo_gcn_run",
+                        ["--gnn-type", "GCN"], g_tiles, "GCN")
+    log(f"[3j] cli.train --trainer graph --gnn-type GCN on {g_tiles} tiles, "
+        f"1 epoch: {gtr['steps']} steps in {gtr['wall']:.3f} s, F launches "
+        f"{gtr['launches']}; train loss {gtr['hist']['train_loss']}")
+    return dict(launches=tr["launches"], steps=tr["steps"], wall=tr["wall"],
+                f_per_step=f_step, step_loss_rel=rel, step_grad_excess=worst,
+                gcn=dict(steps=gtr["steps"], launches=gtr["launches"],
+                         wall=gtr["wall"]),
+                setup=(trainer, state, g, targets))
+
+
+# -- phase 4g: the COO path's timings --------------------------------------------
+
+def coo_f_bound(live, n, f):
+    """Least time of one F call: each live row of the [S, f] f32 input,
+    its perm entry, row_ptr and the [n, f] output moved once over HBM
+    bandwidth, vs one add per element read at the FP32 peak."""
+    nbytes = 4 * (live * f + live + n + 1 + n * f)
+    flops = live * f
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_o = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes
+
+
+def phase_coo_timings(torch, np, coo, coo_train, kstep):
+    """CUDA-event times: F at each COO shape (the flush's sums and gather
+    backward, the train batch's wide sums) against its bound, its plain
+    version and index_add_; the COO model's 65,536-node flush forward
+    beside route C (GATConvELL, kernel C) on the same chunk; the COO train
+    step at N = 262,144 with its busy share, beside 4d's route-C step."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.models.gnn import make_model
+    from bathymetric_gnn_tpu_torch.models.gnn_ell import make_ell_model
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    trainer, state, gt, targets = coo_train["setup"]
+    g = coo["g"]
+    gen = torch.Generator().manual_seed(SEED + 130)
+    shapes = [(f"flush sum [E, {f}]", g, g.dst_table, g.edge_dst, f)
+              for f in COO_WIDTHS]
+    shapes += [("flush gather backward [E, 256]", g, g.src_table,
+                g.edge_src, 256),
+               ("train sum [E, 256]", gt, gt.dst_table, gt.edge_dst, 256),
+               ("train gather backward [E, 256]", gt, gt.src_table,
+                gt.edge_src, 256)]
+    rows = []
+    for label, gg, (perm, row_ptr), ids, f in shapes:
+        n, e = gg.x.shape[0], gg.edge_src.shape[0]
+        m = gg.edge_mask
+        live = int(m.sum())
+        ct = torch.randn(e, f, generator=gen).to(gg.x.device)
+        ct_live, ids_live = ct[m], ids[m].long()
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: sr.call_kernel(ct, perm, row_ptr, n),
+                         20)
+            plain_ms = cuda_ms(torch, lambda: sr.segment_reduce_reference(
+                ct, perm, row_ptr, n), 5)
+            lib_ms = cuda_ms(torch, lambda: torch.zeros(
+                n, f, device=ct.device).index_add_(0, ids_live, ct_live), 20)
+        b_ms, b_by, nbytes = coo_f_bound(live, n, f)
+        rows.append(dict(shape=f"{label}, N {n}, {live} live edges", ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+        log(f"[4g] F {label} (N {n}, {live} live of {e} edges): {ms:.4f} ms,"
+            f" plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB), "
+            f"{b_ms / ms:.3f} of bound")
+        del ct, ct_live, ids_live
+
+    cfg = Config()
+    model = make_model(cfg.model, 8, dropout=0.0,
+                       generator=torch.Generator().manual_seed(SEED + 131))
+    ell = make_ell_model(cfg.model, 8, sparse_kernel="xla")
+    ell.load_state_dict(model.state_dict())
+    model, ell = model.to(g.x.device).eval(), ell.to(g.x.device).eval()
+    with torch.no_grad():
+        a, b = model(g), ell(coo["ell"])
+        agree = (a["predicted_class"] == b["predicted_class"])[
+            g.node_mask.bool()].float().mean().item()
+        coo_ms = cuda_ms(torch, lambda: model(g), 5, warmup=2)
+        ell_ms = cuda_ms(torch, lambda: ell(coo["ell"]), 5, warmup=2)
+        wall, prows = device_profile(torch, lambda: [model(g)
+                                                     for _ in range(5)])
+    flush_busy = log_profile("4g", "5 COO flush forwards", wall, prows,
+                             top=10)
+    log(f"[4g] the {g.x.shape[0]}-node flush forward (full width, "
+        f"{int(g.node_mask.sum())} nodes, {int(g.edge_mask.sum())} edges of "
+        f"a grid-connectivity graph): COO model {coo_ms:.3f} ms, route C "
+        f"(GATConvELL, kernel C) on the same chunk {ell_ms:.3f} ms; classes "
+        f"agree on {agree:.6f} of live nodes")
+    check(agree >= 0.99, "[4g] COO vs route C classes")
+
+    fn = lambda: trainer.train_step(state, gt, targets, LR)  # noqa: E731
+    step_ms = cuda_ms(torch, fn, 5, warmup=2)
+    wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
+    busy = log_profile("4g", "3 COO train steps", wall, prows, top=12)
+    f_dev = sum(r[0] for r in prows if "segred::reduce_kernel" in r[2]) / 3
+    log(f"[4g] COO train step (merged batch of {TRAIN_BATCH} tiles, N="
+        f"{gt.x.shape[0]}, {int(gt.edge_mask.sum())} live edges, full width,"
+        f" dropout {trainer.config.model.dropout:.1f}, f32): {step_ms:.3f} "
+        f"ms (CUDA events), device busy {busy}, kernel F {f_dev:.3f} ms a "
+        f"step; beside 4d's route-C k-NN step in this run: "
+        f"{kstep['ms']:.3f} ms ({step_ms / kstep['ms']:.2f} x)")
+    return rows, dict(flush_ms=coo_ms, route_c_flush_ms=ell_ms,
+                      flush_busy_share=flush_busy,
+                      flush_class_agreement=agree, step_ms=step_ms,
+                      step_busy_share=busy, step_f_ms=f_dev,
+                      route_c_step_ms=kstep["ms"])
+
+
 # -- main --------------------------------------------------------------------------
 
 def main() -> int:
@@ -4064,6 +4786,10 @@ def main() -> int:
         phase = "2f the bf16 forms vs plain"
         ferrs = phase_bf16_kernels_vs_plain(torch, ecases, kcases, becases,
                                             bdcases)
+        phase = "2g kernel F as the COO segment sum vs plain"
+        t2g = time.perf_counter()
+        coo_errs, coo = phase_coo_segment_vs_plain(torch, np, dev)
+        log(f"[2g] phase 2g took {time.perf_counter() - t2g:.3f} s")
         phase = "3 end to end"
         e2e = phase_end_to_end(torch, np, model, work)
         pipe.load_model(e2e["ckpt"])
@@ -4088,6 +4814,16 @@ def main() -> int:
         stream = phase_streaming(torch, np, work, e2e)
         stream["phase_s"] = time.perf_counter() - t3h
         log(f"[3h] phase 3h took {stream['phase_s']:.3f} s")
+        phase = "3i COO serving, non-GAT serving and the smoke test"
+        t3i = time.perf_counter()
+        cvr = phase_vr_coo(torch, np, work, vr, dvr)
+        log(f"[3i] phase 3i took {time.perf_counter() - t3i:.3f} s")
+        phase = "3j COO training"
+        t3j = time.perf_counter()
+        ctr = phase_coo_train(torch, np, work,
+                              coo_train_samples(np, knn_survey(
+                                  np, KNN_BATCH_SURVEY, SEED + 60)[0]))
+        log(f"[3j] phase 3j took {time.perf_counter() - t3j:.3f} s")
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         srows, slab_fwd = phase_slab_timings(torch, np, scases, dvr)
@@ -4111,6 +4847,10 @@ def main() -> int:
             torch, np, ecases, kcases, becases, bdcases, kmodel, kgraph,
             work, ksamples, dict(flush_ms=flush_ms, step_C=kstep["ms"],
                                  step_D=dstep["ms"]))
+        phase = "4g COO timings"
+        t4g = time.perf_counter()
+        grows, ctime = phase_coo_timings(torch, np, coo, ctr, kstep)
+        log(f"[4g] phase 4g took {time.perf_counter() - t4g:.3f} s")
     except Exception:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         traceback.print_exc()
@@ -4293,6 +5033,26 @@ def main() -> int:
     }]
     kernels[-2]["mat_dots"] = dots
     kernels += bf16_entries(ferrs, bmod, frows, bflush_ms, bsteps)
+    grow = grows[0]
+    kernels.append({
+        "name": "segment_reduce_coo",
+        "route": "cuda",
+        "source": "bathymetric_gnn_tpu_torch/csrc/segment_reduce.cu",
+        "replaces": "bathymetric_gnn_tpu/ops/pallas/segment_reduce.py:52",
+        "launches": cvr["launches"],
+        "mode": "a: the COO path's segment sums and gather backward",
+        "max_abs_err": coo_errs["sum [E, 256]"],
+        "ms": grow["ms"], "plain_ms": grow["plain_ms"],
+        "bound_ms": grow["bound_ms"], "bound_by": grow["bound_by"],
+        "library_ms": grow["library_ms"],
+        "library": "torch.Tensor.index_add_",
+        "at": grow["shape"],
+        "shapes": grows,
+        "max_abs_err_by_shape": coo_errs,
+        "coo_serving": {k: v for k, v in cvr.items()},
+        "coo_training": {k: v for k, v in ctr.items() if k != "setup"},
+        "timings": ctime,
+    })
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,11 @@ layer on ELL graphs) in its inference and dropout forms, kernel C'
 against autograd of the plain forward, and kernel F (the sorted-segment
 reduction) against ``index_add_``; kernels E (the banded band part), D
 (the fused banded layer) and D' (its backward, with F's mode (a) behind
-its spill gathers) against their plain versions and autograd of them.
+its spill gathers) against their plain versions and autograd of them; and
+the COO path (``-k coo``): F as the COO segment sum and gather backward at
+widths 1, 3, 4 and 256 against its plain version, the COO model's forward
+and train step of each type bit for bit over two runs, and the GCN / SAGE
+/ GIN ELL layers on the card against the CPU.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (the CPU test runs). On a machine with an H100 and nvcc:
@@ -1697,3 +1701,135 @@ def test_mat_dots_keep_the_first_versions_bits(dev, heads, dtype):
         assert torch.equal(new, old), (hc, (new - old).abs().max().item())
         torch.testing.assert_close(new, xh.float() @ acat.float(),
                                    rtol=1e-4, atol=1e-4)
+
+
+# -- the COO path: kernel F behind its segment sums and gathers (-k coo) ----
+
+def _coo_batch(dev, tiles=3, side=48, seed=0, src_table=True):
+    """Grid-connectivity graphs of ``tiles`` random tiles with 5 % holes,
+    batched into one padded graph (pads at N - 1), as a CooGraph on
+    ``dev`` and on the CPU."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.graph import CooGraph, batch_graphs
+
+    rg = np.random.default_rng(seed)
+    gb = GraphBuilder()
+    parts = []
+    for _ in range(tiles):
+        depth = (30 + rg.normal(0, 0.3, (side, side)).cumsum(1)
+                 ).astype(np.float32)
+        valid = rg.random((side, side)) > 0.05
+        bg = gb.build_graph(np.where(valid, depth, np.nan), valid)
+        g, n = bg.graph, bg.num_nodes
+        parts.append((g.x[:n], np.stack([g.edge_src, g.edge_dst])[
+            :, g.edge_mask], g.edge_attr[g.edge_mask]))
+    n_pad = 1 << (sum(p[0].shape[0] for p in parts) - 1).bit_length()
+    graph, _ = batch_graphs(parts, n_pad=n_pad, e_pad=n_pad * 8)
+    c = CooGraph.from_padded(graph, src_table=src_table)
+    return c.to(dev), c.to("cpu")
+
+
+@pytest.mark.parametrize("width", [1, 3, 4, 256])
+def test_coo_segment_ops_match_plain(dev, width):
+    """segment_sum over the destination table and a gather's backward over
+    the source table: kernel F on the card against its plain version on
+    the CPU (f32, other summation order: 1e-5 of the scale), and two calls
+    bit for bit."""
+    from bathymetric_gnn_tpu_torch.ops import segment as seg
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    g, gc = _coo_batch(dev)
+    e, n = g.edge_src.shape[0], g.x.shape[0]
+    gen = torch.Generator().manual_seed(width)
+    data = torch.randn(e, width, generator=gen)
+    x = torch.randn(n, width, generator=gen)
+    out = []
+    for gg, d, xx in ((g, data.to(dev), x.to(dev)), (gc, data, x)):
+        n0 = sr.launches
+        s = seg.segment_sum(d, gg.edge_dst, n, gg.edge_mask, gg.dst_table)
+        s2 = seg.segment_sum(d, gg.edge_dst, n, gg.edge_mask, gg.dst_table)
+        xg = xx.clone().requires_grad_(True)
+        (seg.gather(xg, gg.edge_src, gg.src_table)
+         * torch.where(gg.edge_mask[:, None], d, 0.0)).sum().backward()
+        if gg is g:
+            torch.cuda.synchronize()
+            assert sr.launches - n0 == 3
+            assert torch.equal(s, s2)
+        out.append((s.cpu(), xg.grad.cpu()))
+    for a, b in zip(*out):
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-5 * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("gnn_type", ["GAT", "GCN", "GraphSAGE", "GIN"])
+def test_coo_forward_and_train_step_repeat_bit_for_bit(dev, gnn_type):
+    """The COO model at full width: two forwards, and two train steps
+    (dropout 0.1 from the same generator seed, AdamW) from the same state,
+    give the same bits; the forward agrees with the CPU's (classes >= 99 %,
+    confidence within 2e-3) and launches kernel F."""
+    import copy
+
+    from bathymetric_gnn_tpu_torch.config.config import ModelConfig
+    from bathymetric_gnn_tpu_torch.models.gnn import make_model
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.training.optim import AdamW
+
+    g, gc = _coo_batch(dev, seed=1)
+    cfg = ModelConfig(gnn_type=gnn_type)
+    base = make_model(cfg, g.x.shape[-1], dropout=0.1,
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = copy.deepcopy(base).eval()(gc)
+        model = copy.deepcopy(base).to(dev).eval()
+        n0 = sr.launches
+        a, b = model(g), model(g)
+        assert sr.launches > n0
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    agree = (a["predicted_class"].cpu() == want["predicted_class"]).float()
+    assert agree.mean().item() >= 0.99
+    assert (a["confidence"].cpu() - want["confidence"]).abs().max() <= 2e-3
+
+    def step():
+        m = copy.deepcopy(base).to(dev).train()
+        opt = AdamW(m.parameters(), 1e-4)
+        rng = torch.Generator(device=dev).manual_seed(5)
+        out = m(g, rng)
+        loss = (out["class_logits"].square().mean()
+                + out["confidence"].mean() + out["correction"].abs().mean())
+        loss.backward()
+        opt.step([p.grad for p in m.parameters()], 1e-3)
+        return loss.detach(), [p.detach().clone() for p in m.parameters()]
+
+    (l1, p1), (l2, p2) = step(), step()
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(u, v) for u, v in zip(p1, p2))
+
+
+@pytest.mark.parametrize("name", ["GCNConvELL", "SAGEConvELL",
+                                  "GINConvELL"])
+def test_coo_ell_convs_card_vs_cpu(dev, name):
+    """The plain GCN / SAGE / GIN ELL layers (torch ops on both devices)
+    on the card against the CPU: f32 sums over <= 8 slots and products in
+    another order, 1e-5 of the scale."""
+    from bathymetric_gnn_tpu_torch.models import conv_ell
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.graph import make_padded_graph
+
+    rg = np.random.default_rng(2)
+    n = 5000
+    src, dst = rg.integers(0, n, n * 8), rg.integers(0, n, n * 8)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    keep = (np.arange(dst.size) - np.searchsorted(dst, dst)) < 8
+    g = coo_to_ell(make_padded_graph(
+        rg.normal(size=(n, 7)).astype(np.float32),
+        np.stack([src[keep], dst[keep]]), None, n_pad=8192,
+        e_pad=8192 * 8), max_degree=8)
+    layer = getattr(conv_ell, name)(64, 64,
+                                    generator=torch.Generator().manual_seed(1))
+    x = torch.randn(8192, 64, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = layer(g.to("cpu"), x)
+        got = layer.to(dev)(g.to(dev), x.to(dev)).cpu()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -185,9 +185,27 @@ def test_ell_model_matches_jax(model_case, sparse_kernel):
                                    atol=5e-5, err_msg=key)
 
 
-def test_non_gat_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EllBathymetricGNN(7, gnn_type="GCN")
+def test_non_gat_raises(knn_case):
+    """Named for the refusal this path had before it was ported; it now
+    checks that the path works. The ELL model of a non-GAT type: a GCN model is
+    built of ``GCNConv_i`` layers whatever ``sparse_kernel`` says and
+    matches the JAX ELL model on the k-NN graph."""
+    g, _, _, tg = knn_case
+    kw = dict(hidden_channels=16, num_layers=2, heads=2, dropout=0.0,
+              gnn_type="GCN")
+    v = jax.jit(JaxEllGNN(**kw).init)(jax.random.PRNGKey(0), g)
+    want = JaxEllGNN(**kw).apply(v, g)
+    model = EllBathymetricGNN(7, sparse_kernel="banded_pallas", **{
+        k: a for k, a in kw.items() if k != "dropout"})
+    assert hasattr(model.GNNBackbone_0, "GCNConv_1")
+    model.load_state_dict(coo_state_dict(state_dict_from_flax(
+        jax.tree_util.tree_map(np.array, v["params"]),
+        jax.tree_util.tree_map(np.array, v["batch_stats"]), "coo")))
+    with torch.no_grad():
+        got = model.eval()(tg)
+    for key in ("class_logits", "confidence", "correction"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=5e-4, atol=5e-5, err_msg=key)
 
 
 def test_reference_matches_layer_math(knn_case):

@@ -41,7 +41,7 @@ import pytest
 import torch
 
 from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_banded as eb
-from bathymetric_gnn_tpu_torch.ops.ell import sorted_segments
+from bathymetric_gnn_tpu_torch.ops.graph import sorted_segments
 from bathymetric_gnn_tpu_torch.ops.ell_banded import (band_ell, leaky_relu,
                                                       window_sources)
 from test_torch_ell_fwd_design import (BF16, SLOPE, _entry_weights, _gather,

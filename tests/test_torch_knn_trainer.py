@@ -316,13 +316,23 @@ def test_fit_platt_matches_jax():
 
 
 def test_trainer_refuses_the_coo_path(datasets, tmp_path):
+    """Named for the refusal this path had before it was ported; it now
+    checks that the path works: with knn_k 0 or sparse_kernel
+    "xla" the trainer builds the COO model (models/gnn.BathymetricGNN) and
+    its batches carry the COO edge tables."""
+    from bathymetric_gnn_tpu_torch.models.gnn import BathymetricGNN
+    from bathymetric_gnn_tpu_torch.ops.graph import CooGraph
+
     _, cfg, _, t = datasets
     for sec, key, val in (("graph", "knn_k", 0),
                           ("model", "sparse_kernel", "xla")):
         c = Config.from_dict(cfg.to_dict())
         setattr(getattr(c, sec), key, val)
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            ttr.Trainer(c, t, output_dir=str(tmp_path), device="cpu")
+        tr = ttr.Trainer(c, t, output_dir=str(tmp_path), device="cpu")
+        assert not tr.use_banded_training and tr.sparse_kernel == "xla"
+        assert isinstance(tr.init_state(t[0].graph).model, BathymetricGNN)
+        g, *_ = next(tr._host_batches(t, shuffle=True))
+        assert isinstance(g, CooGraph) and g.src_perm is not None
 
 
 def test_cli_train_knn_then_serve_on_cpu(tmp_path):

@@ -207,8 +207,8 @@ def test_port_imports_nothing_of_jax():
     process itself has jax loaded by conftest) and check that no jax*
     module and no module of the JAX package came with it, nor h5py (the
     card's machine has none; BAG I/O imports it when a BAG is opened); the
-    training, k-NN serving and k-NN training modules are among those
-    imported."""
+    training, k-NN serving and k-NN training modules, and the COO path's
+    (segment ops, convs, model, smoke test), are among those imported."""
     code = r"""
 import importlib, pkgutil, sys
 import bathymetric_gnn_tpu_torch as pkg
@@ -228,7 +228,8 @@ for m in ("training.grid_trainer", "training.losses", "training.optim",
           "io.bag", "io.loaders", "ops.graph", "ops.ell",
           "ops.cuda.ell_gat_fused", "models.conv_ell", "models.gnn_ell",
           "inference.native_vr", "cli.inference_native",
-          "ops.cuda.segment_reduce", "utils.prof", "inference.streaming"):
+          "ops.cuda.segment_reduce", "utils.prof", "inference.streaming",
+          "ops.segment", "models.conv", "models.gnn", "cli.smoke_test"):
     assert pkg.__name__ + "." + m in names, m
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
