@@ -9,9 +9,11 @@
 //
 // The TPU kernel turns each 1024-node block's contiguous cotangent range
 // into one-hot matmuls on the MXU, with per-block first/jcount tables
-// prefetched into the grid. Hopper reads rows directly, so one warp per
-// output row walks its segment (row_ptr from a source-sorted stable
-// argsort, ops/ell.py src_sorted_slots) and sums in registers
+// prefetched into the grid. Hopper reads rows directly, so a lane group
+// sized to the row (one lane for the COO path's 1-4-wide rows, the whole
+// warp for 256-wide ones) walks each output row's segment (row_ptr from a
+// stable sort of the slots by source or destination: ops/ell.py
+// src_sorted_slots, ops/graph.sorted_segments) and sums in registers
 // (segment_reduce.cuh). Mode (b), its rows formed in registers from
 // kernel C''s per-slot coefficients instead of read from ct, is the
 // source-side half of kernel C' (ell_gat_bwd.cu), which starts each row
@@ -24,17 +26,21 @@
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 non-tensor):
 // it reads each live row of ct once, perm and row_ptr once, and writes out
-// once, one add per element read: bound by bytes. Segments are short (a
-// k-NN source appears in ~K slots), the rows are gathered in sorted
-// order, and the warp's lanes load 16 bytes each (8 for bf16).
+// once, one add per element read: bound by bytes for wide rows. Segments
+// are short (a k-NN source appears in ~K slots, a grid node in <= 8), so
+// for narrow rows (1-64 columns) the chain of dependent loads row_ptr ->
+// perm -> ct sets the time, not the bytes: mode (a) keeps up to 8 slots'
+// row loads in flight a lane, 16 bytes each (scalar columns where a row
+// is not 16-byte aligned), and fetches the next row's bounds ahead.
 
 #include "segment_reduce.cuh"
 
 // Mode (a). dtype: 0 = float32, 1 = bfloat16 (ct). ct [S, f]; perm
 // [>= row_ptr[n]] int32; row_ptr [n + 1] int32; out [n, f] f32,
 // overwritten. vec 4 needs f % 4 == 0 and 16-byte aligned ct and out
-// (checked by the caller). Launches on `stream`; returns the CUDA error
-// code of the launch.
+// (checked by the caller); bf16 rows take 16-byte chunks only when f % 8
+// == 0 as well, else scalar columns. Launches on `stream`; returns the
+// CUDA error code of the launch.
 extern "C" int segment_reduce_sorted(int dtype, const void* ct,
                                      const void* perm, const void* row_ptr,
                                      void* out, long long n, int f, int vec,

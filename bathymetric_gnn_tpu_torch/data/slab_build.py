@@ -29,7 +29,8 @@ import torch
 from ..models.grid_gat import neighbor_masks, shift
 from ..ops.edges import offsets_for_connectivity
 from ..ops.ell import EllGraph
-from ..ops.features import _box_filter_sum, compute_grid_features
+from ..ops.features import (_box_filter_sum, atan_deg, compute_grid_features,
+                             sqrt)
 
 
 def _boundary_fixups(feats: torch.Tensor, depth_filled: torch.Tensor,
@@ -56,7 +57,7 @@ def _boundary_fixups(feats: torch.Tensor, depth_filled: torch.Tensor,
     last_c = (c == w - 1) & (w >= 2)
     gy = torch.where(last_r, df - up, gy)
     gx = torch.where(last_c, df - left, gx)
-    gmag = torch.sqrt(gx * gx + gy * gy)
+    gmag = sqrt(gx * gx + gy * gy)
     # the Laplacian's replicated edge: the neighbour past a true border
     # inside the slab mirrors to the border cell (weight 1), not to the
     # local-mean fill
@@ -95,7 +96,7 @@ def _slab_features(depth, valid, uncertainty, hs, ws, stats_window,
 
 
 def _slope(ddiff: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
-    return torch.rad2deg(torch.atan(ddiff / dist.clamp_min(1e-12)))
+    return atan_deg(ddiff / dist.clamp_min(1e-12))
 
 
 def build_slab_grid_inputs(depth: torch.Tensor, valid: Optional[torch.Tensor],
@@ -116,7 +117,7 @@ def build_slab_grid_inputs(depth: torch.Tensor, valid: Optional[torch.Tensor],
     ry = res[:, 1].reshape(-1, 1, 1)
     planes = []
     for dr, dc in offsets:
-        dist = torch.sqrt((dc * rx) ** 2 + (dr * ry) ** 2)
+        dist = sqrt((dc * rx) ** 2 + (dr * ry) ** 2)
         ddiff = df - shift(df, dr, dc)
         planes.append(torch.stack(
             [dist.expand_as(ddiff), ddiff, _slope(ddiff, dist)], -1))
@@ -176,7 +177,7 @@ def build_slab_ell(depth: torch.Tensor, valid: Optional[torch.Tensor],
         ok = node_valid & inb & (nbr >= 0)
         # incoming edge (r + dr, c + dc) -> (r, c): ddiff = dst - src
         ddiff = d_ctr - df_flat[nbr_lin]
-        dist = torch.sqrt((dc * res_x) ** 2 + (dr * res_y) ** 2)
+        dist = sqrt((dc * res_x) ** 2 + (dr * res_y) ** 2)
         ea = torch.stack([dist, ddiff, _slope(ddiff, dist)], -1)
         srcs.append(torch.where(ok, nbr, torch.zeros_like(nbr)))
         masks.append(ok)

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.cuda import grid_gat_fused
+from ..ops.features import atan_deg
 from .layers import (ClassificationHead, ConfidenceHead, CorrectionHead,
                      MLPFeatureExtractor, MaskedBatchNorm, keep_mask)
 
@@ -59,7 +60,7 @@ def incoming_edge_attrs(depth_filled: torch.Tensor,
     for dr, dc in offsets:
         dist = math.sqrt((dc * res_x) ** 2 + (dr * res_y) ** 2)
         ddiff = depth_filled - shift(depth_filled, dr, dc)
-        slope = (torch.rad2deg(torch.atan(ddiff / dist)) if dist > 0
+        slope = (atan_deg(ddiff / dist) if dist > 0
                  else torch.zeros_like(ddiff))
         feats.append(torch.stack(
             [torch.full_like(ddiff, dist), ddiff, slope], -1))

@@ -51,6 +51,26 @@ def segment_reduce_reference(ct: torch.Tensor, perm: torch.Tensor,
                           ct.to(torch.float32)[live])
 
 
+def segment_reduce_in_order(ct: torch.Tensor, perm: torch.Tensor,
+                            row_ptr: torch.Tensor, n: int) -> torch.Tensor:
+    """Kernel F's bits (mode a), for tests: each segment padded to the
+    longest with zero rows, then summed slot by slot in ascending order
+    from 0, one f32 add a slot, as the kernel adds (adding 0 leaves a sum
+    unchanged, bit for bit). Arguments and result as
+    ``segment_reduce_reference``; nothing on the main path calls it."""
+    rp = row_ptr[:n + 1].long()
+    lo, cnt = rp[:-1], rp[1:] - rp[:-1]
+    rows = ct.to(torch.float32)
+    out = torch.zeros(n, ct.shape[1], device=ct.device, dtype=torch.float32)
+    p = perm.long()
+    for t in range(int(cnt.max()) if n else 0):
+        has = cnt > t
+        slot = torch.where(has, lo + t, torch.zeros_like(lo))
+        row = rows.index_select(0, p[slot])
+        out = out + torch.where(has[:, None], row, torch.zeros_like(row))
+    return out
+
+
 def gat_rows_reference(alpha: torch.Tensor, dl: torch.Tensor,
                        dy: torch.Tensor, att_src: torch.Tensor,
                        perm: torch.Tensor, row_ptr: torch.Tensor, n: int,
@@ -109,31 +129,47 @@ def call_kernel(ct: torch.Tensor, perm: torch.Tensor, row_ptr: torch.Tensor,
                 n: int) -> torch.Tensor:
     """Check a CUDA call and launch kernel F (mode (a)) on the current
     stream (ct float32 or bfloat16, out f32); the only place that counts
-    mode (a)'s ``launches``."""
+    mode (a)'s ``launches``.
+
+    The kernel takes a few microseconds at the COO path's narrow rows, so
+    the host's share of a call is kept small: the checks build their
+    messages only when they fail, the stream is read as a raw handle, and
+    the device is switched only when ct is not on the current one."""
     global launches
     from ._build import library
 
-    _check(ct.dim() == 2 and ct.dtype in _DTYPE_CODE,
-           f"ct must be [S, F] float32 or bfloat16, got {tuple(ct.shape)} "
-           f"{ct.dtype}")
-    _check(n >= 1 and ct.shape[1] >= 1, f"n={n}, F={ct.shape[1]}")
-    _check(tuple(row_ptr.shape) == (n + 1,), f"row_ptr {tuple(row_ptr.shape)}"
-           f" != {(n + 1,)}")
-    _check(all(t.device == ct.device for t in (perm, row_ptr)),
-           "all inputs must be on the device of ct")
-    _check(perm.numel() < 2 ** 31, "perm too long for int32")
-    ct = ct.contiguous()
-    perm = perm.to(torch.int32).contiguous()
-    row_ptr = row_ptr.to(torch.int32).contiguous()
+    if ct.dim() != 2 or ct.dtype not in _DTYPE_CODE:
+        raise ValueError(f"segment_reduce kernel: ct must be [S, F] float32 "
+                         f"or bfloat16, got {tuple(ct.shape)} {ct.dtype}")
     f = ct.shape[1]
-    out = torch.empty(n, f, device=ct.device, dtype=torch.float32)
+    if n < 1 or f < 1:
+        raise ValueError(f"segment_reduce kernel: n={n}, F={f}")
+    if row_ptr.dim() != 1 or row_ptr.shape[0] != n + 1:
+        raise ValueError(f"segment_reduce kernel: row_ptr "
+                         f"{tuple(row_ptr.shape)} != {(n + 1,)}")
+    dev = ct.device
+    if perm.device != dev or row_ptr.device != dev:
+        raise ValueError("segment_reduce kernel: all inputs must be on the "
+                         "device of ct")
+    if perm.numel() >= 2 ** 31:
+        raise ValueError("segment_reduce kernel: perm too long for int32")
+    ct = ct.contiguous()
+    if perm.dtype != torch.int32:
+        perm = perm.to(torch.int32)
+    if row_ptr.dtype != torch.int32:
+        row_ptr = row_ptr.to(torch.int32)
+    perm, row_ptr = perm.contiguous(), row_ptr.contiguous()
+    out = torch.empty(n, f, device=dev, dtype=torch.float32)
     vec = 4 if f % 4 == 0 and ct.data_ptr() % 16 == 0 else 1
     lib = library("segment_reduce")
-    with torch.cuda.device(ct.device):
-        err = lib.segment_reduce_sorted(
-            _DTYPE_CODE[ct.dtype], ct.data_ptr(), perm.data_ptr(),
+    args = (_DTYPE_CODE[ct.dtype], ct.data_ptr(), perm.data_ptr(),
             row_ptr.data_ptr(), out.data_ptr(), n, f, vec,
-            torch.cuda.current_stream().cuda_stream)
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        err = lib.segment_reduce_sorted(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.segment_reduce_sorted(*args)
     if err != 0:
         msg = lib.segment_reduce_error_string(err).decode()
         raise RuntimeError(f"segment_reduce kernel failed to launch: CUDA "

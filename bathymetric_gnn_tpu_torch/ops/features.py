@@ -7,7 +7,10 @@ the reference's featurization (data/graph_construction.py:245-456).
 
 Numerics: float32 throughout. ``masked_local_stats`` subtracts each tile's
 mean depth before forming E[x^2] - E[x]^2; without that shift the
-difference cancels badly at survey depths (~30 m and more).
+difference cancels badly at survey depths (~30 m and more). On the CPU
+the square roots and arctangents come from NumPy (``sqrt``,
+``atan_deg``), so that a feature's bits do not depend on what ran before
+in the process.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +41,34 @@ class GridFeatures(NamedTuple):
     local_std: torch.Tensor  # [B, H, W] (correction normalizer)
     local_mean: torch.Tensor  # [B, H, W]
     valid_count: torch.Tensor  # [B, H, W] (# valid cells in window)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Square root, correctly rounded on either device (as XLA's).
+
+    On the CPU torch's float32 sqrt is MKL's VML, and the first such call
+    in a process, split over two threads, has returned the second thread's
+    values, or a block of them, at ~12 bits (relative error up to 3.2e-4)
+    from bit-identical input (``scripts/cpu_sqrt_first_call.py``): a
+    feature's bits then depend on what ran before. NumPy's sqrt (the
+    square-root instruction) gives the same bits every time.
+    Featurization takes no gradient."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def atan_deg(x: torch.Tensor) -> torch.Tensor:
+    """arctan in degrees (the edge slope). On the CPU not MKL's VML, for
+    the reason ``sqrt`` gives, but NumPy's arctan in float64 rounded to
+    x's type: correctly rounded, so it keeps XLA's bits at least as often
+    as MKL's float32 arctan did (NumPy's float32 arctan, up to 2 ulp off,
+    misses them more often)."""
+    if x.device.type != "cpu":
+        return torch.rad2deg(torch.atan(x))
+    a = x.numpy()
+    return torch.rad2deg(torch.from_numpy(
+        np.arctan(a.astype(np.float64)).astype(a.dtype)))
 
 
 def _box_filter_sum(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -119,7 +151,7 @@ def masked_local_stats(
 
     sum_sq = _box_filter_sum(torch.where(valid_mask, d0 * d0, zero), size)
     variance = (sum_sq / safe_count - mean0 * mean0).clamp_min(0.0)
-    local_std = torch.sqrt(variance)
+    local_std = sqrt(variance)
     # cells with no valid neighbour report mean 0, like the reference
     local_mean = torch.where(count > 0, mean0 + center, zero)
     return local_mean, local_std, count
@@ -173,7 +205,7 @@ def compute_grid_features(
     depth_filled = torch.where(valid_mask, depth_c, local_mean)
 
     gy, gx = gradients(depth_filled)
-    gmag = torch.sqrt(gx * gx + gy * gy)
+    gmag = sqrt(gx * gx + gy * gy)
     curv = curvature(depth_filled, valid_mask)
 
     feats = [depth_c, local_mean, local_std, gx, gy, gmag, curv]
@@ -202,6 +234,5 @@ def edge_features_for_offset(depth_filled: torch.Tensor, dr: int, dc: int,
     dist = math.sqrt((dc * res_x) ** 2 + (dr * res_y) ** 2)
     tgt = torch.roll(depth_filled, shifts=(-dr, -dc), dims=(-2, -1))
     ddiff = tgt - depth_filled
-    slope = (torch.rad2deg(torch.atan(ddiff / dist)) if dist > 0
-             else torch.zeros_like(ddiff))
+    slope = atan_deg(ddiff / dist) if dist > 0 else torch.zeros_like(ddiff)
     return torch.stack([torch.full_like(ddiff, dist), ddiff, slope], dim=-1)

@@ -145,11 +145,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
    ms and the device's busy share;
 2g. (run after 2f) kernel F as the COO path's segment sum: on the
    grid-connectivity graph of a synthetic 256^2 survey with 5 % holes
-   (65,536-node bucket, pads at N - 1), rows of width 256 (messages), 4
-   and 1 (softmax denominators, counts) and 3 (edge attributes) summed
-   over the destination table, and a gather's backward over the
-   source-sorted table, against the plain version / ``index_add_`` on the
-   card, two calls bit for bit;
+   (65,536-node bucket, pads at N - 1), rows of width 256 and 64
+   (messages), 4 and 1 (softmax denominators, counts) and 3 (edge
+   attributes), f32 and bf16, summed over the destination table and over
+   the source-sorted table (a gather's backward): bit for bit against the
+   in-order sum (each segment's rows added from 0 in ascending slot
+   order), two calls bit for bit, and within 1e-5 (1 + max |ref|) of
+   ``index_add_`` on the card;
 3i. (run after 3h) ``NativeVRProcessor(use_ell=False)``: the COO model at
    full width on 3g's first 500 refinements and its 512^2 grid (every
    grid a grid-connectivity graph): F launched 4 x 4 layers x the graph
@@ -169,8 +171,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
    cancel, of the leaf's largest |entry| for the others); two steps
    from one state and seed bit for bit; one epoch of ``--gnn-type GCN``
    on 8 tiles;
-4g. (run after 4f) CUDA-event times of F at each COO shape (bound, plain
-   version, ``index_add_``), the COO model's 65,536-node flush forward
+4g. (run after 4f) F at each COO shape, the flush's and the train
+   batch's (event span, device time from a CUDA graph of 20 calls, the
+   wrapper's host time a call; bound, plain version, ``index_add_``,
+   launches by width), the COO model's 65,536-node flush forward
    beside route C on the same chunk, and the COO train step at
    N = 262,144 (busy share) beside 4d's route-C step.
 
@@ -2850,7 +2854,7 @@ def phase_knn_train_timings(torch, np, cases, work, samples):
     busy = log_profile("4d", "3 k-NN train steps", wall, prows, top=14)
     dots_names = ("ellgat::dots_kernel", "rows::node_dots_kernel")
     names = ("aggregate_kernel", "::bwd_kernel", "segred::gat_src_kernel",
-             "segred::reduce_kernel", "drop_mask_kernel") + dots_names
+             "segred::sum_rows_kernel", "drop_mask_kernel") + dots_names
     mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
     dots_n = sum(r[1] for r in prows if any(x in r[2] for x in dots_names))
     dots_ms = sum(r[0] for r in prows if any(x in r[2] for x in dots_names))
@@ -3322,7 +3326,7 @@ def phase_banded_timings(torch, np, ecases, dcases, kcases, work, samples):
     busy = log_profile("4e", "3 route-D k-NN train steps", wall, prows,
                        top=14)
     names = ("v2_fwd_kernel", "v2_bwd_", "rows::mat_dots",
-             "segred::reduce_kernel")
+             "segred::sum_rows_kernel")
     mine = sum(r[0] for r in prows if any(x in r[2] for x in names))
     dots_n = sum(r[1] for r in prows if "rows::mat_dots" in r[2]) / 3
     dots_ms = sum(r[0] for r in prows if "rows::mat_dots" in r[2]) / 3
@@ -4047,7 +4051,8 @@ def bf16_entries(errs, bmod, rows, flush_ms, steps):
 
 COO_N = 65536          # the COO flush: a 256^2 survey's grid graph, 5 % holes
 COO_WIDTHS = {256: "message rows (wide layers)", 4: "denominators (4 heads)",
-              1: "denominators (last layer), counts", 3: "edge attributes"}
+              1: "denominators (last layer), counts", 3: "edge attributes",
+              64: "message rows (last layer)"}
 # F per GAT layer with edge attributes on the COO path: forward 4 (the
 # self loop's mean attribute: sum and count; the softmax denominator; the
 # message sum), backward 4 (the gathers of alpha_src, alpha_dst, the
@@ -4077,52 +4082,60 @@ def coo_flush_graph(torch, np, dev):
 
 
 def phase_coo_segment_vs_plain(torch, np, dev):
-    """Kernel F as the COO segment sum (the destination table), at the COO
-    flush's widths, and as a gather's backward (the source table), against
-    its plain version (index_add_) on the same card tensors; two calls bit
-    for bit. f32 sums of <= 9 rows in another order: |err| <= 1e-5 (1 +
-    |ref|)."""
+    """Kernel F (mode a) as the COO segment sum (the destination table) and
+    as a gather's backward (the source table), at each COO_WIDTHS width, on
+    f32 and bf16 rows: bit for bit against the in-order sum (each segment's
+    rows added from 0 in ascending slot order, the kernel's adds), two calls
+    bit for bit, and against index_add_ of the live rows (f32 sums of <= 9
+    rows in another order: |err| <= 1e-5 (1 + max |ref|)); the gather's
+    autograd backward equals the direct call."""
     from bathymetric_gnn_tpu_torch.ops import segment as seg
     from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
 
     pg, g, ell = coo_flush_graph(torch, np, dev)
     n, e = g.x.shape[0], g.edge_src.shape[0]
-    live = int(g.edge_mask.sum())
+    m = g.edge_mask
+    live = int(m.sum())
     gen = torch.Generator().manual_seed(SEED + 101)
     errs = {}
+    tables = (("sum", g.dst_table, g.edge_dst),
+              ("gather backward", g.src_table, g.edge_src))
     for f, what in COO_WIDTHS.items():
-        ct = torch.randn(e, f, generator=gen).to(dev)
-        out = seg.segment_sum(ct, g.edge_dst, n, g.edge_mask, g.dst_table)
-        again = seg.segment_sum(ct, g.edge_dst, n, g.edge_mask, g.dst_table)
-        ref = sr.segment_reduce_reference(ct, *g.dst_table, n)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        errs[f"sum [E, {f}]"] = err
-        check(torch.equal(out, again), f"[2g] F [E, {f}] differs between "
-              "two calls")
-        check(err <= 1e-5 * (1 + ref.abs().max().item()),
-              f"[2g] F [E, {f}] vs plain: {err:.3e}")
-        log(f"[2g] segment_sum over {live} live of {e} edges into {n} "
-            f"nodes, [E, {f}] ({what}): F vs plain max |err| {err:.3e}, "
-            f"two calls bit for bit")
+        for dtype in (torch.float32, torch.bfloat16):
+            ct = torch.randn(e, f, generator=gen).to(dev, dtype)
+            for kind, table, ids in tables:
+                if kind == "sum" and dtype == torch.float32:
+                    out = seg.segment_sum(ct, g.edge_dst, n, m, table)
+                else:
+                    out = sr.segment_reduce_sorted(ct, *table, n)
+                again = sr.segment_reduce_sorted(ct, *table, n)
+                order = sr.segment_reduce_in_order(ct, *table, n)
+                ref = torch.zeros(n, f, device=dev).index_add_(
+                    0, ids[m].long(), ct[m].float())
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                label = f"{kind} [E, {f}]" + (
+                    "" if dtype == torch.float32 else " bf16 rows")
+                errs[label] = err
+                check(torch.equal(out, order), f"[2g] F {label} differs "
+                      f"from the in-order sum")
+                check(torch.equal(out, again), f"[2g] F {label} differs "
+                      "between two calls")
+                check(err <= 1e-5 * (1 + ref.abs().max().item()),
+                      f"[2g] F {label} vs index_add_: {err:.3e}")
+                log(f"[2g] F {label} ({what}) over {live} live of {e} edges"
+                    f" into {n} nodes: equal to the in-order sum bit for "
+                    f"bit, two calls bit for bit, vs index_add_ max |err| "
+                    f"{err:.3e}")
     ct = torch.randn(e, 256, generator=gen).to(dev)
     x = torch.zeros(n, 256, device=dev, requires_grad=True)
     seg.gather(x, g.edge_src, g.src_table).backward(ct)
     out = sr.segment_reduce_sorted(ct, *g.src_table, n)
-    again = sr.segment_reduce_sorted(ct, *g.src_table, n)
-    m = g.edge_mask
-    ref = torch.zeros(n, 256, device=dev).index_add_(
-        0, g.edge_src[m].long(), ct[m])
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    errs["gather backward [E, 256]"] = err
-    check(torch.equal(out, again) and torch.equal(out, x.grad),
-          "[2g] the gather's backward differs between calls")
-    check(err <= 1e-5 * (1 + ref.abs().max().item()),
-          f"[2g] gather backward vs index_add_: {err:.3e}")
-    log(f"[2g] gather backward through the source-sorted table, [E, 256]: "
-        f"F vs index_add_ max |err| {err:.3e}, autograd's and two direct "
-        f"calls bit for bit")
+    check(torch.equal(out, x.grad), "[2g] the gather's autograd backward "
+          "differs from the direct call")
+    log("[2g] the gather's autograd backward [E, 256] equals the direct "
+        "call bit for bit")
     return errs, dict(pg=pg, g=g, ell=ell)
 
 
@@ -4150,6 +4163,18 @@ def counted_calls(fn, calls):
     return wrapped
 
 
+def f_widths(sr, widths):
+    """mock.patch of kernel F's mode (a) wrapper that records the width
+    of each call in ``widths`` (the launches stay counted by the wrapper
+    itself)."""
+    call = sr.call_kernel
+
+    def recorded(ct, *a, **k):
+        widths.append(int(ct.shape[1]))
+        return call(ct, *a, **k)
+    return mock.patch.object(sr, "call_kernel", recorded)
+
+
 def class_agreement(np, grids, a, b):
     agree = n = 0
     dconf = 0.0
@@ -4169,6 +4194,8 @@ def phase_vr_coo(torch, np, work, vr, dvr):
     first COO_VR_GRIDS refinements and its 512^2 grid, from 3c's
     checkpoint; GCN, GraphSAGE and GIN models on the default route, card
     against CPU; cli.smoke_test on the card."""
+    from collections import Counter
+
     from bathymetric_gnn_tpu_torch.config.config import Config
     from bathymetric_gnn_tpu_torch.inference.native_vr import (
         NativeVRProcessor)
@@ -4193,20 +4220,24 @@ def phase_vr_coo(torch, np, work, vr, dvr):
         chunks.append(len(idx_))
         return launch(idx_)
 
-    runs = []
+    runs, widths = [], []
     with mock.patch.object(proc, "_launch_graphs_chunk", counted_chunk), \
             mock.patch.object(sr, "segment_reduce_reference",
                               counted_calls(sr.segment_reduce_reference,
-                                            plain)):
+                                            plain)), \
+            f_widths(sr, widths):
         for _ in range(2):
             chunks.clear()
+            widths.clear()
             sr.launches = 0             # counts of the main path's run
             t0 = time.perf_counter()
             results = serve(proc, sub)
             torch.cuda.synchronize()
             runs.append((results, time.perf_counter() - t0, sr.launches,
-                         len(chunks)))
-    (results, wall, launches, n_chunks), (results2, wall2, _, _) = runs
+                         len(chunks), Counter(widths)))
+    ((results, wall, launches, n_chunks, by_width),
+     (results2, wall2, _, _, _)) = runs
+    check(sum(by_width.values()) == launches, "[3i] F widths vs launches")
     check_results(np, sub, results, "3i")
     check(not plain, f"the plain version ran {len(plain)} times")
     per_layer = COO_F["GAT"][0]         # serving: the forward's launches
@@ -4230,7 +4261,8 @@ def phase_vr_coo(torch, np, work, vr, dvr):
         f"{wall:.3f} s ({wall2:.3f} s again): {len(sub) / wall:.3f} "
         f"grids/s, {n_nodes / wall / 1e6:.4f} Mnodes/s, device busy "
         f"{busy}; {n_chunks} graph chunks, F launches {launches} = "
-        f"{per_layer} x {MODEL_LAYERS} x {n_chunks}; plain version called "
+        f"{per_layer} x {MODEL_LAYERS} x {n_chunks} (by width "
+        f"{dict(by_width)}); plain version called "
         f"0 times; two runs bit for bit; classes vs 3g's f32 default route "
         f"{agree:.6f} (want >= 0.99), max |d confidence| {dconf:.3e}; "
         f"beside 3g in this run (all {len(grids)} grids): f32 "
@@ -4266,7 +4298,8 @@ def phase_vr_coo(torch, np, work, vr, dvr):
         check(agree_t >= 0.999 and dconf_t <= 2e-3, f"[3i] {t} card vs CPU")
 
     smoke = smoke_test_on_card(torch)
-    return dict(launches=launches, chunks=n_chunks, wall=wall, wall2=wall2,
+    return dict(launches=launches, launches_by_width=by_width,
+                chunks=n_chunks, wall=wall, wall2=wall2,
                 grids=len(sub), nodes=n_nodes, busy_share=busy,
                 class_agreement_with_3g_f32=agree, max_dconf=dconf,
                 non_gat=others, smoke=smoke)
@@ -4637,12 +4670,61 @@ def coo_f_bound(live, n, f):
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes
 
 
-def phase_coo_timings(torch, np, coo, coo_train, kstep):
-    """CUDA-event times: F at each COO shape (the flush's sums and gather
-    backward, the train batch's wide sums) against its bound, its plain
-    version and index_add_; the COO model's 65,536-node flush forward
+def device_ms(torch, fn, iters=20, reps=5):
+    """Device time of one call of fn: ``iters`` calls captured in a CUDA
+    graph (after two warm-up calls on the capture's side stream), replayed
+    ``reps`` times between CUDA events after one untimed replay, the span
+    over reps x iters: the calls' kernels back to back, with no host time
+    between them. (torch.profiler dropped most of F's kernels from its
+    sessions late in this script's process, so 4g does not read it.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / (reps * iters)
+
+
+def host_us(torch, fn, iters=20):
+    """Host time of one call of fn in microseconds: the enqueue of
+    ``iters`` calls on the host clock, with no sync inside the span."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def phase_coo_timings(torch, np, coo, coo_train, kstep, flush_widths):
+    """F at each COO shape (the flush's and the train batch's sums at every
+    COO_WIDTHS width and their 256-wide gather backward): CUDA-event span
+    over 20 calls, the device time of the calls' kernels (device_ms: a
+    CUDA graph of 20 calls), the wrapper's host time a call, beside its
+    bound, its plain version and index_add_ (event span and device time,
+    its fill included), and its launches a run by width (``flush_widths``: 3i's serving run; the train
+    step's recorded here). The COO model's 65,536-node flush forward
     beside route C (GATConvELL, kernel C) on the same chunk; the COO train
     step at N = 262,144 with its busy share, beside 4d's route-C step."""
+    from collections import Counter
+
     from bathymetric_gnn_tpu_torch.config.config import Config
     from bathymetric_gnn_tpu_torch.models.gnn import make_model
     from bathymetric_gnn_tpu_torch.models.gnn_ell import make_ell_model
@@ -4650,37 +4732,57 @@ def phase_coo_timings(torch, np, coo, coo_train, kstep):
 
     trainer, state, gt, targets = coo_train["setup"]
     g = coo["g"]
+    step_widths = []
+    with f_widths(sr, step_widths):
+        trainer.train_step(state, gt, targets, LR)
+    torch.cuda.synchronize()
+    step_widths = Counter(step_widths)
     gen = torch.Generator().manual_seed(SEED + 130)
-    shapes = [(f"flush sum [E, {f}]", g, g.dst_table, g.edge_dst, f)
-              for f in COO_WIDTHS]
-    shapes += [("flush gather backward [E, 256]", g, g.src_table,
-                g.edge_src, 256),
-               ("train sum [E, 256]", gt, gt.dst_table, gt.edge_dst, 256),
-               ("train gather backward [E, 256]", gt, gt.src_table,
-                gt.edge_src, 256)]
+    shapes = []
+    for where, gg, counts in (("flush", g, flush_widths),
+                              ("train", gt, step_widths)):
+        shapes += [(f"{where} sum [E, {f}]", gg, gg.dst_table, gg.edge_dst,
+                    f, counts) for f in COO_WIDTHS]
+        shapes.append((f"{where} gather backward [E, 256]", gg, gg.src_table,
+                       gg.edge_src, 256, counts))
     rows = []
-    for label, gg, (perm, row_ptr), ids, f in shapes:
+    for label, gg, (perm, row_ptr), ids, f, counts in shapes:
         n, e = gg.x.shape[0], gg.edge_src.shape[0]
         m = gg.edge_mask
         live = int(m.sum())
         ct = torch.randn(e, f, generator=gen).to(gg.x.device)
         ct_live, ids_live = ct[m], ids[m].long()
+        fn = lambda: sr.call_kernel(ct, perm, row_ptr, n)  # noqa: E731
+        lib = lambda: torch.zeros(  # noqa: E731
+            n, f, device=ct.device).index_add_(0, ids_live, ct_live)
         with torch.no_grad():
-            ms = cuda_ms(torch, lambda: sr.call_kernel(ct, perm, row_ptr, n),
-                         20)
+            ms = cuda_ms(torch, fn, 20)
+            dev_ms = device_ms(torch, fn)
+            h_us = host_us(torch, fn)
             plain_ms = cuda_ms(torch, lambda: sr.segment_reduce_reference(
                 ct, perm, row_ptr, n), 5)
-            lib_ms = cuda_ms(torch, lambda: torch.zeros(
-                n, f, device=ct.device).index_add_(0, ids_live, ct_live), 20)
+            lib_ms = cuda_ms(torch, lib, 20)
+            lib_dev_ms = device_ms(torch, lib)
         b_ms, b_by, nbytes = coo_f_bound(live, n, f)
+        launches = counts.get(f, 0)
         rows.append(dict(shape=f"{label}, N {n}, {live} live edges", ms=ms,
+                         device_ms=dev_ms, host_us_per_call=h_us,
                          plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
-        log(f"[4g] F {label} (N {n}, {live} live of {e} edges): {ms:.4f} ms,"
-            f" plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB), "
-            f"{b_ms / ms:.3f} of bound")
+                         library_device_ms=lib_dev_ms, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nbytes,
+                         launches_of_width_a_run=launches))
+        share = b_ms / dev_ms
+        log(f"[4g] F {label} (N {n}, {live} live of {e} edges): event span "
+            f"{ms:.4f} ms, device {dev_ms:.4f} ms (CUDA graph), host "
+            f"{h_us:.1f} us a call; index_add_ event span {lib_ms:.4f} ms, "
+            f"device {lib_dev_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e6:.1f} MB), {share:.3f} of bound (device); F "
+            f"launches of width {f} (sums and gather backwards) a run: "
+            f"{launches}")
         del ct, ct_live, ids_live
+    log(f"[4g] F launches by width: 3i's serving run {dict(flush_widths)}, "
+        f"a COO train step {dict(step_widths)}")
 
     cfg = Config()
     model = make_model(cfg.model, 8, dropout=0.0,
@@ -4709,7 +4811,8 @@ def phase_coo_timings(torch, np, coo, coo_train, kstep):
     step_ms = cuda_ms(torch, fn, 5, warmup=2)
     wall, prows = device_profile(torch, lambda: [fn() for _ in range(3)])
     busy = log_profile("4g", "3 COO train steps", wall, prows, top=12)
-    f_dev = sum(r[0] for r in prows if "segred::reduce_kernel" in r[2]) / 3
+    f_dev = sum(r[0] for r in prows
+                if "segred::sum_rows_kernel" in r[2]) / 3
     log(f"[4g] COO train step (merged batch of {TRAIN_BATCH} tiles, N="
         f"{gt.x.shape[0]}, {int(gt.edge_mask.sum())} live edges, full width,"
         f" dropout {trainer.config.model.dropout:.1f}, f32): {step_ms:.3f} "
@@ -4849,7 +4952,8 @@ def main() -> int:
                                  step_D=dstep["ms"]))
         phase = "4g COO timings"
         t4g = time.perf_counter()
-        grows, ctime = phase_coo_timings(torch, np, coo, ctr, kstep)
+        grows, ctime = phase_coo_timings(torch, np, coo, ctr, kstep,
+                                         cvr["launches_by_width"])
         log(f"[4g] phase 4g took {time.perf_counter() - t4g:.3f} s")
     except Exception:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -5046,8 +5150,15 @@ def main() -> int:
         "bound_ms": grow["bound_ms"], "bound_by": grow["bound_by"],
         "library_ms": grow["library_ms"],
         "library": "torch.Tensor.index_add_",
+        "ms_by": "CUDA-event span over 20 calls; device_ms: a CUDA graph of "
+                 "20 calls replayed between events",
+        "device_ms": grow["device_ms"],
+        "library_device_ms": grow["library_device_ms"],
+        "host_us_per_call": grow["host_us_per_call"],
         "at": grow["shape"],
         "shapes": grows,
+        "bits": "equal to the in-order sum at every width, both tables, "
+                "f32 and bf16 rows (phase 2g)",
         "max_abs_err_by_shape": coo_errs,
         "coo_serving": {k: v for k, v in cvr.items()},
         "coo_training": {k: v for k, v in ctr.items() if k != "setup"},

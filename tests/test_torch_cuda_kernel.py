@@ -9,7 +9,9 @@ its spill gathers) against their plain versions and autograd of them; and
 the COO path (``-k coo``): F as the COO segment sum and gather backward at
 widths 1, 3, 4 and 256 against its plain version, the COO model's forward
 and train step of each type bit for bit over two runs, and the GCN / SAGE
-/ GIN ELL layers on the card against the CPU.
+/ GIN ELL layers on the card against the CPU; and F's mode (a) in every
+row form (``-k segment_narrow``: widths 1 to 260, f32 and bf16 rows, 16-byte
+chunks and scalar columns) bit for bit against the in-order sum.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (the CPU test runs). On a machine with an H100 and nvcc:
@@ -1833,3 +1835,89 @@ def test_coo_ell_convs_card_vs_cpu(dev, name):
         want = layer(g.to("cpu"), x)
         got = layer.to(dev)(g.to(dev), x.to(dev)).cpu()
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# -- kernel F's mode (a) at every row form (-k segment_narrow) ---------------
+
+def _segment_case(n, width, dtype, seed=0):
+    """Segments of 0, 1, 8 and 40 slots, then random lengths 0..12; dead
+    slots past row_ptr[n]; rows no live slot reads hold NaN."""
+    rg = np.random.default_rng(seed + width)
+    lens = np.concatenate([[0, 1, 8, 40, 0], rg.integers(0, 13, n - 5)])
+    live = int(lens.sum())
+    rows = live + 17
+    perm = rg.permutation(rows)[:live + 9].astype(np.int32)
+    ct = (3 * rg.normal(size=(rows, width))).astype(np.float32)
+    unread = np.ones(rows, bool)
+    unread[perm[:live]] = False
+    ct[unread] = np.nan
+    t = torch.from_numpy(ct).to(dtype)
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return t, torch.from_numpy(perm), torch.from_numpy(row_ptr)
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 8, 64, 256, 260])
+def test_segment_narrow_bits_match_in_order_sum(dev, width, dtype, big):
+    """Kernel F (mode a) in every lane-group form (one lane a row up to a
+    whole warp, column tiles past 256 f32 columns): the in-order sum's bits
+    (segment_reduce_in_order), the same bits on a second call, within 1e-5
+    (1 + |ref|) of index_add_; empty segments, a 40-slot one, dead slots,
+    n not a multiple of the rows a warp carries, and (``big``) more rows
+    than the resident lane groups hold, so the grid-stride loop turns."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    n = (300_001 if width <= 8 else 40_001) if big else 77
+    ct, perm, row_ptr = (t.to(dev) for t in _segment_case(n, width, dtype))
+    n0 = sr.launches
+    out = sr.segment_reduce_sorted(ct, perm, row_ptr, n)
+    again = sr.segment_reduce_sorted(ct, perm, row_ptr, n)
+    torch.cuda.synchronize()
+    assert sr.launches == n0 + 2
+    want = sr.segment_reduce_in_order(ct, perm, row_ptr, n)
+    assert out.dtype == torch.float32 and out.shape == (n, width)
+    assert torch.equal(out, want)
+    assert torch.equal(out, again)
+    ref = sr.segment_reduce_reference(ct, perm, row_ptr, n)
+    assert ((out - ref).abs() / (1 + ref.abs())).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [4, 8, 64, 256])
+def test_segment_narrow_scalar_columns_when_misaligned(dev, width, dtype):
+    """A cotangent 4 bytes past a 16-byte boundary takes the scalar-column
+    forms (one lane up to 8 columns, else the warp in 64-column tiles):
+    the same bits as the in-order sum."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    ct, perm, row_ptr = _segment_case(1003, width, dtype)
+    ct = ct.to(dev)
+    # .to() copies into a fresh (aligned) buffer: shift it on the card
+    buf = torch.empty(ct.numel() + 1, dtype=dtype, device=dev)
+    ct = buf[1:].view(ct.shape).copy_(ct)
+    assert ct.data_ptr() % 16 != 0
+    perm, row_ptr = perm.to(dev), row_ptr.to(dev)
+    out = sr.segment_reduce_sorted(ct, perm, row_ptr, 1003)
+    torch.cuda.synchronize()
+    assert torch.equal(out, sr.segment_reduce_in_order(ct, perm, row_ptr,
+                                                       1003))
+
+
+def test_segment_narrow_rejects_what_it_does_not_take(dev):
+    """The wrapper refuses a cotangent that is not [S, F] f32 / bf16, a
+    row_ptr of the wrong length, and tables on another device, before any
+    launch."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    ct, perm, row_ptr = (t.to(dev) for t in _segment_case(77, 4,
+                                                          torch.float32))
+    n0 = sr.launches
+    for args in ((ct.double(), perm, row_ptr, 77),
+                 (ct[:, 0], perm, row_ptr, 77),
+                 (ct, perm, row_ptr[:-1], 77),
+                 (ct, perm.cpu(), row_ptr, 77),
+                 (ct, perm, row_ptr, 0)):
+        with pytest.raises(ValueError):
+            sr.call_kernel(*args)
+    assert sr.launches == n0
