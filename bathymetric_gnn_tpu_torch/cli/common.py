@@ -33,3 +33,11 @@ def resolve_config(config_path: Optional[str] = None,
         if candidate.exists():
             return Config.load(candidate)
     return Config()
+
+
+def for_caller(result, argv):
+    """What a CLI's ``main(argv)`` returns: ``result`` to a caller that
+    passed ``argv`` (tests, scripts), None to the console scripts, which
+    call ``main()`` and pass its value to ``sys.exit`` (any value but None
+    or an int would exit 1)."""
+    return result if argv is not None else None

@@ -18,7 +18,7 @@ import argparse
 import json
 import logging
 
-from .common import resolve_config, setup_logging
+from .common import for_caller, resolve_config, setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -80,7 +80,7 @@ def main(argv=None):
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=2)
-    return stats
+    return for_caller(stats, argv)
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ configuration's ``graph.knn_k`` (default 0) picks the route: 0 is the
 default VR route (small refinements in slabs through the dense grid model,
 bf16 on the card; larger grids on grid-connectivity graphs), > 0 the k-NN
 route (``inference/native_vr``). Runs on the CUDA card unless ``--device
-cpu`` is given; fails without a card. Prints the stats JSON on stdout and
-returns the stats.
+cpu`` is given; fails without a card. Prints the stats JSON on stdout;
+``main(argv)`` returns the stats.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .common import resolve_config, setup_logging
+from .common import for_caller, resolve_config, setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -158,7 +158,7 @@ def main(argv=None):
     stats["mean_confidence"] = (round(float(np.mean(confs)), 4)
                                 if confs else 0.0)
     print(json.dumps(stats, indent=2))
-    return stats
+    return for_caller(stats, argv)
 
 
 if __name__ == "__main__":

@@ -27,7 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .common import resolve_config, setup_logging
+from .common import for_caller, resolve_config, setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -59,8 +59,11 @@ def parse_args(argv=None):
     p.add_argument("--heads", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--num-workers", type=int,
-                   help="host input-pipeline worker processes (kept for the "
-                        "config; the trainers prefetch in a thread)")
+                   help="host input-pipeline worker processes (0 = load "
+                        "in-process); with --trainer graph the workers "
+                        "build the training tiles' graphs and targets on "
+                        "the CPU, never touching the card; --trainer grid "
+                        "ignores it")
     p.add_argument("--knn-k", type=int,
                    help=">0: train on k-NN graphs over valid cells (GAT: "
                         "kernels C, C' and F on the card) instead of grid "
@@ -84,8 +87,12 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Returns the trained ``TrainState`` (the model and its optimizer)."""
-    args = parse_args(argv)
+    """Returns the trained ``TrainState`` (the model and its optimizer) to
+    a caller that passes ``argv``."""
+    return for_caller(_main(parse_args(argv)), argv)
+
+
+def _main(args):
     setup_logging(args.verbose)
     cfg = resolve_config(args.config)
 

@@ -10,7 +10,8 @@ mean depth before forming E[x^2] - E[x]^2; without that shift the
 difference cancels badly at survey depths (~30 m and more). On the CPU
 the square roots and arctangents come from NumPy (``sqrt``,
 ``atan_deg``), so that a feature's bits do not depend on what ran before
-in the process.
+in the process, and a lone large tile's depth sum is taken in float64
+(``_tile_sum``), so that they do not depend on torch's thread count.
 """
 
 from __future__ import annotations
@@ -88,6 +89,11 @@ def _box_filter_sum(x: torch.Tensor, size: int) -> torch.Tensor:
     return xc
 
 
+# torch's reduction grain (at::internal::GRAIN_SIZE): a sum of more
+# elements than this into one output is split across the intra-op threads
+SERIAL_SUM_CELLS = 32768
+
+
 def _tile_sum(x: torch.Tensor) -> torch.Tensor:
     """Per-tile sums of [B, H, W] as [B, 1, 1].
 
@@ -95,8 +101,19 @@ def _tile_sum(x: torch.Tensor) -> torch.Tensor:
     size alone, so that a tile's sum, and with it every feature, does not
     depend on the batch it is served in: the library's reduction splits a
     sum across blocks by the whole tensor's shape. On the CPU, the
-    library's sum, whose roundings the JAX parity tests hold."""
+    library's sum, whose roundings the JAX parity tests hold; but a lone
+    tile of more than ``SERIAL_SUM_CELLS`` cells (a graph build's) is
+    summed in float64 and rounded once. Torch splits a float32 sum of that
+    many elements into one output across its intra-op threads, so its
+    bits moved with the thread count (a training worker runs one thread),
+    and the local std, which cancels against the tile's mean, moved with
+    them (``tests/test_torch_mp_loader.py`` holds the bits at 1 and 4
+    threads). Smaller sums, and sums into
+    several outputs, run one output per thread."""
     if x.device.type != "cuda":
+        if x.shape[0] == 1 and x[0].numel() > SERIAL_SUM_CELLS:
+            return x.sum(dim=(1, 2), keepdim=True,
+                         dtype=torch.float64).to(x.dtype)
         return x.sum(dim=(1, 2), keepdim=True)
     return pairwise_tile_sum(x)
 

@@ -205,6 +205,13 @@ class GroundTruthTileDataset:
     def __len__(self) -> int:
         return len(self.index)
 
+    def __getstate__(self):
+        # a worker process (utils/mp_loader) builds what the parent's
+        # cache lacks and sends it back: the cache stays behind
+        state = dict(self.__dict__)
+        state["_cache"], state["_cache_order"] = {}, []
+        return state
+
     def class_counts(self) -> np.ndarray:
         return self._class_counts
 
@@ -248,15 +255,28 @@ class GroundTruthTileDataset:
                                            raw["raw_corr"])
         return GraphSample(bg.graph, targets, bg.num_nodes)
 
-    def __getitem__(self, idx: int) -> GraphSample:
+    def cached(self, idx: int) -> Optional[GraphSample]:
+        """The built sample of tile ``idx`` if the cache holds it (a GT
+        tile has no random draw: one build serves every epoch)."""
+        return self._cache.get(idx)
+
+    def remember(self, idx: int, sample: GraphSample) -> None:
+        """Cache a built sample of tile ``idx``, built here or by a worker
+        process (``utils/mp_loader``); past ``cache_size`` the oldest
+        goes."""
         if idx in self._cache:
-            return self._cache[idx]
-        sample = self.finalize(self.raw_item(idx))
+            return
         self._cache[idx] = sample
         self._cache_order.append(idx)
         if len(self._cache_order) > self.cache_size:
             evict = self._cache_order.pop(0)
             self._cache.pop(evict, None)
+
+    def __getitem__(self, idx: int) -> GraphSample:
+        sample = self.cached(idx)
+        if sample is None:
+            sample = self.finalize(self.raw_item(idx))
+            self.remember(idx, sample)
         return sample
 
     def sample_normalized_corrections(self, sample_limit: int = 20

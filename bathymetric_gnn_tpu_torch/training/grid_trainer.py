@@ -172,6 +172,11 @@ class GridTrainer:
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.resolution = (float(resolution[0]), float(resolution[1]))
         tc = config.training
+        if tc.num_workers > 0:
+            # as JAX's grid trainer: its tiles load in the prefetch thread
+            logger.info("--trainer grid: training.num_workers=%d is ignored "
+                        "(the grid trainer loads in a prefetch thread)",
+                        tc.num_workers)
         self.rng = np.random.default_rng(tc.seed)
         self.dropout_rng = make_dropout_key(tc.seed, self.device)
 

@@ -28,10 +28,13 @@ Checkpoints are port checkpoints (``utils/weights.save_checkpoint``, the
 weights grid-named, ``meta["param_layout"] = "coo"``) under ``best/``,
 ``last/``, ``final/`` (and ``epoch_N/`` every ``checkpoint_every``
 epochs), each with ``train_state.pt`` for ``--resume``;
-``cli/inference_native`` serves them. Not ported: the worker-process
-loader (``num_workers > 0`` loads in a prefetch thread). With dropout the
-``"banded"`` route raises the JAX layer's own refusal when the trainer is
-built (JAX raises it at the first step).
+``cli/inference_native`` serves them. With ``training.num_workers > 0``
+the training epoch's samples are built in worker processes
+(``utils/mp_loader.ProcessSampleLoader``, created at the first epoch and
+closed when ``train`` returns or raises); evaluation and calibration load
+in-process, as in JAX. With dropout the ``"banded"`` route raises the JAX
+layer's own refusal when the trainer is built (JAX raises it at the first
+step).
 """
 
 from __future__ import annotations
@@ -156,10 +159,7 @@ class Trainer:
         self.output_dir = Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         tc = config.training
-        if getattr(tc, "num_workers", 0) > 0:
-            logger.info("num_workers=%d: the port loads batches in a "
-                        "prefetch thread (worker processes are not "
-                        "ported)", tc.num_workers)
+        self._mp_loader = None  # ProcessSampleLoader, at the first epoch
         self.rng = np.random.default_rng(tc.seed)
         self.dropout_rng = make_dropout_key(tc.seed, self.device)
         cw, self.huber_delta = self._compute_training_stats()
@@ -230,21 +230,52 @@ class Trainer:
 
         return band_ell(g, band_rows=128)
 
-    def _host_batches(self, dataset, shuffle: bool):
+    def _host_batches(self, dataset, shuffle: bool, batches=None):
         """(merged graph, stacked targets, live edges, live nodes, tiles,
         BandedEll or None) per batch, all built on the host; shuffled
-        batches are the training epoch's."""
+        batches are the training epoch's. ``batches`` (stacked graph,
+        targets) pairs, the worker loader's, replace the in-process
+        ``epoch_batches`` of ``dataset``."""
         from .datasets import epoch_batches
 
-        rng = self.rng if shuffle else np.random.default_rng(0)
-        for graph, targets in epoch_batches(
-                dataset, self.config.training.batch_size, rng,
-                shuffle=shuffle):
+        if batches is None:
+            rng = self.rng if shuffle else np.random.default_rng(0)
+            batches = epoch_batches(dataset, self.config.training.batch_size,
+                                    rng, shuffle=shuffle)
+        for graph, targets in batches:
             g = self.sparse_batch(graph, train=shuffle)
             yield (g, targets,
                    int(np.asarray(graph.edge_mask).sum()),
                    int(np.asarray(graph.node_mask).sum()),
                    int(graph.node_mask.shape[0]), self.banded_batch(g))
+
+    def _worker_batches(self):
+        """The training epoch's batches from the worker processes
+        (``num_workers > 0``; None otherwise): ``self.rng`` shuffles the
+        order as in ``epoch_batches``, then draws ``base``; sample ``i`` is
+        built with seed ``base + i``. The loader is made at the first call
+        and reused."""
+        tc = self.config.training
+        if tc.num_workers <= 0:
+            return None
+        if self._mp_loader is None:
+            from ..utils.mp_loader import ProcessSampleLoader
+
+            if self.knn_k > 0:
+                # build the graph kit before the workers load it, so that
+                # no two of them race to build the same library
+                from ..native import library
+
+                library()
+            self._mp_loader = ProcessSampleLoader(
+                self.train_dataset, num_workers=tc.num_workers)
+        return self._mp_loader.epoch_batches(tc.batch_size, self.rng)
+
+    def close(self) -> None:
+        """Stop the worker processes, if any."""
+        if self._mp_loader is not None:
+            self._mp_loader.close()
+            self._mp_loader = None
 
     def _device_banded(self, banded):
         return None if banded is None else banded.to(self.device)
@@ -343,6 +374,12 @@ class Trainer:
     # -- loop --------------------------------------------------------------
 
     def train(self, resume: bool = False) -> TrainState:
+        try:
+            return self._train(resume)
+        finally:
+            self.close()
+
+    def _train(self, resume: bool) -> TrainState:
         from ..utils.prefetch import prefetch_iterator
 
         tc = self.config.training
@@ -368,7 +405,8 @@ class Trainer:
             tl = ta = 0.0
             nb = 0
             for g, targets, edges, nodes, tiles, banded in prefetch_iterator(
-                    self._host_batches(self.train_dataset, shuffle=True)):
+                    self._host_batches(self.train_dataset, shuffle=True,
+                                       batches=self._worker_batches())):
                 losses, acc = self.train_step(
                     state, g.to(self.device),
                     _to_device_targets(targets, self.device), lr,
@@ -587,7 +625,9 @@ class Trainer:
 
     def load_checkpoint(self, path, state: TrainState):
         """(state, next epoch, best val) from a checkpoint this trainer
-        wrote, or None when ``path`` holds none."""
+        wrote, or None when ``path`` holds none. A checkpoint of
+        ``cli/import_torch`` has weights only: the optimizer starts fresh
+        and its best val (NaN) counts as none."""
         from ..utils.weights import coo_state_dict, load_state_dict
 
         path = Path(path)
@@ -595,8 +635,11 @@ class Trainer:
             return None
         sd, meta = load_state_dict(path)
         state.model.load_state_dict(coo_state_dict(sd))
-        ts = torch.load(path / "train_state.pt", map_location="cpu",
-                        weights_only=True)
-        state.optimizer.load_state_dict(ts["optimizer"])
-        state.step = int(ts["step"])
-        return state, int(meta["epoch"]) + 1, float(meta["best_val"])
+        if (path / "train_state.pt").exists():
+            ts = torch.load(path / "train_state.pt", map_location="cpu",
+                            weights_only=True)
+            state.optimizer.load_state_dict(ts["optimizer"])
+            state.step = int(ts["step"])
+        best = float(meta["best_val"])
+        return (state, int(meta["epoch"]) + 1,
+                best if math.isfinite(best) else float("inf"))

@@ -166,7 +166,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    best/last/final with calibration.json, the checkpoint served on the
    default route; one step through F against the step on F's plain
    version (dropout 0, N = 262,144: loss 1e-5; each gradient against the
-   step in f64, F's error no more than the f32 plain version's plus
+   step in f64, clipped to the global norm as the step clips its own,
+   F's error no more than the f32 plain version's plus
    1e-3: of each entry's sum of |terms| for lin_edge and att_edge, which
    cancel, of the leaf's largest |entry| for the others); two steps
    from one state and seed bit for bit; one epoch of ``--gnn-type GCN``
@@ -176,7 +177,26 @@ Run from the root of a checkout. Phases, each printing its own lines:
    wrapper's host time a call; bound, plain version, ``index_add_``,
    launches by width), the COO model's 65,536-node flush forward
    beside route C on the same chunk, and the COO train step at
-   N = 262,144 (busy share) beside 4d's route-C step.
+   N = 262,144 (busy share) beside 4d's route-C step;
+3k. (run after 3j) the ground-truth workflow: a 1536^2 clean / noisy pair
+   (deflate GeoTIFFs; the noisy copy's origin 3 rows / 5 cols in, 0.05 m
+   deeper, with spikes and an uncertainty band) and an ENC cell from the
+   port's S57Writer (a wreck and a rock); ``cli.prepare_ground_truth
+   --s57`` (5 bands, the offset, class-1 discs at the features, noise
+   labels where |diff - offset| > 0.15); ``cli.train --trainer graph
+   --ground-truth-dir`` for 1 epoch at ``--num-workers`` 0, 2 and 4 (F's
+   launches as the code implies, no plain version; while 4 workers build
+   tiles only this process holds the card: nvidia-smi's count of contexts
+   does not grow and no worker has a card device file open; the 2- and
+   4-worker histories bit for bit; the 0-worker epoch-0 loss within 1e-5
+   of the 2-worker one; tiles/s, wall and usable CPUs a run);
+   ``cli.inference`` of the trained checkpoint on the noisy survey (A, 4 x
+   the forward calls) scored by ``cli.evaluate_model`` (n_cells = the GT's
+   valid cells); a reference-layout PyTorch checkpoint at full width
+   through ``cli.import_torch`` (every tensor as mapped), served on phase
+   3's survey (A, 8 launches) and by ``NativeVRProcessor(use_ell=False)``
+   on 100 refinements (F, twice bit for bit); ``cli.diagnose_tiles`` and
+   ``cli.analyze_noise_patterns`` JSON.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -2639,6 +2659,90 @@ def knn_step_setup(torch, np, work, samples, dropout):
     return trainer, state, g, targets
 
 
+def knn_step_f64(torch, trainer, model, snapshot, g, targets):
+    """(loss, gradients in f64, clip factor) of the k-NN train step at
+    ``snapshot`` in f64: a copy of the model, the graph's float fields and
+    the targets in f64, every GAT layer on its plain version, and
+    ``torch.float32`` read as float64 while the step runs, so that the
+    port's own casts (the extractor's input, the backbone's output, the
+    masked BatchNorm's f32 path, the plain layer's compute type) compute in
+    f64 as well; the gradients clipped to the global norm as the step
+    clips its own (``train_step``). No kernel launches."""
+    import copy
+    import dataclasses
+
+    from bathymetric_gnn_tpu_torch.models.conv_ell import GATConvEllBanded
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+
+    f64 = torch.float64
+    m64 = copy.deepcopy(model)
+    m64.load_state_dict(snapshot)
+    m64 = m64.to(f64)
+    for m in m64.modules():
+        if isinstance(m, GATConvEllBanded):
+            m.cd = f64
+    g64 = dataclasses.replace(g, **{
+        f: getattr(g, f).to(f64) for f in ("x", "edge_attr", "local_std")})
+    t64 = {k: v.to(f64) if v.is_floating_point() else v
+           for k, v in targets.items()}
+    n0 = (ef.launches, sr.launches)
+    with mock.patch.object(ef, "ell_gat_fused_train", plain_ell_train(ef)), \
+            mock.patch.object(torch, "float32", f64):
+        losses, _ = trainer.loss_fn(m64, g64, t64, train=True)
+        losses["total"].backward()
+    check((ef.launches, sr.launches) == n0, "[3d] the f64 step launched a "
+          "kernel")
+    grads = {n: p.grad for n, p in m64.named_parameters()}
+    check(losses["total"].dtype == f64
+          and all(v.dtype == f64 for v in grads.values()),
+          "[3d] the f64 step is not in f64")
+    norm = float(torch.sqrt(sum(v.square().sum() for v in grads.values())))
+    max_norm = trainer.config.training.grad_clip_norm
+    clip = 1.0 if norm < max_norm else max_norm / norm
+    return (float(losses["total"].detach()),
+            {n: v * clip for n, v in grads.items()}, clip)
+
+
+def step_with_lin_src(torch, model, ef, step):
+    """``step()`` (a k-NN train step) with each GAT layer's input x and the
+    cotangent d xh of its xh captured: lin_src reaches the loss only
+    through xh = x @ lin_src, so its gradient is x^T d xh. Returns
+    (step's result, {lin_src name: (x, d xh)})."""
+    from bathymetric_gnn_tpu_torch.models.conv_ell import GATConvEllBanded
+
+    convs = [n for n, m in model.named_modules()
+             if isinstance(m, GATConvEllBanded)]
+    xs, dxhs = [], []
+    hooks = [model.get_submodule(n).register_forward_pre_hook(
+        lambda mod, args: xs.append(args[1].detach())) for n in convs]
+    layer = ef.ell_gat_fused_train
+
+    def capture(xh, *a, **k):
+        i = len(dxhs)
+        dxhs.append(None)
+        xh.register_hook(lambda d: dxhs.__setitem__(i, d.detach()))
+        return layer(xh, *a, **k)
+
+    try:
+        with mock.patch.object(ef, "ell_gat_fused_train", capture):
+            out = step()
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(xs) == len(dxhs) == len(convs) == MODEL_LAYERS
+          and all(d is not None for d in dxhs), "[3d] lin_src capture")
+    return out, {f"{n}.lin_src": (x, d) for n, x, d in zip(convs, xs, dxhs)}
+
+
+def planted_dxh(torch, dxh, share, factor, seed):
+    """d xh with the rows of a seeded ``share`` of its nodes times
+    ``factor`` (0: dropped): a C' fault to hold 3d's measure against."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = torch.rand(dxh.shape[0], generator=gen).to(dxh.device) < share
+    return torch.where(rows[:, None], dxh * factor, dxh)
+
+
 def phase_knn_step_kernel_vs_plain(torch, np, work, samples):
     """One k-NN train step (dropout 0, full width, N = 262,144) through
     kernels C, C' and F vs the same step with every GAT layer on its plain
@@ -2647,6 +2751,13 @@ def phase_knn_step_kernel_vs_plain(torch, np, work, samples):
     whose true gradient under a batch-statistics BatchNorm is ~0: of the
     largest gradient of all), as phase 3b holds the grid step; every
     parameter after the step within 1e-4 of its leaf's largest |entry|.
+    Each GAT layer's ``lin_src`` is held as 3j holds its leaves, against
+    the step in f64 (``knn_step_f64``): the kernels' error no more than
+    the plain f32 step's own plus 1e-3 of the leaf's largest |entry|. Its
+    gradient x^T d xh sums over all 262,144 nodes and cancels, so the two
+    f32 steps alone differ by ~1e-3 of that |entry| (printed). The measure
+    is shown to see a C' fault: the kernels' gradient with d xh dropped on
+    1 % of the nodes must fail it (d xh times 1.01 on 5 % is printed).
     Adam's first step moves each element by LR x g / (|g| + eps): where
     the element's gradient is within 100 x eps of 0, or the two gradients
     differ by more than a tenth of it (f32 noise on a ~0 gradient), that
@@ -2669,18 +2780,50 @@ def phase_knn_step_kernel_vs_plain(torch, np, work, samples):
                 {n: p.grad.clone() for n, p in model.named_parameters()},
                 {n: p.detach().clone() for n, p in model.named_parameters()})
 
-    lk, gk, pk = step()
+    (lk, gk, pk), cap = step_with_lin_src(torch, model, ef, step)
     with mock.patch.object(ef, "ell_gat_fused_train", plain_ell_train(ef)):
         lp, gp, pp = step()
+    torch.cuda.empty_cache()
+    l64, g64, clip = knn_step_f64(torch, trainer, model, snapshot, g,
+                                  targets)
+    torch.cuda.empty_cache()
     big = max(r.abs().max().item() for r in gp.values())
     worst_g = worst = 0.0
+    lin_err = {}
     n_ill = 0
     for name, r in pp.items():
-        gscale = (big if "GATConv" in name and name.endswith(".bias")
-                  else gp[name].abs().max().item() + 1e-12)
-        eg = (gk[name] - gp[name]).abs().max().item() / gscale
-        worst_g = max(worst_g, eg)
-        check(eg <= 1e-3, f"gradient {name}: {eg:.3e} of scale")
+        if name in cap:
+            ref = g64[name]
+            scale = ref.abs().max().item()
+
+            def err(got):
+                return (got.double() - ref).abs().max().item() / scale
+
+            def planted(share, factor, seed):
+                # the kernels' gradient with d xh so changed, as the step
+                # would clip it
+                x, d = cap[name]
+                return err(gk[name].double() + clip * (
+                    x.double().t() @ (planted_dxh(torch, d, share, factor,
+                                                  seed) - d).double()))
+
+            e = dict(k=err(gk[name]), p=err(gp[name]),
+                     f32=(gk[name] - gp[name]).abs().max().item() / scale,
+                     drop=planted(0.01, 0.0, SEED + 100),
+                     scaled=planted(0.05, 1.01, SEED + 101))
+            lin_err[name] = e
+            check(e["k"] <= e["p"] + 1e-3, f"[3d] gradient {name}: kernels "
+                  f"{e['k']:.3e}, plain {e['p']:.3e} of scale against f64 "
+                  f"(tol plain + 1e-3)")
+            check(e["drop"] > e["p"] + 1e-3, f"[3d] {name}: d xh dropped "
+                  f"on 1 % of the nodes reads {e['drop']:.3e}, within the "
+                  f"tolerance")
+        else:
+            gscale = (big if "GATConv" in name and name.endswith(".bias")
+                      else gp[name].abs().max().item() + 1e-12)
+            eg = (gk[name] - gp[name]).abs().max().item() / gscale
+            worst_g = max(worst_g, eg)
+            check(eg <= 1e-3, f"gradient {name}: {eg:.3e} of scale")
         ill = (((gk[name] - gp[name]).abs() > 0.1 * gp[name].abs())
                | (gp[name].abs() < 100 * state.optimizer.eps))
         n_ill += int(ill.sum())
@@ -2691,13 +2834,21 @@ def phase_knn_step_kernel_vs_plain(torch, np, work, samples):
         worst = max(worst, e)
         check(e <= 1e-4, f"parameter {name} after the step: {e:.3e} of "
                          f"scale")
+    del cap
     rel = abs(lk - lp) / abs(lp)
     log(f"[3d] one k-NN train step, kernels vs plain on the card (dropout "
         f"0, N={g.x.shape[0]}): loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}, "
-        f"tol 1e-4); {len(pp)} gradients agree, worst {worst_g:.3e} of "
-        f"scale (tol 1e-3); parameters after the step agree, worst "
-        f"{worst:.3e} of scale (tol 1e-4), {n_ill} elements with a "
-        f"noise-decided Adam move within 2 x LR")
+        f"tol 1e-4; f64 {l64:.6f}); {len(pp) - len(lin_err)} gradients "
+        f"agree, worst {worst_g:.3e} of scale (tol 1e-3); parameters after "
+        f"the step agree, worst {worst:.3e} of scale (tol 1e-4), {n_ill} "
+        f"elements with a noise-decided Adam move within 2 x LR")
+    log("[3d] lin_src against the step in f64 (clipped as the step, factor "
+        f"{clip:.6f}), of its largest |entry|: kernels / plain f32 (tol "
+        "plain + 1e-3), then kernels vs plain in f32, and the kernels with "
+        "d xh dropped on 1 % / times 1.01 on 5 % of the nodes: " + "; ".join(
+            f"{k.split('.')[-2]} {e['k']:.3e} / {e['p']:.3e} "
+            f"({e['f32']:.3e}; planted {e['drop']:.3e} / {e['scaled']:.3e})"
+            for k, e in sorted(lin_err.items())))
     check(rel <= 1e-4, f"step loss {lk} vs {lp}")
 
 
@@ -4339,8 +4490,10 @@ def smoke_test_on_card(torch):
 
 # -- phase 3j: COO training -----------------------------------------------------
 
-def coo_train_cli(torch, np, data, run, extra, tiles, gnn_type):
-    """cli.train --trainer graph (no --knn-k) on ``data``, 1 epoch: the
+def coo_train_cli(torch, np, data, run, extra, tiles, gnn_type,
+                  data_flag="--data-dir"):
+    """cli.train --trainer graph (no --knn-k) on ``data`` (clean surveys,
+    or GT rasters with ``data_flag="--ground-truth-dir"``), 1 epoch: the
     kernel F launches against the count the code implies (per step:
     COO_F's forward + backward per layer; eval over the training set and
     the calibration pass: forward per layer per batch), no plain version;
@@ -4353,7 +4506,7 @@ def coo_train_cli(torch, np, data, run, extra, tiles, gnn_type):
     from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
 
     shutil.rmtree(run, ignore_errors=True)
-    argv = ["--trainer", "graph", "--data-dir", str(data), "--output-dir",
+    argv = ["--trainer", "graph", data_flag, str(data), "--output-dir",
             str(run), "--epochs", "1", "--seed", str(SEED), "--tile-size",
             str(TRAIN_TILE)] + extra
     plain = []
@@ -4424,6 +4577,7 @@ def coo_step_f64(torch, trainer, model, snapshot, g, targets):
     ``snapshot`` in f64: a copy of the model, the graph's float fields and
     the targets in f64, every segment sum on the plain version in f64.
 
+    The gradients are clipped to the global norm as the step clips them.
     The term scales are, for each GAT layer's ``lin_edge`` and
     ``att_edge``, the sum of the |terms| that make up each entry of its
     gradient: both reach the loss only through m_edge [edge_dim, heads],
@@ -4472,7 +4626,15 @@ def coo_step_f64(torch, trainer, model, snapshot, g, targets):
             mock.patch.object(conv_mod, "matmul", matmul_terms):
         losses, _ = trainer.loss_fn(m64, g64, t64, train=True)
         losses["total"].backward()
-    out = {n: p.grad.to(torch.float32) for n, p in m64.named_parameters()}
+    # the step clips its gradients to the global norm (train_step,
+    # optim.clip_by_global_norm_): so does this one, and its term scales
+    norm = torch.sqrt(sum(p.grad.square().sum() for p in m64.parameters()))
+    max_norm = trainer.config.training.grad_clip_norm
+    clip = 1.0 if float(norm) < max_norm else max_norm / float(norm)
+    out = {n: (p.grad * clip).to(torch.float32)
+           for n, p in m64.named_parameters()}
+    log(f"[3j] the f64 step's gradients clipped as the step clips its own:"
+        f" global norm {float(norm):.6f}, factor {clip:.6f}")
     params = dict(m64.named_parameters())
     convs = [n[:-len(".lin_edge")] for n in params if n.endswith(".lin_edge")]
     check(len(convs) == len(m_scales),
@@ -4484,9 +4646,9 @@ def coo_step_f64(torch, trainer, model, snapshot, g, targets):
         h, c = att.shape[1:]
         lin3 = lin.reshape(lin.shape[0], h, c).abs()
         scales[name + ".lin_edge"] = (sm[:, :, None] * att.abs()).reshape(
-            lin.shape).to(torch.float32)
+            lin.shape).mul(clip).to(torch.float32)
         scales[name + ".att_edge"] = (sm[:, :, None] * lin3).sum(0)[
-            None].to(torch.float32)
+            None].mul(clip).to(torch.float32)
     loss = float(losses["total"])
     del m64, g64, t64, losses, params
     return loss, out, scales
@@ -4655,6 +4817,544 @@ def phase_coo_train(torch, np, work, samples):
                 gcn=dict(steps=gtr["steps"], launches=gtr["launches"],
                          wall=gtr["wall"]),
                 setup=(trainer, state, g, targets))
+
+
+# -- phase 3k: the ground-truth workflow -----------------------------------------
+
+GT_SURVEY = 1536        # the clean / noisy pair: 1536^2 cells of 1 m
+GT_SHIFT = (3, 5)       # the noisy survey's origin, in cells down / right
+GT_OFFSET = 0.05        # the noisy survey's systematic offset (m)
+GT_ORIGIN = (2000.0, 6000.0)    # the clean survey's top-left (projected m)
+GT_COMF = 1e5           # the ENC cell's coordinate factor: 6,000 m fits int32
+# the ENC cell's features at ground-truth cells (row, col), with their disc
+# radii (m, data/s57.FEATURE_CLASSES' defaults)
+GT_FEATURES = (("WRECKS", 700, 400, 50.0), ("UWTROC", 1100, 1200, 25.0))
+GT_WORKERS = (0, 2, 4)
+GT_NOISE = 0.15         # prepare_ground_truth's default noise threshold (m)
+IMPORT_REFINEMENTS = 100
+REF_HIDDEN, REF_HEADS, REF_IN, REF_EDGE = 64, 4, 7, 3
+
+
+def gt_geo(row, col):
+    """Projected (x, y) of ground-truth cell (row, col): the GT raster
+    starts at the noisy survey's origin, cells of 1 m."""
+    return (GT_ORIGIN[0] + GT_SHIFT[1] + col,
+            GT_ORIGIN[1] - GT_SHIFT[0] - row)
+
+
+def gt_inputs(np, d):
+    """The clean / noisy pair as deflate GeoTIFFs with geotransforms, and
+    an ENC cell: a GT_SURVEY^2 surface (phase 3's kind: ramp, sinusoid,
+    roughness, a NaN hole and dropouts) without spikes; the noisy copy has
+    its origin GT_SHIFT cells down / right, lies GT_OFFSET deeper, carries
+    1 % spikes of 0.5-4 m and an uncertainty band; the cell, written by the
+    port's S57Writer, holds a wreck and a rock inside the overlap. Returns
+    (clean, noisy)."""
+    from bathymetric_gnn_tpu_torch.io.geotiff import write_geotiff
+    from bathymetric_gnn_tpu_torch.io.s57_8211 import S57Writer
+
+    n, (dr, dc) = GT_SURVEY, GT_SHIFT
+    surface, unc = synthetic_survey(np, n + dr, n + dc, SEED + 130,
+                                    spikes=False)
+    rg = np.random.default_rng(SEED + 131)
+    clean = surface[:n, :n]
+    noisy = surface[dr:, dc:] + np.float32(GT_OFFSET)
+    hit = rg.random(noisy.shape) < 0.01
+    noisy[hit] += (rg.uniform(0.5, 4.0, hit.sum())
+                   * rg.choice([-1, 1], hit.sum())).astype(np.float32)
+    d.mkdir(parents=True, exist_ok=True)
+    x0, y0 = GT_ORIGIN
+    write_geotiff(d / "clean.tif", clean[None], pixel_scale=(1.0, 1.0),
+                  origin=(x0, y0), nodata=float("nan"))
+    write_geotiff(d / "noisy.tif", np.stack([noisy, unc[dr:, dc:]]),
+                  pixel_scale=(1.0, 1.0), origin=(x0 + dc, y0 - dr),
+                  nodata=float("nan"))
+    w = S57Writer(comf=GT_COMF)
+    for cls, row, col, _ in GT_FEATURES:
+        w.add_feature(cls, [w.add_node(*gt_geo(row, col))])
+    w.save(d / "cell.000")
+    return clean, noisy
+
+
+def quiet_main(main, argv):
+    """A CLI's main(argv) with its printed output kept off this log."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def gt_prepare(np, d, clean, noisy):
+    """cli.prepare_ground_truth --s57 on the pair: 5 bands over the
+    overlap, the reported offset near GT_OFFSET (and the median the code
+    implies), class-1 discs at the two features, noise labels where
+    |diff - offset| > GT_NOISE off the discs, nodata where either survey
+    has none. Returns (stats, GT path, labels)."""
+    from bathymetric_gnn_tpu_torch.cli import prepare_ground_truth as pg
+    from bathymetric_gnn_tpu_torch.io.geotiff import read_geotiff
+
+    t0 = time.perf_counter()
+    stats = quiet_main(pg.main, [
+        "--clean", str(d / "clean.tif"), "--noisy", str(d / "noisy.tif"),
+        "--output-dir", str(d / "gt"), "--s57", str(d / "cell.000")])
+    wall = time.perf_counter() - t0
+    bands, info = read_geotiff(stats["output"])
+    n, (dr, dc) = GT_SURVEY, GT_SHIFT
+    shape = (n - dr, n - dc)
+    check(bands.shape == (5,) + shape, f"[3k] GT bands {bands.shape}")
+    check(info.geotransform[0] == GT_ORIGIN[0] + dc
+          and info.geotransform[3] == GT_ORIGIN[1] - dr,
+          f"[3k] GT origin {info.geotransform}")
+    labels = bands[0]
+    c, z = clean[dr:, dc:], noisy[:n - dr, :n - dc]
+    valid = np.isfinite(c) & np.isfinite(z)
+    check(np.array_equal(labels >= 0, valid), "[3k] GT valid cells")
+    diff = np.where(valid, z - c, 0.0).astype(np.float32)
+    off = float(np.median(diff[valid]))
+    got = stats["systematic_offset_m"]
+    check(got == round(off, 4) and abs(got - GT_OFFSET) < 1e-3,
+          f"[3k] offset {got} (median {off}, want ~{GT_OFFSET})")
+    rr, cc = np.ogrid[:shape[0], :shape[1]]
+    discs = np.zeros(shape, bool)
+    for _, row, col, radius in GT_FEATURES:
+        discs |= (rr - row) ** 2 + (cc - col) ** 2 <= radius ** 2
+    check(np.array_equal(labels == 1, discs & valid)
+          and stats["feature_cells"] == int((discs & valid).sum()),
+          "[3k] class-1 cells are not the features' discs")
+    noise = np.abs(np.where(valid, diff - off, 0.0).astype(np.float32))
+    check(np.array_equal(labels == 2, (noise > GT_NOISE) & valid & ~discs),
+          "[3k] noise labels")
+    log(f"[3k] cli.prepare_ground_truth --s57 on a {n}^2 clean / noisy pair"
+        f" (noisy origin {dr} rows / {dc} cols in): {shape[0]}x{shape[1]} "
+        f"overlap in {wall:.3f} s; offset {got} m (want ~{GT_OFFSET}); "
+        f"{stats['valid_cells']} valid cells, {stats['noise_cells']} noise"
+        f" ({stats['noise_pct']} %), {stats['feature_cells']} class-1 in "
+        f"the {len(GT_FEATURES)} discs; every label as the pair implies")
+    return stats, Path(stats["output"]), labels
+
+
+def child_pids():
+    """Pids of this process's live children, from /proc."""
+    import os
+
+    me, out = os.getpid(), []
+    for p in Path("/proc").iterdir():
+        if not p.name.isdigit():
+            continue
+        try:
+            ppid = int((p / "stat").read_text().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == me:
+            out.append(int(p.name))
+    return out
+
+
+def proc_text(pid, name):
+    try:
+        return Path(f"/proc/{pid}/{name}").read_bytes().decode(
+            errors="replace")
+    except OSError:
+        return ""
+
+
+def card_contexts():
+    """The rows nvidia-smi lists on the card, one a context: in a PID
+    namespace its pids need not be this machine's, so rows are counted,
+    not pids."""
+    res = subprocess.run(["nvidia-smi",
+                          "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30)
+    return [r.strip() for r in res.stdout.splitlines() if r.strip()]
+
+
+def holds_card(pid):
+    """Whether ``pid`` has a card device file open or mapped (CUDA's
+    initialisation opens /dev/nvidiactl and /dev/nvidia<N>)."""
+    import os
+
+    fds = Path(f"/proc/{pid}/fd")
+    try:
+        for fd in fds.iterdir():
+            try:
+                if os.readlink(fd).startswith("/dev/nvidia"):
+                    return True
+            except OSError:
+                continue
+    except OSError:
+        pass
+    return "/dev/nvidia" in proc_text(pid, "maps")
+
+
+def is_worker(pid):
+    """Whether ``pid`` runs a multiprocessing spawn worker."""
+    return "spawn_main" in proc_text(pid, "cmdline")
+
+
+class CardHolders:
+    """Over a ``with`` block, sampled every ``period`` s in a thread: the
+    most contexts nvidia-smi listed on the card at once, this process's
+    spawned workers, and the workers that had a card device file open or
+    mapped."""
+
+    def __init__(self, period=0.25):
+        import threading
+
+        self.period = period
+        self.rows, self.workers, self.holders = 0, set(), set()
+        self.listed = []
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            rows = card_contexts()
+            if len(rows) > self.rows:
+                self.rows, self.listed = len(rows), rows
+            for pid in child_pids():
+                if is_worker(pid):
+                    self.workers.add(pid)
+                    if holds_card(pid):
+                        self.holders.add(pid)
+            self.samples += 1
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def gt_train(torch, np, work, gt, n_tiles):
+    """cli.train --trainer graph --ground-truth-dir at --num-workers 0, 2
+    and 4 (coo_train_cli's checks in each: F's launches as the code
+    implies, no plain version); only this process on the card while the
+    4 workers build tiles; the 2- and 4-worker histories bit for bit; the
+    0-worker run's epoch-0 train loss within 1e-5 of the 2-worker run's."""
+    import os
+
+    runs = {}
+    me = os.getpid()
+    cpus = len(os.sched_getaffinity(0))
+    parent_holds = holds_card(me)
+    for w in GT_WORKERS:
+        run = work / f"gt_run_w{w}"
+        args = (torch, np, gt.parent, run, ["--num-workers", str(w)],
+                n_tiles, "GAT")
+        if w == max(GT_WORKERS):
+            # two views of who holds the card, each checked to see this
+            # process first: nvidia-smi's contexts (the count may not grow
+            # while the workers run) and the card device files each
+            # worker has open or mapped (none may)
+            before = card_contexts()
+            with CardHolders() as holders:
+                tr = coo_train_cli(*args, data_flag="--ground-truth-dir")
+            workers = holders.workers
+            check(before or parent_holds, "[3k] neither nvidia-smi nor "
+                  "/proc shows this process on the card: no check of the "
+                  "workers is possible")
+            check(len(workers) >= w, f"[3k] {len(workers)} workers seen")
+            if before:
+                check(holders.rows <= len(before), f"[3k] {holders.rows} "
+                      f"contexts on the card while the workers ran "
+                      f"({holders.listed}), {len(before)} before "
+                      f"({before})")
+            if parent_holds:
+                check(not holders.holders, f"[3k] workers holding the "
+                      f"card: {sorted(holders.holders)}")
+            left = [p for p in child_pids() if is_worker(p)]
+            check(not left, f"[3k] workers left after the run: {left}")
+            log(f"[3k] while {w} workers built tiles ({holders.samples} "
+                f"samples): nvidia-smi listed at most {holders.rows} "
+                f"context(s) ({len(before)} before the run, this process's:"
+                f" {before or 'not listed'}; "
+                f"{'checked' if before else 'not checked'}); "
+                f"{len(workers)} workers seen, {len(holders.holders)} of "
+                f"them with a card device file open or mapped (this "
+                f"process has: {parent_holds}; "
+                f"{'checked' if parent_holds else 'not checked'}); no "
+                f"worker left after the run")
+        else:
+            tr = coo_train_cli(*args, data_flag="--ground-truth-dir")
+        runs[w] = tr
+        log(f"[3k] cli.train --trainer graph --ground-truth-dir "
+            f"--num-workers {w}: {n_tiles} GT tiles of {TRAIN_TILE}^2, "
+            f"{tr['steps']} steps in {tr['wall']:.3f} s of wall clock "
+            f"(with the stats sample, eval, calibration, checkpoints); "
+            f"{tr['metrics']['tiles_per_s']} tiles/s (metrics.jsonl: the "
+            f"epoch's tiles over the time from the trainer's set-up to the "
+            f"end of its eval, {tr['metrics']['elapsed_s']} s); F launches "
+            f"{tr['launches']}, plain version called 0 times; train loss "
+            f"{tr['hist']['train_loss']}; {cpus} usable CPUs")
+    h0, h2, h4 = (runs[w]["hist"] for w in GT_WORKERS)
+    check(h2 == h4, f"[3k] 2- and 4-worker histories differ: {h2} {h4}")
+    l0, l2 = h0["train_loss"][0], h2["train_loss"][0]
+    rel = abs(l0 - l2) / abs(l2)
+    check(rel <= 1e-5, f"[3k] epoch-0 train loss {l0} (0 workers) vs {l2} "
+          f"(2 workers): rel {rel:.2e}")
+    log(f"[3k] the 2- and 4-worker histories bit for bit; epoch-0 train "
+        f"loss 0 workers {l0!r} vs 2 workers {l2!r} (rel {rel:.2e}, tol "
+        f"1e-5)")
+    return runs, cpus
+
+
+def gt_serve_and_score(torch, np, work, d, gt, labels, ckpt):
+    """cli.inference serves ``ckpt`` on the noisy survey (kernel A, 4 x
+    the forward calls, no plain version); cli.evaluate_model scores its
+    classification and confidence bands against the GT: the JSON's keys,
+    and n_cells = the GT's valid cells in the overlap."""
+    from bathymetric_gnn_tpu_torch.cli import evaluate_model as ecli
+    from bathymetric_gnn_tpu_torch.cli import inference as icli
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    pred = work / "gt_predictions.tif"
+    plain = []
+    with mock.patch.object(gf, "grid_gat_reference",
+                           counted_calls(gf.grid_gat_reference, plain)):
+        gf.launches = 0
+        t0 = time.perf_counter()
+        stats = quiet_main(icli.main, ["--input", str(d / "noisy.tif"),
+                                       "--output", str(pred), "--model",
+                                       str(ckpt)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gf.launches
+    n = stats["tiles_processed"]
+    calls = n // 8 + n % 8
+    check(not plain, f"[3k] kernel A's plain version ran {len(plain)} times")
+    check(launches == MODEL_LAYERS * calls, f"[3k] A launches {launches} != "
+          f"{MODEL_LAYERS} x {calls} forward calls")
+    t0 = time.perf_counter()
+    m = quiet_main(ecli.main, ["--predictions", str(pred), "--ground-truth",
+                               str(gt), "--class-band", "3",
+                               "--confidence-band", "4", "--output-json",
+                               str(work / "gt_metrics.json")])
+    ewall = time.perf_counter() - t0
+    check(set(m) >= {"accuracy", "macro_f1", "per_class",
+                     "confusion_matrix", "calibration"}
+          and set(m["per_class"]) == {"seafloor", "feature", "noise"},
+          f"[3k] metrics keys {sorted(m)}")
+    want = int((labels >= 0).sum())
+    check(m["n_cells"] == want, f"[3k] n_cells {m['n_cells']} != {want}")
+    log(f"[3k] cli.inference served {ckpt} on the noisy survey: {n} tiles "
+        f"in {wall:.3f} s, kernel A launches {launches} = {MODEL_LAYERS} x "
+        f"{calls} calls, plain version 0 times; cli.evaluate_model in "
+        f"{ewall:.3f} s: {m['n_cells']} cells, accuracy {m['accuracy']}, "
+        f"macro F1 {m['macro_f1']}, per class "
+        f"{ {k: v['f1'] for k, v in m['per_class'].items()} }")
+    return dict(launches=launches, calls=calls, wall=wall,
+                macro_f1=m["macro_f1"], accuracy=m["accuracy"],
+                n_cells=m["n_cells"])
+
+
+def reference_state_dict(torch, np, seed):
+    """A state_dict in the original PyTorch reference's layout and names
+    (its BathymetricGNN: ``feature_extractor.mlp.*``, ``gnn.convs.{i}.*``
+    as PyG's GATConv, ``gnn.norms.{i}.module.*`` as PyG's BatchNorm, the
+    three heads' ``mlp.*``) at full width: GAT, 4 layers, hidden 64, 4
+    heads (1 on the last layer), 7 inputs, edge_dim 3, values from seeded
+    numpy; and the (port key, reference key, transposed) of every
+    weight the import must carry."""
+    rg = np.random.default_rng(seed)
+    sd, pairs = {}, []
+
+    def put(key, a, port=None, t=False):
+        sd[key] = a
+        if port:
+            pairs.append((port, key, t))
+
+    def lin(ref, port, out, inp, bias=True):
+        put(f"{ref}.weight", rg.normal(0, inp ** -0.5, (out, inp)),
+            f"{port}.kernel", True)
+        if bias:
+            put(f"{ref}.bias", rg.normal(0, 0.1, out), f"{port}.bias")
+
+    hid = REF_HIDDEN
+    lin("feature_extractor.mlp.0", "MLPFeatureExtractor_0.TorchLinear_0",
+        hid, REF_IN)
+    lin("feature_extractor.mlp.3", "MLPFeatureExtractor_0.TorchLinear_1",
+        hid, hid)
+    width = hid
+    for i in range(MODEL_LAYERS):
+        h = 1 if i == MODEL_LAYERS - 1 else REF_HEADS
+        ref, port = f"gnn.convs.{i}", f"GridGATConv_{i}"
+        put(f"{ref}.lin.weight", rg.normal(0, width ** -0.5,
+                                           (h * hid, width)),
+            f"{port}.lin_src", True)
+        for a in ("att_src", "att_dst", "att_edge"):
+            put(f"{ref}.{a}", rg.normal(0, 0.3, (1, h, hid)), f"{port}.{a}")
+        put(f"{ref}.lin_edge.weight", rg.normal(0, 0.5, (h * hid, REF_EDGE)),
+            f"{port}.lin_edge", True)
+        put(f"{ref}.bias", rg.normal(0, 0.1, h * hid), f"{port}.bias")
+        width = h * hid
+        ref, port = f"gnn.norms.{i}.module", f"MaskedBatchNorm_{i}"
+        put(f"{ref}.weight", rg.uniform(0.5, 1.5, width), f"{port}.scale")
+        put(f"{ref}.bias", rg.normal(0, 0.1, width), f"{port}.bias")
+        put(f"{ref}.running_mean", rg.normal(0, 0.2, width), f"{port}.mean")
+        put(f"{ref}.running_var", rg.uniform(0.5, 2.0, width), f"{port}.var")
+        sd[f"{ref}.num_batches_tracked"] = np.array(100)
+    for name, port, out in (("classification_head", "ClassificationHead_0", 3),
+                            ("confidence_head", "ConfidenceHead_0", 1),
+                            ("correction_head", "CorrectionHead_0", 1)):
+        lin(f"{name}.mlp.0", f"{port}.TorchLinear_0", hid // 2, hid)
+        lin(f"{name}.mlp.3", f"{port}.TorchLinear_1", out, hid // 2)
+    sd = {k: torch.from_numpy(np.asarray(
+        v, np.int64 if k.endswith("num_batches_tracked") else np.float32))
+        for k, v in sd.items()}
+    return sd, pairs
+
+
+def gt_import(torch, np, work, e2e):
+    """A reference-layout checkpoint at full width through
+    cli.import_torch: every imported tensor equal to its source entry
+    after the mapping; the checkpoint served on phase 3's survey through
+    cli.inference (kernel A, 8 launches, no plain version) and on
+    IMPORT_REFINEMENTS refinements through NativeVRProcessor(use_ell=False)
+    (kernel F, 4 x 4 layers x the graph chunks, no plain version), twice,
+    bit for bit."""
+    from bathymetric_gnn_tpu_torch.cli import import_torch as imp
+    from bathymetric_gnn_tpu_torch.cli import inference as icli
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.inference.native_vr import (
+        NativeVRProcessor)
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.utils.weights import load_state_dict
+
+    ref, pairs = reference_state_dict(torch, np, SEED + 140)
+    src = work / "reference.pt"
+    torch.save({"model_state_dict": ref, "in_channels": REF_IN,
+                "edge_dim": REF_EDGE,
+                "config": {"model": {"num_layers": MODEL_LAYERS,
+                                     "gnn_type": "GAT",
+                                     "hidden_channels": REF_HIDDEN,
+                                     "attention_heads": REF_HEADS}}}, src)
+    ckpt = quiet_main(imp.main, ["--input", str(src), "--output-dir",
+                                 str(work / "imported")])
+    sd, meta = load_state_dict(ckpt)
+    check(sorted(sd) == sorted(p for p, _, _ in pairs),
+          f"[3k] imported keys {sorted(set(sd) ^ {p for p, _, _ in pairs})}")
+    for port, key, t in pairs:
+        want = ref[key].t() if t else ref[key]
+        check(torch.equal(sd[port], want), f"[3k] {port} != {key}")
+    check(meta["trained_layout"] == "coo" and meta["imported_from"] == str(src),
+          f"[3k] import meta {meta}")
+
+    plain = []
+    argv = ["--input", str(e2e["src"]), "--output",
+            str(work / "imported_cleaned.tif"), "--model", str(ckpt)]
+    with mock.patch.object(gf, "grid_gat_reference",
+                           counted_calls(gf.grid_gat_reference, plain)):
+        gf.launches = 0
+        t0 = time.perf_counter()
+        stats = quiet_main(icli.main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        a_launches = gf.launches
+    check(stats["tiles_processed"] == 9 and a_launches == MODEL_LAYERS * 2,
+          f"[3k] imported model: {stats['tiles_processed']} tiles, A "
+          f"launches {a_launches} (want {MODEL_LAYERS} x 2)")
+    check(not plain, f"[3k] A's plain version ran {len(plain)} times")
+
+    cfg = Config.load(ckpt / "config.yaml")
+    proc = NativeVRProcessor(sd, cfg, node_budget=VR_BUDGET, use_ell=False)
+    grids = make_refinements(np, IMPORT_REFINEMENTS, SEED + 141)
+    chunks, runs = [], []
+    launch = proc._launch_graphs_chunk
+
+    def counted_chunk(idx):
+        chunks.append(len(idx))
+        return launch(idx)
+
+    with mock.patch.object(proc, "_launch_graphs_chunk", counted_chunk), \
+            mock.patch.object(sr, "segment_reduce_reference",
+                              counted_calls(sr.segment_reduce_reference,
+                                            plain)):
+        for _ in range(2):
+            chunks.clear()
+            sr.launches = 0
+            t0 = time.perf_counter()
+            results = serve(proc, grids)
+            torch.cuda.synchronize()
+            runs.append((results, time.perf_counter() - t0, sr.launches,
+                         len(chunks)))
+    (res1, vwall, f_launches, n_chunks), (res2, _, _, _) = runs
+    check_results(np, grids, res1, "3k")
+    check(not plain, f"[3k] F's plain version ran {len(plain)} times")
+    want = COO_F["GAT"][0] * MODEL_LAYERS * n_chunks
+    check(f_launches == want, f"[3k] F launches {f_launches} != {want}")
+    same = all(np.array_equal(a[c], b[c]) for a, b in zip(res1, res2)
+               for c in ("classification", "confidence", "correction"))
+    check(same, "[3k] two runs of the imported COO model differ")
+    log(f"[3k] cli.import_torch: a reference-layout GAT state_dict at full "
+        f"width ({len(ref)} entries, {len(pairs)} carried, each equal to its"
+        f" source after the mapping) -> {ckpt}; cli.inference on phase 3's "
+        f"{SURVEY}^2 survey: 9 tiles in {wall:.3f} s, A launches "
+        f"{a_launches}; NativeVRProcessor(use_ell=False) on "
+        f"{IMPORT_REFINEMENTS} refinements: {n_chunks} graph chunks in "
+        f"{vwall:.3f} s, F launches {f_launches} = {COO_F['GAT'][0]} x "
+        f"{MODEL_LAYERS} x {n_chunks}, two runs bit for bit; plain "
+        f"versions called 0 times")
+    return dict(a_launches=a_launches, f_launches=f_launches,
+                chunks=n_chunks, serve_wall=wall, vr_wall=vwall)
+
+
+def gt_reports(d, gt):
+    """cli.diagnose_tiles on the noisy survey and
+    cli.analyze_noise_patterns on the GT, their JSON printed; the preview
+    and BAG explorer need matplotlib and h5py."""
+    import importlib.util
+
+    from bathymetric_gnn_tpu_torch.cli import analyze_noise_patterns as an
+    from bathymetric_gnn_tpu_torch.cli import diagnose_tiles as dt
+
+    diag = quiet_main(dt.main, [str(d / "noisy.tif")])
+    noise = quiet_main(an.main, [str(gt)])
+    check(list(diag.values())[0]["valid"] > 0
+          and list(noise.values())[0]["noise_cells"] > 0, "[3k] reports")
+    log(f"[3k] cli.diagnose_tiles: {json.dumps(diag)}")
+    log(f"[3k] cli.analyze_noise_patterns: {json.dumps(noise)}")
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "h5py")}
+    log(f"[3k] cli.render_preview and cli.explore_bag not run here: they "
+        f"need matplotlib and h5py (installed here: {have}) and run no "
+        f"device code; the CPU tests hold them against JAX's")
+    return dict(diagnose=diag, noise_patterns=noise)
+
+
+def phase_ground_truth(torch, np, work, e2e):
+    """The model developer's ground-truth workflow on the card (a-g)."""
+    from bathymetric_gnn_tpu_torch.config.config import Config
+    from bathymetric_gnn_tpu_torch.training.datasets import (
+        GroundTruthTileDataset)
+
+    d = work / "gt_workflow"
+    clean, noisy = gt_inputs(np, d)
+    stats, gt, labels = gt_prepare(np, d, clean, noisy)
+    n_tiles = len(GroundTruthTileDataset([str(gt)], Config(),
+                                         tile_size=TRAIN_TILE, overlap=32))
+    runs, cpus = gt_train(torch, np, work, gt, n_tiles)
+    scored = gt_serve_and_score(torch, np, work, d, gt, labels,
+                                work / "gt_run_w2" / "best")
+    imported = gt_import(torch, np, work, e2e)
+    gt_reports(d, gt)
+    return dict(
+        gt=dict(offset_m=stats["systematic_offset_m"],
+                noise_cells=stats["noise_cells"],
+                feature_cells=stats["feature_cells"]),
+        tiles=n_tiles, usable_cpus=cpus,
+        training={w: dict(tiles_per_s=r["metrics"]["tiles_per_s"],
+                          elapsed_s=r["metrics"]["elapsed_s"],
+                          wall_s=r["wall"], steps=r["steps"],
+                          segment_reduce_launches=r["launches"])
+                  for w, r in runs.items()},
+        serving=scored, imported=imported)
 
 
 # -- phase 4g: the COO path's timings --------------------------------------------
@@ -4927,6 +5627,11 @@ def main() -> int:
                               coo_train_samples(np, knn_survey(
                                   np, KNN_BATCH_SURVEY, SEED + 60)[0]))
         log(f"[3j] phase 3j took {time.perf_counter() - t3j:.3f} s")
+        phase = "3k the ground-truth workflow"
+        t3k = time.perf_counter()
+        gtw = phase_ground_truth(torch, np, work, e2e)
+        gtw["phase_s"] = time.perf_counter() - t3k
+        log(f"[3k] phase 3k took {gtw['phase_s']:.3f} s")
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         srows, slab_fwd = phase_slab_timings(torch, np, scases, dvr)
@@ -5162,6 +5867,7 @@ def main() -> int:
         "max_abs_err_by_shape": coo_errs,
         "coo_serving": {k: v for k, v in cvr.items()},
         "coo_training": {k: v for k, v in ctr.items() if k != "setup"},
+        "ground_truth_workflow": gtw,
         "timings": ctime,
     })
     log(card)

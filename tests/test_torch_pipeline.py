@@ -206,21 +206,37 @@ def test_port_imports_nothing_of_jax():
     """Import every module of the port in a fresh interpreter (the test
     process itself has jax loaded by conftest) and check that no jax*
     module and no module of the JAX package came with it, nor h5py (the
-    card's machine has none; BAG I/O imports it when a BAG is opened); the
-    training, k-NN serving and k-NN training modules, and the COO path's
-    (segment ops, convs, model, smoke test), are among those imported."""
+    card's machine has none; BAG I/O imports it when a BAG is opened)
+    before ``cli.explore_bag``, the one module that imports it, as JAX's
+    does (where h5py is not installed, that module's import lines are read
+    instead, and must name no JAX module either); the training, k-NN serving and k-NN training modules, the COO
+    path's (segment ops, convs, model, smoke test), and the worker loader,
+    ground-truth, S-57, evaluation, import and report tools are among
+    those imported."""
     code = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import bathymetric_gnn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+needs_h5py = pkg.__name__ + ".cli.explore_bag"
 for n in names:
-    importlib.import_module(n)
+    if n != needs_h5py:
+        importlib.import_module(n)
+assert "h5py" not in sys.modules
+if importlib.util.find_spec("h5py") is not None:
+    importlib.import_module(needs_h5py)
+else:
+    src = importlib.util.find_spec(needs_h5py).origin
+    heads = [l.split()[1] for l in open(src).read().splitlines()
+             if l.startswith(("import ", "from "))]
+    assert heads and not [h for h in heads if h.lstrip(".").split(".")[0] in
+                          ("jax", "jaxlib", "flax", "optax", "orbax",
+                           "bathymetric_gnn_tpu")], heads
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "orbax"))
              or m == "bathymetric_gnn_tpu" or m.startswith("bathymetric_gnn_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert "h5py" not in sys.modules
+assert "matplotlib" not in sys.modules
 assert len(names) >= 25, names
 for m in ("training.grid_trainer", "training.losses", "training.optim",
           "training.trainer", "training.datasets", "models.grid_batched",
@@ -229,7 +245,13 @@ for m in ("training.grid_trainer", "training.losses", "training.optim",
           "ops.cuda.ell_gat_fused", "models.conv_ell", "models.gnn_ell",
           "inference.native_vr", "cli.inference_native",
           "ops.cuda.segment_reduce", "utils.prof", "inference.streaming",
-          "ops.segment", "models.conv", "models.gnn", "cli.smoke_test"):
+          "ops.segment", "models.conv", "models.gnn", "cli.smoke_test",
+          "utils.mp_loader", "training.evaluation", "cli.evaluate_model",
+          "io.s57_8211", "data.s57", "data.ground_truth",
+          "cli.prepare_ground_truth", "cli.extract_s57_features",
+          "utils.torch_import", "cli.import_torch", "cli.diagnose_tiles",
+          "cli.analyze_noise_patterns", "cli.explore_bag",
+          "cli.render_preview", "data.multiscale"):
     assert pkg.__name__ + "." + m in names, m
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
