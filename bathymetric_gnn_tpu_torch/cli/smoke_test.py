@@ -37,7 +37,9 @@ def check_imports(ctx):
     import torch
 
     from .. import (config, data, inference, io, models, ops,  # noqa: F401
-                    training, utils)
+                    parallel, training, utils)
+    from ..parallel import (collectives, data_parallel, halo,  # noqa: F401
+                            halo2d, mesh)
     from ..inference.pipeline import resolve_device
 
     ctx["dev"] = dev = resolve_device(ctx["device"])

@@ -77,6 +77,12 @@ def apply_confidence_calibration(conf: np.ndarray, scale: float,
     return (1.0 / (1.0 + np.exp(-(scale * z + bias)))).astype(conf.dtype)
 
 
+def apply_confidence_temperature(conf: np.ndarray, t: float):
+    """The legacy single-temperature form: conf' = sigmoid(logit(conf) /
+    t), the Platt map at (1 / t, 0)."""
+    return apply_confidence_calibration(conf, 1.0 / t, 0.0)
+
+
 def _pack_channels(out: Dict, corr: Optional[torch.Tensor]) -> torch.Tensor:
     """(classification, confidence, correction) packed into one f16
     tensor [3, B, H, W]: one device->host copy per batch. The outputs are

@@ -221,22 +221,18 @@ class GATConvELL(_EllGATParams):
     route (then concat or head mean, bias and the node mask): kernel C
     (``ell_gat_fused``) when serving, kernels C and C'
     (``ell_gat_fused_train``) when a gradient is wanted, on the card; their
-    plain version on the CPU. It has no attention dropout: no path trains
-    it (the graph trainer trains the ``"xla"`` route through the COO model,
-    ``models/gnn``, as JAX's does), so training mode with ``dropout`` > 0
-    raises."""
+    plain version on the CPU. In training mode with ``dropout`` > 0 the
+    attention weights and the self weight are dropped after the softmax,
+    as the JAX layer's Bernoulli masks do: on the card by kernel C's
+    dropout form (one Philox seed a call, regenerated by C'), on the CPU
+    by a streamed mask."""
 
     def forward(self, g, x: torch.Tensor,
                 dropout_rng: Optional[torch.Generator] = None,
                 banded=None) -> torch.Tensor:
-        """As ``GATConvEllBanded.forward``; ``dropout_rng`` and ``banded``
-        are unused (no attention dropout, no band layout here)."""
-        if self.training and self.dropout > 0:
-            raise NotImplementedError(
-                "attention dropout on the plain ELL layer is not ported; "
-                "train the COO model (models/gnn, the trainer's 'xla' "
-                "route) or sparse_kernel='banded_pallas'")
-        return self._forward_c(g, x)
+        """As ``GATConvEllBanded.forward`` on route C; ``banded`` is
+        unused (no band layout here)."""
+        return self._forward_c(g, x, dropout_rng)
 
 
 class GATConvEllBanded(_EllGATParams):

@@ -73,6 +73,9 @@ class GNNBackbone(nn.Module):
         super().__init__()
         self.num_layers = num_layers
         self.dropout = dropout
+        # the process group of the sync-BN moments (the JAX model's
+        # bn_axis_name); the sharded train steps set it for their call
+        self.bn_group = None
         self.conv_name = CONV_NAMES.get(gnn_type, gnn_type)
         width = in_channels
         for i in range(num_layers):
@@ -97,7 +100,7 @@ class GNNBackbone(nn.Module):
                 keep = keep_mask(x.shape, keep_prob, dropout_rng, x.device)
             x = getattr(self, f"MaskedBatchNorm_{i}")(
                 x, node_mask, fuse_relu=not last, keep=keep,
-                keep_prob=keep_prob)
+                keep_prob=keep_prob, group=self.bn_group)
         return x
 
 

@@ -7,7 +7,7 @@ heads), so a graph-trained (COO-layout) checkpoint applies unchanged;
 ``utils/weights.coo_state_dict`` renames a port checkpoint's grid-named
 state_dict to these keys. ``sparse_kernel`` picks the GAT layer, as the
 JAX model does: ``"xla"`` ``GATConvELL`` (kernel C serving, C and C' with
-a gradient; no attention dropout);
+a gradient, C's dropout form in training mode);
 ``"banded_pallas"`` ``GATConvEllBanded(use_pallas=True)``, whose attention
 runs in kernel C and, when training, kernel C' (or, with ``wide_kernel``
 switched off on its layers, kernels D and D'); ``"banded"``
@@ -72,6 +72,9 @@ class EllGNNBackbone(nn.Module):
                 compute_dtype=compute_dtype)}
         self.num_layers = num_layers
         self.dropout = dropout
+        # the process group of the sync-BN moments (the JAX model's
+        # bn_axis_name); the sharded train steps set it for their call
+        self.bn_group = None
         self.conv_name = CONV_NAMES.get(gnn_type, gnn_type)
         width = in_channels
         for i in range(num_layers):
@@ -98,7 +101,7 @@ class EllGNNBackbone(nn.Module):
                 keep = keep_mask(x.shape, keep_prob, dropout_rng, x.device)
             x = getattr(self, f"MaskedBatchNorm_{i}")(
                 x, node_mask, fuse_relu=not last, keep=keep,
-                keep_prob=keep_prob)
+                keep_prob=keep_prob, group=self.bn_group)
         return x
 
 

@@ -81,9 +81,12 @@ class GridGATConv(nn.Module):
     (self loop with the per-destination mean of incoming edge attrs).
     Parameter names and shapes are those of the JAX ``GridGATConv``.
 
-    Heads are concatenated; ``concat=False`` (the head mean) is taken only
-    with one head, where the two agree, as in the model's last layer.
-    ``dropout`` is the attention dropout of training mode."""
+    Heads are concatenated, or with ``concat=False`` averaged: then the
+    kernel emits each head's values with a zero bias, and the head mean,
+    the bias ([out_channels]), the validity mask and any folded BatchNorm
+    follow, as the JAX layer's Pallas path does (with one head the two
+    agree and the kernel takes the real bias and epilogue). ``dropout``
+    is the attention dropout of training mode."""
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 4,
                  concat: bool = True, negative_slope: float = 0.2,
@@ -92,10 +95,8 @@ class GridGATConv(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dropout: float = 0.0):
         super().__init__()
-        if not concat and heads > 1:
-            raise ValueError("the head mean of several heads (concat=False, "
-                             f"heads={heads}) is not ported")
         self.heads, self.out_channels = heads, out_channels
+        self.concat = concat
         self.negative_slope = negative_slope
         self.dropout = dropout
         self.edge_dim = edge_dim
@@ -108,7 +109,7 @@ class GridGATConv(nn.Module):
         if edge_dim is not None:
             self.lin_edge = _glorot(generator, edge_dim, hc)
             self.att_edge = _glorot(generator, 1, heads, out_channels)
-        self.bias = nn.Parameter(torch.zeros(hc))
+        self.bias = nn.Parameter(torch.zeros(hc if concat else out_channels))
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor,
                 nbr_mask: torch.Tensor, edge_attr: torch.Tensor,
@@ -127,16 +128,42 @@ class GridGATConv(nn.Module):
         (kernels A and B draw the mask from it), on the CPU the streamed
         mask itself."""
         params = {n: p for n, p in self.named_parameters(recurse=False)}
+        direct = self.concat or self.heads == 1
+        if not direct:
+            params.pop("bias")   # the kernel's bias is 0: see the class
         w_lin, a_src, a_dst, m_edge, bias = grid_gat_fused.gat_param_matrices(
             params, self.heads, self.out_channels, self.edge_dim)
         args = (x, w_lin, a_src, a_dst, m_edge, edge_attr,
                 nbr_mask.to(torch.float32), valid.to(torch.float32), bias,
                 self.connectivity, self.negative_slope,
                 self.edge_dim is not None)
+        if not direct:
+            out = self._per_head(args, bn_scale is not None, dropout_rng)
+            b, h, w = out.shape[:3]
+            out = out.reshape(b, h, w, self.heads, self.out_channels
+                              ).mean(-2) + self.bias
+            v = valid.to(torch.bool)[..., None]
+            out = torch.where(v, out, torch.zeros_like(out))
+            if bn_scale is None:
+                return out
+            out = out * bn_scale + bn_bias
+            if fuse_relu:
+                out = torch.relu(out)
+            return torch.where(v, out, torch.zeros_like(out))
         if bn_scale is not None:
             return grid_gat_fused.fused_grid_gat_infer(
                 *args, bn_scale=bn_scale, bn_bias=bn_bias,
                 fuse_relu=fuse_relu, compute_dtype=self.compute_dtype)
+        return self._per_head(args, False, dropout_rng)
+
+    def _per_head(self, args, infer: bool, dropout_rng):
+        """Kernel A's output for ``args``: its inference form (``infer``,
+        no gradient), else its training form with attention dropout in
+        training mode."""
+        x, nbr_mask = args[0], args[6]
+        if infer:
+            return grid_gat_fused.fused_grid_gat_infer(
+                *args, compute_dtype=self.compute_dtype)
         dmask = seed = None
         keep_prob = 1.0 - self.dropout
         if self.training and self.dropout > 0:

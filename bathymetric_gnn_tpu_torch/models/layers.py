@@ -132,7 +132,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 fuse_relu: bool = False, keep: Optional[torch.Tensor] = None,
-                keep_prob: float = 1.0) -> torch.Tensor:
+                keep_prob: float = 1.0, group=None) -> torch.Tensor:
         """x [N, F], mask [N] bool. Training mode normalizes with the
         masked batch moments and updates the running stats; eval mode
         uses the running stats. ``fuse_relu`` and the feature-dropout keep
@@ -141,9 +141,19 @@ class MaskedBatchNorm(nn.Module):
         in training mode through ``_BnLowp``, in eval mode through the JAX
         module's affine-folded pass (x32 * g2 + b2, g2 = rsqrt(var + eps) *
         scale, b2 = bias - mean * g2, computed in f32). An f32 ``x``
-        computes and returns f32."""
+        computes and returns f32.
+
+        ``group`` (a process group, or a tuple of them: the JAX module's
+        ``axis_name``) makes the training moments global over its ranks
+        (sync-BN): n and sum(x) are all-reduced, then the sum of squared
+        deviations from the global mean, each through the differentiable
+        ``parallel.collectives.all_reduce_sum``. A sharded bf16 ``x`` then
+        computes in f32 by autograd and returns f32, as the JAX module
+        skips ``_bn_lowp`` on its sharded path."""
         if keep_prob < 1.0 and keep is None:
             raise ValueError("keep_prob < 1 needs a keep mask")
+        if group is not None and self.training:
+            x = x.to(torch.float32)
         if x.dtype != torch.float32:
             if self.training:
                 mask_f = mask.to(torch.float32)
@@ -161,10 +171,7 @@ class MaskedBatchNorm(nn.Module):
             return torch.where(mask[:, None], y, torch.zeros_like(y)
                                ).to(x.dtype)
         if self.training:
-            m = mask.to(torch.float32)[:, None]
-            n = m.sum().clamp_min(1.0)
-            mean = (x * m).sum(0) / n
-            var = (((x - mean) ** 2) * m).sum(0) / n
+            mean, var, n = _moments(x, mask, group)
             self._update_running(mean, var, n)
         else:
             mean, var = self.mean, self.var
@@ -174,6 +181,23 @@ class MaskedBatchNorm(nn.Module):
         if keep_prob < 1.0:
             y = torch.where(keep, y / keep_prob, torch.zeros_like(y))
         return torch.where(mask[:, None], y, torch.zeros_like(y))
+
+
+def _moments(x: torch.Tensor, mask: torch.Tensor, group):
+    """(mean, biased variance, live count) of x [N, F] over the live rows;
+    with ``group`` summed over its ranks (the JAX module's psum of n, s1,
+    then s2 about the global mean) through the differentiable
+    ``parallel.collectives.all_reduce_sum``."""
+    m = mask.to(torch.float32)[:, None]
+    if group is None:
+        n = m.sum().clamp_min(1.0)
+        mean = (x * m).sum(0) / n
+        return mean, (((x - mean) ** 2) * m).sum(0) / n, n
+    from ..parallel.collectives import all_reduce_sum
+
+    n = all_reduce_sum(m.sum(), group).clamp_min(1.0)
+    mean = all_reduce_sum((x * m).sum(0), group) / n
+    return mean, all_reduce_sum((((x - mean) ** 2) * m).sum(0), group) / n, n
 
 
 # Rows of every matrix product a TorchLinear makes on the card: cuBLAS

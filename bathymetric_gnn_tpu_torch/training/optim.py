@@ -74,3 +74,26 @@ class AdamW:
         for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
             dst.copy_(src)
         self.count = int(state["count"])
+
+
+class SGD:
+    """``optax.sgd`` (no momentum) over a list of parameters: p += -lr * g,
+    with the learning rate passed to each step. With a clip norm no
+    gradient reaches, a parameter's change is -lr times its gradient,
+    which the sharded steps' parity tests read as the gradient."""
+
+    def __init__(self, params: Sequence[torch.Tensor]):
+        self.params: List[torch.Tensor] = list(params)
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor], lr: float) -> None:
+        self.count += 1
+        for p, g in zip(self.params, grads):
+            p.add_((g.to(torch.float32) * -lr).to(p.dtype))
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])

@@ -105,6 +105,73 @@ class TrainState:
     step: int = 0
 
 
+def model_forward(model, g, dropout_rng=None, banded=None):
+    """The graph model on one merged graph: the ELL model takes ``banded``
+    on the routes that read it, the COO model has no such input."""
+    if banded is None:
+        return model(g, dropout_rng)
+    return model(g, dropout_rng, banded=banded)
+
+
+def make_loss_fn(training_cfg, class_weights, huber_delta, train: bool,
+                 terms_group=None):
+    """The loss closure of the graph trainer and of the sharded steps
+    (``parallel/data_parallel``), as the JAX ``make_loss_fn``:
+    ``loss_fn(model, g, targets, dropout_rng, banded=None)`` runs the
+    model (in training mode when ``train``; the ELL model takes
+    ``banded`` on the routes that read it) and returns (losses, accuracy
+    over live nodes).
+
+    ``terms_group`` (the JAX ``terms_axis``) all-reduces every loss
+    term's numerator and denominator and the accuracy's before the
+    divide, so that the objective is the joint masked mean over every
+    rank's batch; without it the closure runs no collective."""
+    from . import losses as L
+
+    tc = training_cfg
+
+    def loss_fn(model, g, targets, dropout_rng=None, banded=None):
+        model.train(train)
+        out = model_forward(model, g, dropout_rng if train else None, banded)
+        node_mask = g.node_mask.to(torch.bool)
+        terms = L.combined_loss_terms(
+            out, targets, node_mask, class_weights=class_weights,
+            label_smoothing=tc.label_smoothing,
+            correction_delta=huber_delta)
+        m = node_mask.to(torch.float32)
+        acc_num = torch.sum((out["predicted_class"] == targets["labels"])
+                            * m)
+        acc_den = m.sum()
+        if terms_group is not None:
+            terms, acc_num, acc_den = all_reduce_terms(terms, acc_num,
+                                                       acc_den, terms_group)
+        losses = L.finalize_loss_terms(
+            terms, classification_weight=tc.classification_weight,
+            correction_weight=tc.correction_weight,
+            confidence_weight=tc.confidence_weight,
+            feature_preservation_weight=tc.feature_preservation_weight,
+            shoal_safety_weight=tc.shoal_safety_weight)
+        return losses, acc_num / acc_den.clamp_min(1.0)
+
+    return loss_fn
+
+
+def all_reduce_terms(terms, acc_num, acc_den, groups):
+    """psum of the loss terms' (numerator, denominator) pairs and of the
+    accuracy's over ``groups``, in one differentiable all-reduce of the
+    stacked values (each [...] of per-tile values or a scalar)."""
+    from ..parallel.collectives import all_reduce_sum
+
+    keys = list(terms)
+    flat = torch.stack([t.to(torch.float32) for k in keys for t in terms[k]]
+                       + [acc_num.to(torch.float32),
+                          acc_den.to(torch.float32)], -1)
+    flat = all_reduce_sum(flat, groups)
+    out = {k: (flat[..., 2 * i], flat[..., 2 * i + 1])
+           for i, k in enumerate(keys)}
+    return out, flat[..., -2], flat[..., -1]
+
+
 def _to_device_targets(targets: Dict[str, np.ndarray], device
                        ) -> Dict[str, torch.Tensor]:
     """Stacked [B, N_pad] targets -> flat [B * N_pad] tensors on
@@ -314,34 +381,9 @@ class Trainer:
         merged graph on the device, ``banded`` its BandedEll on the device
         on the ``"banded"`` route); returns (losses, accuracy over live
         nodes)."""
-        from . import losses as L
-
-        tc = self.config.training
-        model.train(train)
-        out = self._forward(model, g, self.dropout_rng if train else None,
-                            banded)
-        node_mask = g.node_mask.to(torch.bool)
-        terms = L.combined_loss_terms(
-            out, targets, node_mask, class_weights=self.class_weights,
-            label_smoothing=tc.label_smoothing,
-            correction_delta=self.huber_delta)
-        losses = L.finalize_loss_terms(
-            terms, classification_weight=tc.classification_weight,
-            correction_weight=tc.correction_weight,
-            confidence_weight=tc.confidence_weight,
-            feature_preservation_weight=tc.feature_preservation_weight,
-            shoal_safety_weight=tc.shoal_safety_weight)
-        m = node_mask.to(torch.float32)
-        acc = torch.sum((out["predicted_class"] == targets["labels"]) * m
-                        ) / m.sum().clamp_min(1.0)
-        return losses, acc
-
-    def _forward(self, model, g, dropout_rng=None, banded=None):
-        """The model on one merged graph (the ELL model takes ``banded``,
-        the COO model has no such input)."""
-        if self.use_banded_training:
-            return model(g, dropout_rng, banded=banded)
-        return model(g, dropout_rng)
+        return make_loss_fn(self.config.training, self.class_weights,
+                            self.huber_delta, train)(
+            model, g, targets, self.dropout_rng if train else None, banded)
 
     def train_step(self, state: TrainState, g, targets, lr: float,
                    banded=None):
@@ -525,7 +567,7 @@ class Trainer:
         confs, ys, sws, noise_sel = [], [], [], []
         for g, targets, *_, banded in self._host_batches(ds, shuffle=False):
             with torch.no_grad():
-                out = self._forward(model, g.to(self.device),
+                out = model_forward(model, g.to(self.device),
                                     banded=self._device_banded(banded))
             m = np.asarray(g.node_mask).astype(bool).reshape(-1)
             c = out["confidence"].cpu().numpy().astype(np.float64)

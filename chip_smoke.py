@@ -196,7 +196,29 @@ Run from the root of a checkout. Phases, each printing its own lines:
    through ``cli.import_torch`` (every tensor as mapped), served on phase
    3's survey (A, 8 launches) and by ``NativeVRProcessor(use_ell=False)``
    on 100 refinements (F, twice bit for bit); ``cli.diagnose_tiles`` and
-   ``cli.analyze_noise_patterns`` JSON.
+   ``cli.analyze_noise_patterns`` JSON;
+3l. (run after 3k) the sharded paths (``parallel/``) in a world of 1
+   over NCCL, in this process: the COO data-parallel step on 3j's 4-tile
+   batch and the k-NN one (route C) on 3d's merged batch against
+   ``Trainer.train_step`` (SGD at learning rate 1, dropout 0: losses and
+   each leaf's change, launches of F, of C / C' / F (b), no plain version),
+   the COO step once more at dropout 0.1; the 1-D (overlapped and serial)
+   and 2-D sharded forwards on a 2048^2 survey with holes against
+   ``GridBathymetricGNN`` on the whole grid (classes >= 99.99 %,
+   confidence and correction within 1e-3; A launched 1 + 3 x 3 or 4
+   times, no plain version); the 1-D and 2-D halo train steps on 3b's 4
+   tiles against ``GridTrainer.train_step`` on each tile alone, the
+   tiles' updates averaged (A and B launches); CUDA-event times of each
+   beside its single-card counterpart, and of one BatchNorm all-reduce;
+3m. (run after 3l) 2 spawned processes on the one card joined over gloo
+   (NCCL refuses two ranks on one device), each rank's compute on the
+   card through kernels A, B and F: the 1-D forwards (2 row shards, a
+   hole across their seam), the 2-D forwards on 1 x 2 and 2 x 1 meshes,
+   the 1-D halo train step and the COO data-parallel step (2 tiles a
+   rank) against 3l's world-1 results; each rank's times, its exchange
+   of one layer's boundary rows and a BatchNorm all-reduce (through the
+   host on gloo); each rank's failures printed, the phase failing on
+   any.
 
 Then one JSON line describing every kernel, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check or phase exits
@@ -5526,6 +5548,681 @@ def phase_coo_timings(torch, np, coo, coo_train, kstep, flush_widths):
                       route_c_step_ms=kstep["ms"])
 
 
+# -- phases 3l and 3m: the sharded paths ---------------------------------------
+
+SHARD_SURVEY = 2048     # the sharded forward's survey: 2048^2 cells, holes
+# SGD at learning rate 1: a leaf's change is minus its gradient (at 1e-3
+# a parameter near 1 rounds its update to ~2e-4 of it)
+SHARD_LR = 1.0
+SHARD_WORLD = 2         # phase 3m's processes (gloo) on the one card
+# phase 3l (world 1, NCCL): the data-parallel steps run the trainers'
+# operations (the all-reduces are identities): losses within 1e-6
+# relative, each leaf's change within 1e-6 of the largest change of any
+# leaf. The halo steps run one rank's layers on the L + 2 rows of a halo
+# block and on 3-row strips: 1e-5 of the largest change. Phase 3m (2
+# ranks) also sums the BatchNorm moments, loss terms and gradients over
+# ranks in another order; the first layers' weight gradients sum
+# depth-scaled features (~30 m) over cells, which moves them by up to
+# 1.5e-5 of the largest change in f32 on the CPU's plain versions and
+# 4.2e-5 on the H100: its halo step 1e-4, the atol of JAX's own
+# sharded-step tests (tests/test_halo.py:237-239). The COO step over 2
+# ranks: 1e-3. Its f32 gradients miss the f64 step by up to 1.05e-2 of a
+# leaf's largest entry (phase 3j), and the 2-rank step read 1.12e-4 on
+# the H100, so two f32 steps that sum in other orders can differ by more
+# than 1e-4 of the largest change.
+SHARD_STEP_TOL = {"trainer": 1e-6, "halo": 1e-5, "halo_ranks": 1e-4,
+                  "coo_ranks": 1e-3}
+# the forward against the single-card model: classes on >= 99.99 % of the
+# valid cells, confidence and correction within 1e-3
+SHARD_CLASS_AGREE = 0.9999
+SHARD_OUT_TOL = 1e-3
+
+
+def shard_survey(np):
+    """A SHARD_SURVEY^2 synthetic survey (``synthetic_survey``'s holes and
+    spikes) with a hole across the middle row (where 2 row shards meet)
+    and one across the middle column: (depth with 0 in holes, valid)."""
+    depth, _ = synthetic_survey(np, SHARD_SURVEY, SHARD_SURVEY, SEED + 160)
+    mid = SHARD_SURVEY // 2
+    depth[mid - 30:mid + 30, 300:700] = np.nan
+    depth[600:700, mid - 25:mid + 25] = np.nan
+    valid = np.isfinite(depth)
+    return np.nan_to_num(depth).astype(np.float32), valid
+
+
+def np_state(model):
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def step_err(np, got, want, init, worst=False):
+    """The largest difference of a leaf after two steps from one state:
+    of a parameter, against the largest change of any parameter in
+    ``want``'s step; of a BatchNorm statistic, against its largest |value|
+    (with ``worst``: (difference, that leaf's name))."""
+    stat = [k for k in want if k.endswith((".mean", ".var"))]
+    scale = max(float(np.abs(want[k] - init[k]).max())
+                for k in want if k not in stat)
+    errs = []
+    for k, w in want.items():
+        s = max(float(np.abs(w).max()), 1e-12) if k in stat else scale
+        errs.append((float(np.abs(got[k] - w).max()) / s, k))
+    return max(errs) if worst else max(errs)[0]
+
+
+def loss_err(want, got):
+    return max(abs(float(got[k]) - float(want[k]))
+               / max(abs(float(want[k])), 1e-12) for k in want)
+
+
+def out_agreement(np, got, want, valid):
+    """(class agreement on valid cells, max |confidence diff|, max
+    |correction diff|) of two sharded or single-card outputs (NumPy)."""
+    return (float((got["predicted_class"][valid]
+                   == want["predicted_class"][valid]).mean()),
+            float(np.abs(got["confidence"][valid]
+                         - want["confidence"][valid]).max()),
+            float(np.abs(got["correction"][valid]
+                         - want["correction"][valid]).max()))
+
+
+def check_outputs(np, tag, got, want, valid):
+    agree, dc, dr = out_agreement(np, got, want, valid)
+    log(f"{tag}: classes equal on {agree:.6f} of the valid cells, "
+        f"|confidence| diff {dc:.3e}, |correction| diff {dr:.3e}")
+    check(agree >= SHARD_CLASS_AGREE and dc <= SHARD_OUT_TOL
+          and dr <= SHARD_OUT_TOL, f"{tag}: outputs differ")
+
+
+def outputs_np(out):
+    """The per-cell outputs a forward is checked on, as NumPy arrays."""
+    return {"predicted_class": out["predicted_class"].cpu().numpy().astype(
+                "uint8"),
+            "confidence": out["confidence"].detach().cpu().numpy(),
+            "correction": out["correction"].detach().cpu().numpy()}
+
+
+def grid_per_tile_reference(torch, np, trainer, model, sd0, batch, lr):
+    """The halo steps' objective on the single card: ``GridTrainer.
+    train_step`` on each tile alone (SGD, from the same weights), the
+    tiles' states and losses averaged (the mean of the tiles' updates is
+    the update of the mean of their losses; the halo step applies each
+    tile's BatchNorm, as the JAX step vmaps them). Returns (state, losses,
+    accuracy, A / B launches a tile)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.training.optim import SGD
+    from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+
+    states, losses, accs = [], [], []
+    n = batch["noisy"].shape[0]
+    gf.train_launches = gf.bwd_launches = 0
+    for t in range(n):
+        model.load_state_dict(sd0)
+        st = TrainState(model, SGD(model.parameters()))
+        tile = {k: v[t:t + 1] for k, v in batch.items()}
+        lo, acc = trainer.train_step(st, tile, lr)
+        states.append(np_state(model))
+        losses.append({k: float(v) for k, v in lo.items()})
+        accs.append(float(acc))
+    torch.cuda.synchronize()
+    launches = (gf.train_launches // n, gf.bwd_launches // n)
+    mean = {k: np.mean([s[k] for s in states], 0).astype(states[0][k].dtype)
+            for k in states[0]}
+    return (mean, {k: float(np.mean([lo[k] for lo in losses]))
+                   for k in losses[0]}, float(np.mean(accs)), launches)
+
+
+def phase_sharded_world1(torch, np, work, tr_data, csamples, ksamples,
+                         model):
+    """Phase 3l: the sharded paths at world 1 over NCCL (module docstring),
+    with CUDA-event times beside their single-card counterparts."""
+    import torch.distributed as dist
+
+    from bathymetric_gnn_tpu_torch.parallel import collectives as C
+    from bathymetric_gnn_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh)
+
+    store = work / "store_3l"
+    if store.exists():       # left by a run killed before its teardown
+        store.unlink()
+    info = initialize_distributed(f"file://{store}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl" and info["processes"] == 1,
+              f"[3l] not an NCCL world of 1: {dist.get_backend()} {info}")
+        mesh = make_mesh(graph_axis=1)
+        mesh3 = make_mesh(shape=(1, 1, 1), axis_names=("data", "row", "col"))
+        log(f"[3l] world 1 over {dist.get_backend()}: {info}; meshes "
+            f"{mesh.mesh_dim_names} {tuple(mesh.shape)} and "
+            f"{mesh3.mesh_dim_names} {tuple(mesh3.shape)}")
+        res = {"coo": sharded_coo_step(torch, np, work, csamples, mesh),
+               "sparse": sharded_knn_step(torch, np, work, ksamples, mesh),
+               "grid": sharded_grid(torch, np, work, tr_data, model, mesh,
+                                    mesh3)}
+        ones = torch.ones(256, device="cuda")
+        res["all_reduce_ms"] = cuda_ms(
+            torch, lambda: C.all_reduce_sum(ones, mesh.get_group("graph")),
+            20)
+        log(f"[3l] all_reduce_sum of a BatchNorm moment (256 f32) over "
+            f"NCCL, world 1: {res['all_reduce_ms']:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def sharded_coo_step(torch, np, work, csamples, mesh):
+    """The COO data-parallel step against ``Trainer.train_step`` (SGD,
+    dropout 0, the 3j batch), then once at dropout 0.1."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.parallel import data_parallel as DP
+    from bathymetric_gnn_tpu_torch.training.datasets import collate_samples
+    from bathymetric_gnn_tpu_torch.training.optim import SGD
+    from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+
+    trainer, state, g, targets = coo_step_setup(torch, np, work, csamples,
+                                                0.0)
+    m = state.model
+    sd0 = {k: v.clone() for k, v in m.state_dict().items()}
+    init = np_state(m)
+    graph_np, targets_np = collate_samples(csamples.samples)
+    ref = TrainState(m, SGD(m.parameters()))
+    sr.launches = 0
+    lt, at = trainer.train_step(ref, g, targets, SHARD_LR)
+    torch.cuda.synchronize()
+    f_ref = sr.launches
+    want = np_state(m)
+    m.load_state_dict(sd0)
+    st = TrainState(m, SGD(m.parameters()))
+    tc = trainer.config.training
+    step = DP.make_dp_train_step(m, st.optimizer, tc, trainer.class_weights,
+                                 trainer.huber_delta, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    plain = []
+    with mock.patch.object(sr, "segment_reduce_reference",
+                           counted_calls(sr.segment_reduce_reference,
+                                         plain)):
+        sr.launches = 0
+        _, ld, ad = step(st, graph_np, targets_np, gen, SHARD_LR)
+        torch.cuda.synchronize()
+    f_dp = sr.launches
+    err, lerr = step_err(np, np_state(m), want, init), loss_err(lt, ld)
+    log(f"[3l] COO data-parallel step (world 1, {TRAIN_BATCH} tiles, "
+        f"dropout 0, SGD lr {SHARD_LR}) vs Trainer.train_step: losses rel "
+        f"{lerr:.3e}, accuracy {float(ad):.6f} vs {float(at):.6f}, updated "
+        f"leaves {err:.3e} of the largest change; F launches {f_dp} "
+        f"(Trainer step {f_ref}), plain calls {len(plain)}")
+    check(f_dp == f_ref and f_dp > 0 and not plain,
+          "[3l] COO DP step: F launches / plain calls")
+    check(lerr <= SHARD_STEP_TOL["trainer"] and abs(float(ad) - float(at))
+          <= 1e-6 and err <= SHARD_STEP_TOL["trainer"],
+          "[3l] COO DP step differs from the trainer's")
+    after = np_state(m)
+    # dropout 0.1: the step runs, finite, and moves every parameter leaf
+    tr_d, st_d, _, _ = coo_step_setup(torch, np, work, csamples, 0.1)
+    st_d.model.load_state_dict(sd0)
+    st_d = TrainState(st_d.model, SGD(st_d.model.parameters()))
+    step_d = DP.make_dp_train_step(st_d.model, st_d.optimizer, tc,
+                                   tr_d.class_weights, tr_d.huber_delta,
+                                   mesh)
+    _, l_d, _ = step_d(st_d, graph_np, targets_np, gen, SHARD_LR)
+    moved = [k for k, v in np_state(st_d.model).items()
+             if not k.endswith((".mean", ".var")) and not np.array_equal(
+                 v, init[k])]
+    n_leaves = sum(1 for _ in st_d.model.parameters())
+    log(f"[3l] COO data-parallel step at dropout 0.1: total loss "
+        f"{float(l_d['total']):.6f}, {len(moved)}/{n_leaves} parameter "
+        f"leaves moved")
+    check(np.isfinite(float(l_d["total"])) and len(moved) == n_leaves,
+          "[3l] COO DP step at dropout 0.1")
+    ms = cuda_ms(torch, lambda: step(st, graph_np, targets_np, gen,
+                                     SHARD_LR), 3)
+    ms_ref = cuda_ms(torch, lambda: trainer.train_step(ref, g, targets,
+                                                       SHARD_LR), 3)
+    log(f"[3l] COO step: data-parallel {ms:.3f} ms (its CooGraph built "
+        f"from the stacked batch on the host each call), Trainer.train_step "
+        f"{ms_ref:.3f} ms (graph prebuilt)")
+    return dict(launches=f_dp, trainer_launches=f_ref, loss_err=lerr,
+                leaf_err=err, ms=ms, trainer_ms=ms_ref, state=after,
+                init=init, losses={k: float(v) for k, v in ld.items()},
+                acc=float(ad), sd0=sd0, graph=graph_np, targets=targets_np,
+                cw=trainer.class_weights.cpu(), hd=trainer.huber_delta,
+                tc=tc)
+
+
+def sharded_knn_step(torch, np, work, ksamples, mesh):
+    """The k-NN data-parallel step (route C) against the Trainer's step on
+    3d's merged batch (N = 262,144), SGD, dropout 0."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+    from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.parallel import data_parallel as DP
+    from bathymetric_gnn_tpu_torch.training.datasets import collate_samples
+    from bathymetric_gnn_tpu_torch.training.optim import SGD
+    from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+
+    trainer, state, g, targets = knn_step_setup(torch, np, work, ksamples,
+                                                0.0)
+    m = state.model
+    sd0 = {k: v.clone() for k, v in m.state_dict().items()}
+    init = np_state(m)
+    targets_np = collate_samples(ksamples.samples)[1]
+
+    def counts():
+        return (ef.train_launches, ef.bwd_launches, sr.launches)
+
+    ref = TrainState(m, SGD(m.parameters()))
+    ef.train_launches = ef.bwd_launches = sr.launches = 0
+    lt, at = trainer.train_step(ref, g, targets, SHARD_LR)
+    torch.cuda.synchronize()
+    c_ref = counts()
+    want = np_state(m)
+    m.load_state_dict(sd0)
+    st = TrainState(m, SGD(m.parameters()))
+    step = DP.make_dp_sparse_train_step(
+        m, st.optimizer, trainer.config.training, trainer.class_weights,
+        trainer.huber_delta, mesh)
+    gl, banded = DP.stack_banded_batches([(g, None)], mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    plain = []
+    with mock.patch.object(ef, "ell_gat_reference", counted_calls(
+            ef.ell_gat_reference, plain)):
+        ef.train_launches = ef.bwd_launches = sr.launches = 0
+        _, ld, ad = step(st, gl, banded, targets_np, gen, SHARD_LR)
+        torch.cuda.synchronize()
+    c_dp = counts()
+    err, lerr = step_err(np, np_state(m), want, init), loss_err(lt, ld)
+    log(f"[3l] k-NN data-parallel step (route C, N 262,144, world 1) vs the "
+        f"Trainer's step: losses rel {lerr:.3e}, updated leaves {err:.3e} "
+        f"of the largest change; launches C (training form) / C' / F "
+        f"{c_dp} (Trainer step {c_ref}), plain calls {len(plain)}")
+    check(c_dp == c_ref and min(c_dp) > 0 and not plain,
+          "[3l] k-NN DP step: launches / plain calls")
+    check(lerr <= SHARD_STEP_TOL["trainer"]
+          and err <= SHARD_STEP_TOL["trainer"],
+          "[3l] k-NN DP step differs from the trainer's")
+    ms = cuda_ms(torch, lambda: step(st, gl, banded, targets_np, gen,
+                                     SHARD_LR), 3)
+    ms_ref = cuda_ms(torch, lambda: trainer.train_step(ref, g, targets,
+                                                       SHARD_LR), 3)
+    log(f"[3l] k-NN step: data-parallel {ms:.3f} ms, Trainer.train_step "
+        f"{ms_ref:.3f} ms")
+    return dict(launches=c_dp, loss_err=lerr, leaf_err=err, ms=ms,
+                trainer_ms=ms_ref)
+
+
+def sharded_grid(torch, np, work, tr_data, model, mesh, mesh3):
+    """The 1-D and 2-D halo forwards on the SHARD_SURVEY^2 survey against
+    the single-card model, and their train steps on 3b's tiles against the
+    grid trainer's per-tile steps (world 1)."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import build_grid_inputs
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.parallel import halo, halo2d
+    from bathymetric_gnn_tpu_torch.training.optim import SGD
+    from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+
+    depth, valid = shard_survey(np)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    d = torch.from_numpy(depth)[None].cuda()
+    v = torch.from_numpy(valid)[None].cuda()
+
+    def single():
+        with torch.no_grad():
+            return model(*build_grid_inputs(d, v)[:4])
+
+    gf.launches = 0
+    want = outputs_np({k: t[0] for k, t in single().items()})
+    torch.cuda.synchronize()
+    check(gf.launches == MODEL_LAYERS, f"[3l] single-card forward: "
+          f"{gf.launches} launches of A")
+    res = {"forward": {}}
+    single_ms = cuda_ms(torch, single, 3)
+    for name, cls, m_, kw in (
+            ("1-D overlap", halo.HaloGridGNN, mesh, dict(overlap=True)),
+            ("1-D serial", halo.HaloGridGNN, mesh, dict(overlap=False)),
+            ("2-D", halo2d.HaloGrid2DGNN, mesh3, {})):
+        hm = cls(7, 64, MODEL_LAYERS, 4, **kw).cuda()
+        hm.load_state_dict(sd)
+        fwd = (halo2d.make_sharded_grid2d_forward if cls is
+               halo2d.HaloGrid2DGNN else halo.make_sharded_grid_forward)(
+            hm, m_)
+        plain = []
+        with mock.patch.object(gf, "grid_gat_reference", counted_calls(
+                gf.grid_gat_reference, plain)):
+            gf.launches = 0
+            got = outputs_np(fwd(depth, valid))
+            torch.cuda.synchronize()
+        want_launches = (1 + 3 * (MODEL_LAYERS - 1) if kw.get("overlap")
+                         else MODEL_LAYERS)
+        check_outputs(np, f"[3l] {name} sharded forward (world 1) vs the "
+                      f"single-card model, {SHARD_SURVEY}^2", got, want,
+                      valid)
+        check(gf.launches == want_launches and not plain,
+              f"[3l] {name}: {gf.launches} launches of A (want "
+              f"{want_launches}), plain calls {len(plain)}")
+        ms = cuda_ms(torch, lambda: fwd(depth, valid), 3)
+        log(f"[3l] {name} forward: {ms:.3f} ms, A launches "
+            f"{want_launches}; single-card GridBathymetricGNN "
+            f"{single_ms:.3f} ms")
+        res["forward"][name] = dict(launches=want_launches, ms=ms,
+                                    agreement=out_agreement(np, got, want,
+                                                            valid))
+        if name == "1-D overlap":
+            res["forward_out"] = got
+        del got
+    res["single_ms"] = single_ms
+    res["valid"] = valid
+    res["depth"] = depth
+    del d, v
+
+    trainer, gstate, batch = step_setup(torch, np, work, tr_data, "float32",
+                                        dropout=0.0)
+    trainer.config.training.grad_clip_norm = 1e9
+    gm = gstate.model
+    sd0 = {k: t.clone() for k, t in gm.state_dict().items()}
+    init = np_state(gm)
+    want_st, want_l, want_a, per_tile = grid_per_tile_reference(
+        torch, np, trainer, gm, sd0, batch, SHARD_LR)
+    tc = trainer.config.training
+    res["steps"] = {}
+    for name, cls, m_, make in (
+            ("1-D", halo.HaloGridGNN, mesh, halo.make_halo_train_step),
+            ("2-D", halo2d.HaloGrid2DGNN, mesh3,
+             halo2d.make_halo2d_train_step)):
+        hm = cls(7, 64, MODEL_LAYERS, 4, dropout=0.0).cuda()
+        hm.load_state_dict(sd0)
+        st = TrainState(hm, SGD(hm.parameters()))
+        step = make(hm, st.optimizer, tc, trainer.class_weights,
+                    trainer.huber_delta, m_, trainer.resolution)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        plain = []
+        with mock.patch.object(gf, "grid_gat_reference", counted_calls(
+                gf.grid_gat_reference, plain)):
+            gf.train_launches = gf.bwd_launches = 0
+            _, lo, acc = step(st, batch, gen, SHARD_LR)
+            torch.cuda.synchronize()
+        launches = (gf.train_launches, gf.bwd_launches)
+        err, lerr = step_err(np, np_state(hm), want_st, init), loss_err(
+            want_l, lo)
+        per = (1 + 3 * (MODEL_LAYERS - 1)) if name == "1-D" else MODEL_LAYERS
+        log(f"[3l] {name} halo train step (world 1, {TRAIN_BATCH} tiles of "
+            f"{TRAIN_TILE}^2, dropout 0, SGD) vs GridTrainer.train_step on "
+            f"each tile: losses rel {lerr:.3e}, accuracy {float(acc):.6f} "
+            f"vs {want_a:.6f}, updated leaves {err:.3e} of the largest "
+            f"change; A / B launches {launches} (GridTrainer {per_tile} a "
+            f"tile), plain calls {len(plain)}")
+        check(launches == (TRAIN_BATCH * per, TRAIN_BATCH * per)
+              and not plain,
+              f"[3l] {name} halo step launches {launches}, plain calls "
+              f"{len(plain)}")
+        check(lerr <= SHARD_STEP_TOL["halo"] and err <= SHARD_STEP_TOL["halo"]
+              and abs(float(acc) - want_a) <= 1e-6,
+              f"[3l] {name} halo step differs from the grid trainer's")
+        if name == "1-D":
+            res["halo_state"], res["halo_losses"] = np_state(hm), {
+                k: float(t) for k, t in lo.items()}
+        ms = cuda_ms(torch, lambda: step(st, batch, gen, SHARD_LR), 2)
+        res["steps"][name] = dict(launches=launches, loss_err=lerr,
+                                  leaf_err=err, ms=ms)
+    st_ref = TrainState(gm, SGD(gm.parameters()))
+    gm.load_state_dict(sd0)
+    ms_ref = cuda_ms(torch, lambda: trainer.train_step(st_ref, batch,
+                                                       SHARD_LR), 2)
+    log(f"[3l] halo train steps: 1-D {res['steps']['1-D']['ms']:.3f} ms, "
+        f"2-D {res['steps']['2-D']['ms']:.3f} ms, GridTrainer.train_step "
+        f"on the {TRAIN_BATCH} tiles {ms_ref:.3f} ms")
+    res.update(grid_trainer_ms=ms_ref, grid_sd0=sd0, grid_init=init,
+               batch=batch, grid_tc=tc, grid_cw=trainer.class_weights.cpu(),
+               grid_hd=trainer.huber_delta, grid_sd=sd)
+    return res
+
+
+def _sharded_worker(rank, world, init_method, inputs, out_dir):
+    """Phase 3m's rank: the sharded paths over a gloo group, their compute
+    on the card; writes its results, or its traceback, under out_dir."""
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    out = Path(out_dir)
+    try:
+        from bathymetric_gnn_tpu_torch.models.gnn import make_model
+        from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+        from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+        from bathymetric_gnn_tpu_torch.parallel import collectives as C
+        from bathymetric_gnn_tpu_torch.parallel import data_parallel as DP
+        from bathymetric_gnn_tpu_torch.parallel import halo, halo2d
+        from bathymetric_gnn_tpu_torch.parallel.mesh import (
+            host_local_batch_to_global, initialize_distributed, make_mesh,
+            shard_batch_pytree)
+        from bathymetric_gnn_tpu_torch.config.config import Config
+        from bathymetric_gnn_tpu_torch.training.optim import SGD
+        from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        initialize_distributed(init_method, world, rank, backend="gloo")
+        inp = torch.load(inputs, weights_only=False)
+        res, lines = {"fwd": {}}, []
+        # the plain versions of A / B and of F, counted for the rank's
+        # whole run: none may run on the card's path
+        plain = []
+        for mod, name in ((gf, "grid_gat_reference"),
+                          (sr, "segment_reduce_reference")):
+            setattr(mod, name, counted_calls(getattr(mod, name), plain))
+        depth, valid = inp["depth"], inp["valid"]
+        for name, shape, axes in (
+                ("1-D overlap", (1, world), ("graph",)),
+                ("1-D serial", (1, world), ("graph",)),
+                ("2-D 1 x 2", (1, 1, world), ("row", "col")),
+                ("2-D 2 x 1", (1, world, 1), ("row", "col"))):
+            mesh = make_mesh(shape=shape, axis_names=("data",) + axes)
+            if len(axes) == 1:
+                hm = halo.HaloGridGNN(7, 64, MODEL_LAYERS, 4,
+                                      overlap="overlap" in name)
+                make = halo.make_sharded_grid_forward
+            else:
+                hm = halo2d.HaloGrid2DGNN(7, 64, MODEL_LAYERS, 4)
+                make = halo2d.make_sharded_grid2d_forward
+            hm = hm.cuda()
+            hm.load_state_dict(inp["grid_sd"])
+            fwd = make(hm, mesh)
+            gf.launches = 0
+            fo = fwd(depth, valid)
+            torch.cuda.synchronize()
+            launches = gf.launches
+            ms = cuda_ms(torch, lambda: fwd(depth, valid), 2)
+            lines.append(f"{name} forward: {ms:.3f} ms, A launches "
+                         f"{launches}")
+            res["fwd"][name] = dict(ms=ms, launches=launches)
+            if rank == 0:
+                res["fwd"][name]["out"] = outputs_np(fo)
+            del fo
+        # the exchange of one layer's boundary rows (2 x 2048 x 256 f32)
+        # and a BatchNorm moment's all-reduce, through the host on gloo
+        g = make_mesh(shape=(1, world), axis_names=("data", "graph")
+                      ).get_group("graph")
+        x = torch.randn(4, SHARD_SURVEY, 256, device="cuda")
+        res["exchange_ms"] = cuda_ms(
+            torch, lambda: C.halo_rows_split(x, 1, g), 5)
+        ones = torch.ones(256, device="cuda")
+        res["all_reduce_ms"] = cuda_ms(torch,
+                                       lambda: C.all_reduce_sum(ones, g), 20)
+        del x
+        # the 1-D halo train step, rows over 2 ranks
+        mesh = make_mesh(shape=(1, world), axis_names=("data", "graph"))
+        hm = halo.HaloGridGNN(7, 64, MODEL_LAYERS, 4, dropout=0.0).cuda()
+        hm.load_state_dict(inp["grid_sd0"])
+        st = TrainState(hm, SGD(hm.parameters()))
+        step = halo.make_halo_train_step(
+            hm, st.optimizer, inp["grid_tc"], inp["grid_cw"].cuda(),
+            inp["grid_hd"], mesh)
+        local = host_local_batch_to_global(
+            inp["batch"], mesh, lambda a: ("data", "graph"))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        gf.train_launches = gf.bwd_launches = 0
+        _, lo, acc = step(st, local, gen, SHARD_LR)
+        torch.cuda.synchronize()
+        res["halo_step"] = dict(
+            state=np_state(hm), losses={k: float(v) for k, v in lo.items()},
+            acc=float(acc), launches=(gf.train_launches, gf.bwd_launches),
+            ms=cuda_ms(torch, lambda: step(st, local, gen, SHARD_LR), 2))
+        # the COO data-parallel step, 2 tiles a rank
+        mesh = make_mesh(graph_axis=1)
+        cfg = Config()
+        cm = make_model(cfg.model, 7, dropout=0.0).cuda()
+        cm.load_state_dict(inp["coo_sd0"])
+        st = TrainState(cm, SGD(cm.parameters()))
+        step = DP.make_dp_train_step(cm, st.optimizer, inp["coo_tc"],
+                                     inp["coo_cw"].cuda(), inp["coo_hd"],
+                                     mesh)
+        gl = shard_batch_pytree(inp["coo_graph"], mesh)
+        tl = shard_batch_pytree(inp["coo_targets"], mesh)
+        sr.launches = 0
+        _, lo, acc = step(st, gl, tl, gen, SHARD_LR)
+        torch.cuda.synchronize()
+        res["coo_step"] = dict(
+            state=np_state(cm), losses={k: float(v) for k, v in lo.items()},
+            acc=float(acc), launches=sr.launches,
+            ms=cuda_ms(torch, lambda: step(st, gl, tl, gen, SHARD_LR), 2))
+        res["lines"] = lines
+        res["plain_calls"] = list(plain)
+        torch.save(res, out / f"rank{rank}.pt")
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def sharded_summary(w1, w2):
+    """Phases 3l and 3m's numbers for the kernels' JSON line."""
+    g = w1["grid"]
+    keep = ("launches", "loss_err", "leaf_err", "ms", "trainer_ms",
+            "trainer_launches")
+    return {
+        "world_1_nccl": {
+            "forward": g["forward"], "single_card_forward_ms": g["single_ms"],
+            "halo_steps": g["steps"], "grid_trainer_step_ms":
+                g["grid_trainer_ms"],
+            "coo_dp_step": {k: w1["coo"][k] for k in keep if k in w1["coo"]},
+            "knn_dp_step": {k: w1["sparse"][k] for k in keep
+                            if k in w1["sparse"]},
+            "all_reduce_ms": w1["all_reduce_ms"]},
+        "two_ranks_gloo": w2}
+
+
+def phase_sharded_two_ranks(torch, np, work, w1):
+    """Phase 3m: SHARD_WORLD processes on the one card over a gloo group
+    (NCCL refuses two ranks on one device), each rank's compute on the
+    card, held against phase 3l's world-1 results."""
+    import torch.multiprocessing as mp
+
+    out = work / "sharded_3m"
+    if out.exists():
+        for p in out.iterdir():
+            p.unlink()
+    out.mkdir(parents=True, exist_ok=True)
+    g, c = w1["grid"], w1["coo"]
+    inputs = out / "inputs.pt"
+    torch.save(dict(
+        depth=g["depth"], valid=g["valid"], grid_sd=g["grid_sd"],
+        grid_sd0=g["grid_sd0"], grid_tc=g["grid_tc"], grid_cw=g["grid_cw"],
+        grid_hd=g["grid_hd"], batch=g["batch"], coo_sd0=c["sd0"],
+        coo_tc=c["tc"], coo_cw=c["cw"], coo_hd=c["hd"], coo_graph=c["graph"],
+        coo_targets=c["targets"]), inputs)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_sharded_worker, args=(SHARD_WORLD,
+                                          f"file://{out}/store", str(inputs),
+                                          str(out)),
+                   nprocs=SHARD_WORLD, join=False)
+    failed = None
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 600:
+                failed = "timed out after 600 s"
+                break
+    except Exception as e:                      # a rank raised
+        failed = f"{type(e).__name__}: {e}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    for r in range(SHARD_WORLD):
+        err = out / f"rank{r}.err"
+        if err.exists():
+            log(f"[3m] rank {r} failed:\n{err.read_text()}")
+    check(failed is None, f"[3m] the ranks failed: {failed}")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(SHARD_WORLD)]
+    wall = time.perf_counter() - t0
+    fails = []
+    valid = g["valid"]
+    for r, res in enumerate(ranks):
+        for line in res["lines"]:
+            log(f"[3m] rank {r}: {line}")
+        log(f"[3m] rank {r}: exchange of one layer's boundary rows "
+            f"({SHARD_SURVEY} x 256 f32 each way, through the host) "
+            f"{res['exchange_ms']:.3f} ms; all_reduce_sum of 256 f32 "
+            f"{res['all_reduce_ms']:.4f} ms")
+        want_fwd = {"1-D overlap": 1 + 3 * (MODEL_LAYERS - 1)}
+        for name, f in res["fwd"].items():
+            want = want_fwd.get(name, MODEL_LAYERS)
+            if f["launches"] != want:
+                fails.append(f"rank {r} {name}: {f['launches']} launches "
+                             f"of A, want {want}")
+        hs = res["halo_step"]
+        per = TRAIN_BATCH * (1 + 3 * (MODEL_LAYERS - 1))
+        if hs["launches"] != (per, per):
+            fails.append(f"rank {r} halo step launches {hs['launches']}")
+        for tag, got, want, tol in (
+                ("1-D halo train step", hs, (g["halo_state"],
+                                             g["halo_losses"]),
+                 SHARD_STEP_TOL["halo_ranks"]),
+                ("COO data-parallel step", res["coo_step"],
+                 (c["state"], c["losses"]), SHARD_STEP_TOL["coo_ranks"])):
+            init = g["grid_init"] if "halo" in tag else c["init"]
+            err, leaf = step_err(np, got["state"], want[0], init, True)
+            lerr = loss_err(want[1], got["losses"])
+            log(f"[3m] rank {r}: {tag} (2 ranks) vs 3l's world 1: losses "
+                f"rel {lerr:.3e}, updated leaves {err:.3e} of the largest "
+                f"change (at {leaf}; tol {tol:g}); {got['ms']:.3f} ms; "
+                f"launches {got['launches']}")
+            if max(err, lerr) > tol:
+                fails.append(f"rank {r} {tag}: {err:.3e} / {lerr:.3e}")
+        if res["coo_step"]["launches"] != c["launches"]:
+            fails.append(f"rank {r}: {res['coo_step']['launches']} F "
+                         f"launches in the COO step, 3l's {c['launches']}")
+        log(f"[3m] rank {r}: plain calls {len(res['plain_calls'])}")
+        if res["plain_calls"]:
+            fails.append(f"rank {r}: plain versions ran: "
+                         f"{sorted(set(res['plain_calls']))}")
+    for name, f in ranks[0]["fwd"].items():
+        agree, dc, dr = out_agreement(np, f["out"], g["forward_out"], valid)
+        log(f"[3m] {name} forward (2 ranks) vs 3l's world 1: classes equal "
+            f"on {agree:.6f} of the valid cells, |confidence| diff "
+            f"{dc:.3e}, |correction| diff {dr:.3e}")
+        if (agree < SHARD_CLASS_AGREE or dc > SHARD_OUT_TOL
+                or dr > SHARD_OUT_TOL):
+            fails.append(f"{name} forward differs from world 1")
+    for f in fails:
+        log(f"[3m] FAILED: {f}")
+    check(not fails, f"[3m] {len(fails)} failed checks")
+    log(f"[3m] {SHARD_WORLD} ranks on one card (gloo), spawn to join: "
+        f"{wall:.3f} s")
+    return dict(wall_s=wall, ranks=[{k: v for k, v in res.items()
+                                     if k in ("exchange_ms",
+                                              "all_reduce_ms")}
+                                    | {"fwd_ms": {n: f["ms"] for n, f in
+                                                  res["fwd"].items()},
+                                       "halo_step_ms":
+                                           res["halo_step"]["ms"],
+                                       "coo_step_ms":
+                                           res["coo_step"]["ms"]}
+                                    for res in ranks])
+
+
 # -- main --------------------------------------------------------------------------
 
 def main() -> int:
@@ -5623,15 +6320,24 @@ def main() -> int:
         log(f"[3i] phase 3i took {time.perf_counter() - t3i:.3f} s")
         phase = "3j COO training"
         t3j = time.perf_counter()
-        ctr = phase_coo_train(torch, np, work,
-                              coo_train_samples(np, knn_survey(
-                                  np, KNN_BATCH_SURVEY, SEED + 60)[0]))
+        csamples = coo_train_samples(np, knn_survey(
+            np, KNN_BATCH_SURVEY, SEED + 60)[0])
+        ctr = phase_coo_train(torch, np, work, csamples)
         log(f"[3j] phase 3j took {time.perf_counter() - t3j:.3f} s")
         phase = "3k the ground-truth workflow"
         t3k = time.perf_counter()
         gtw = phase_ground_truth(torch, np, work, e2e)
         gtw["phase_s"] = time.perf_counter() - t3k
         log(f"[3k] phase 3k took {gtw['phase_s']:.3f} s")
+        phase = "3l the sharded paths, world 1 over NCCL"
+        t3l = time.perf_counter()
+        shard1 = phase_sharded_world1(torch, np, work, tr["data"], csamples,
+                                      ksamples, model)
+        log(f"[3l] phase 3l took {time.perf_counter() - t3l:.3f} s")
+        phase = "3m the sharded paths, 2 ranks on the card over gloo"
+        t3m = time.perf_counter()
+        shard2 = phase_sharded_two_ranks(torch, np, work, shard1)
+        log(f"[3m] phase 3m took {time.perf_counter() - t3m:.3f} s")
         phase = "4 timings"
         rows, tile_ms = phase_timings(torch, np, cases, pipe, e2e["depth"])
         srows, slab_fwd = phase_slab_timings(torch, np, scases, dvr)
@@ -5695,6 +6401,7 @@ def main() -> int:
                                        for r in srows},
         },
         "streaming": {k: v for k, v in stream.items() if k != "bags"},
+        "sharded": sharded_summary(shard1, shard2),
     }]
     trow = next(r for r in trows if r["shape"].startswith("mid")
                 and "float32" in r["shape"])

@@ -239,6 +239,59 @@ def test_philox_rate_and_fwd_bwd_agree(dev):
     assert not torch.equal(other, mask)
 
 
+# The halo model's strip shape: the row-sharded grid model finishes each
+# shard's two boundary rows with 3-row convs ([B, 3, W, F]), which cut
+# kernels A and B's 14-row (A) and 8- / 12-row (B) cell tiles to 3 rows.
+STRIP_SHAPES = [
+    (1, 3, 48, 16, 2, 16, 8),       # the CPU tests' widths
+    (2, 3, 48, 64, 4, 64, 8),       # the model's first layer, batched
+    (1, 3, 2048, 256, 4, 64, 8),    # a mid layer on a 2048-wide survey
+    (3, 3, 2048, 256, 1, 64, 8),    # the last layer, batched
+]
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("fold", [False, True])
+def test_kernel_at_strip_shape_matches_plain(dev, shape, fold):
+    """Kernel A's inference form at H = 3, with and without the folded
+    BatchNorm epilogue, against its plain version."""
+    b, h, w, f_in, heads, c, conn = shape
+    args, sc, sh = _layer_inputs(dev, b, h, w, f_in, heads, c, conn)
+    kw = (dict(bn_scale=sc, bn_bias=sh, fuse_relu=True) if fold else {})
+    with torch.no_grad():
+        n0 = gf.launches
+        out = gf.fused_grid_gat_infer(*args, **kw)
+        torch.cuda.synchronize()
+        assert gf.launches == n0 + 1
+        ref = gf.grid_gat_reference(*args, **kw)
+    assert out.shape == (b, h, w, heads * c)
+    err = (out - ref).abs() / (1 + ref.abs())
+    assert err.max().item() <= TOL[torch.float32], err.max().item()
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("drop", [False, True])
+def test_train_kernels_at_strip_shape_match_plain(dev, shape, drop):
+    """Kernel A's training form and kernel B at H = 3 against the plain
+    forward and autograd of it."""
+    b, h, w, f_in, heads, c, conn = shape
+    args, _, _ = _layer_inputs(dev, b, h, w, f_in, heads, c, conn)
+    dmask = _dmask(args, heads) if drop else None
+    n0, b0 = gf.train_launches, gf.bwd_launches
+    out, grads, g = _train_run(gf.fused_grid_gat, args, dmask,
+                               torch.float32)
+    torch.cuda.synchronize()
+    assert (gf.train_launches, gf.bwd_launches) == (n0 + 1, b0 + 1)
+    ref, rgrads, _ = _train_run(gf.grid_gat_reference, args, dmask,
+                                torch.float32, g)
+    err = (out - ref).abs() / (1 + ref.abs())
+    assert err.max().item() <= TOL[torch.float32], err.max().item()
+    for name, a, r in zip(LEAVES, grads, rgrads):
+        scale = r.abs().max().item() + 1e-6
+        d = (a - r).abs().max().item()
+        assert d <= GRAD_TOL[torch.float32] * scale, (name, d, scale)
+
+
 def test_infer_entry_raises_under_grad(dev):
     args, _, _ = _layer_inputs(dev, 1, 8, 16, 16, 2, 4)
     x = args[0].clone().requires_grad_()
@@ -411,6 +464,105 @@ def test_gat_conv_ell_launches_kernel_c(dev, heads, concat):
     assert torch.equal(got, got2)
     err = ((got.cpu() - want).abs() / (1 + want.abs())).max().item()
     assert err <= TOL[torch.float32], err
+
+
+def _ell_train_graph(dev, n=3000, bucket=4096, seed=4):
+    from bathymetric_gnn_tpu_torch.data.graph_build import GraphBuilder
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+
+    rg = np.random.default_rng(seed)
+    pos = (rg.random((n, 2)) * 100).astype(np.float32)
+    gb = GraphBuilder()
+    gb.buckets.node_buckets = (bucket,)
+    bg = gb.build_knn_graph(rg.normal(size=(n, 3)).astype(np.float32),
+                            pos, 8, depth=rg.normal(size=n))
+    g = coo_to_ell(bg.graph, max_degree=8).with_src_sorted_slots()
+    x = torch.from_numpy(rg.normal(size=(bucket, 16)).astype(np.float32))
+    return g, x
+
+
+@pytest.mark.parametrize("concat", [True, False])
+def test_gat_conv_ell_dropout_runs_kernels_c_and_c_prime(dev, concat):
+    """GATConvELL in training mode with attention dropout (the form the
+    port used to refuse) on the card: kernel C's dropout form and C', one
+    launch each a step; one generator seed gives the same output and
+    gradients bit for bit, another seed other ones; in training mode at
+    dropout 0 the card matches the CPU (the plain version) at TOL."""
+    from bathymetric_gnn_tpu_torch.models.conv_ell import GATConvELL
+    from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
+
+    g, x = _ell_train_graph(dev)
+    gd, xd = g.to(dev), x.to(dev)
+
+    def run(layer, gg, xx, seed):
+        xx = xx.clone().requires_grad_()
+        out = layer(gg, xx, torch.Generator(xx.device).manual_seed(seed))
+        out.square().sum().backward()
+        return out.detach(), xx.grad
+
+    layer = GATConvELL(16, 64, heads=4, concat=concat, edge_dim=3,
+                       dropout=0.3, generator=torch.Generator().manual_seed(2)
+                       ).to(dev).train()
+    n0, b0 = ef.train_launches, ef.bwd_launches
+    a = run(layer, gd, xd, 1)
+    torch.cuda.synchronize()
+    assert (ef.train_launches, ef.bwd_launches) == (n0 + 1, b0 + 1)
+    b = run(layer, gd, xd, 1)
+    c = run(layer, gd, xd, 2)
+    assert torch.isfinite(a[0]).all()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert not torch.equal(a[0], c[0])
+    layer.dropout = 0.0
+    got = run(layer, gd, xd, 1)
+    want = run(layer.cpu(), g.to("cpu"), x, 1)
+    for gv, wv in zip(got, want):
+        err = ((gv.cpu() - wv).abs() / (1 + wv.abs())).max().item()
+        assert err <= GRAD_TOL[torch.float32], err
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_grid_head_mean_on_card_matches_cpu(dev, relu):
+    """GridGATConv with concat=False and 4 heads (the head mean, which the
+    port used to refuse) on the card: kernel A's inference form, the head
+    mean, the bias and the folded BatchNorm against the same layer on the
+    CPU, one launch; and its training form (A, then B in the backward)
+    against autograd of the plain version."""
+    args, sc, sh = _layer_inputs(dev, 2, 31, 45, 40, 4, 16)
+    x, _, _, _, _, ea, nbr, v = args[:8]
+    layer = GridGATConv(40, 16, heads=4, concat=False,
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    with torch.no_grad():
+        layer.bias.normal_(0.0, 0.1)
+    cpu = GridGATConv(40, 16, heads=4, concat=False)
+    cpu.load_state_dict({k: t.cpu() for k, t in layer.state_dict().items()})
+    sc, sh = sc[:16], sh[:16]
+    with torch.no_grad():
+        n0 = gf.launches
+        got = layer.eval()(x, v > 0, nbr, ea, bn_scale=sc, bn_bias=sh,
+                           fuse_relu=relu)
+        torch.cuda.synchronize()
+        assert gf.launches == n0 + 1
+        want = cpu.eval()(x.cpu(), (v > 0).cpu(), nbr.cpu(), ea.cpu(),
+                          bn_scale=sc.cpu(), bn_bias=sh.cpu(),
+                          fuse_relu=relu)
+    assert got.shape == (2, 31, 45, 16)
+    err = ((got.cpu() - want).abs() / (1 + want.abs())).max().item()
+    assert err <= TOL[torch.float32], err
+    n0, b0 = gf.train_launches, gf.bwd_launches
+    xg = x.clone().requires_grad_()
+    layer.train()(xg, v > 0, nbr, ea).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (gf.train_launches, gf.bwd_launches) == (n0 + 1, b0 + 1)
+    xc = x.cpu().clone().requires_grad_()
+    cpu.train()(xc, (v > 0).cpu(), nbr.cpu(), ea.cpu()).square().sum(
+        ).backward()
+    for (name, p), q in zip(layer.named_parameters(), cpu.parameters()):
+        scale = q.grad.abs().max().item() + 1e-6
+        assert (p.grad.cpu() - q.grad).abs().max().item() <= (
+            GRAD_TOL[torch.float32] * scale), name
+    scale = xc.grad.abs().max().item()
+    assert (xg.grad.cpu() - xc.grad).abs().max().item() <= (
+        GRAD_TOL[torch.float32] * scale)
 
 
 def test_ell_model_on_card_matches_cpu(dev):

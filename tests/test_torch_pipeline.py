@@ -210,9 +210,10 @@ def test_port_imports_nothing_of_jax():
     before ``cli.explore_bag``, the one module that imports it, as JAX's
     does (where h5py is not installed, that module's import lines are read
     instead, and must name no JAX module either); the training, k-NN serving and k-NN training modules, the COO
-    path's (segment ops, convs, model, smoke test), and the worker loader,
-    ground-truth, S-57, evaluation, import and report tools are among
-    those imported."""
+    path's (segment ops, convs, model, smoke test), the worker loader,
+    ground-truth, S-57, evaluation, import and report tools, and the
+    sharded paths (``parallel``) are among those imported, and importing
+    them starts no process group."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
 import bathymetric_gnn_tpu_torch as pkg
@@ -251,8 +252,12 @@ for m in ("training.grid_trainer", "training.losses", "training.optim",
           "cli.prepare_ground_truth", "cli.extract_s57_features",
           "utils.torch_import", "cli.import_torch", "cli.diagnose_tiles",
           "cli.analyze_noise_patterns", "cli.explore_bag",
-          "cli.render_preview", "data.multiscale"):
+          "cli.render_preview", "data.multiscale", "parallel.mesh",
+          "parallel.collectives", "parallel.data_parallel", "parallel.halo",
+          "parallel.halo2d"):
     assert pkg.__name__ + "." + m in names, m
+import torch.distributed as dist
+assert not dist.is_initialized()
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
