@@ -56,7 +56,9 @@ class ModelConfig:
     num_classes: int = 3
     predict_correction: bool = True
     feature_extractor_layers: int = 2
-    # dtype policy: params float32; activations can run bf16 on the MXU.
+    # dtype policy: params float32; "bfloat16" runs the activations in
+    # bf16 through the kernels' bf16 forms (kernels A and B's products on
+    # the card's tensor cores), accumulating in f32.
     compute_dtype: str = "float32"
     # the JAX package's switch for its fused Pallas layer. The port reads
     # it so that config.yaml files still load, and ignores it: the port's
@@ -64,18 +66,18 @@ class ModelConfig:
     # CPU -> plain version), never this flag.
     use_pallas: str = "auto"  # auto | on | off
     # sparse (ELL) message-passing kernel for k-NN / bounded-degree
-    # graphs: "auto" resolves to the fused banded Pallas kernel on TPU
-    # for GAT and to plain XLA gathers otherwise
+    # graphs: "auto" resolves to "banded_pallas" (kernel C) for a k-NN GAT
+    # model on any device, and to the COO path ("xla") otherwise
     sparse_kernel: str = "auto"  # auto | xla | banded | banded_pallas
 
 
 @dataclass
 class BucketConfig:
-    """Static-shape bucketing policy for compile-once graph batches.
+    """Static-shape bucketing policy for graph batches.
 
-    TPU addition (no reference equivalent): node/edge counts are rounded up
-    to the nearest bucket so XLA compiles one program per bucket rather than
-    one per graph shape.
+    No reference equivalent: node/edge counts are rounded up to the
+    nearest bucket, so that graph batches come in a few padded shapes, the
+    same as the JAX package's.
     """
 
     node_buckets: Tuple[int, ...] = (256, 1024, 4096, 16384, 65536, 262144, 1048576)
@@ -108,8 +110,8 @@ class TrainingConfig:
     # host input-pipeline worker PROCESSES (torch semantics: 0 = load in
     # the main process). Workers run only the numpy/IO half of sample
     # production (utils/mp_loader); the reference's DataLoader used 4
-    # (reference: training/trainer.py:489) — on this 2-core dev host 1-2
-    # is the sweet spot, so the default stays conservative.
+    # (reference: training/trainer.py:489). The default stays 0: the
+    # tiles are built in the training process unless workers are asked for.
     num_workers: int = 0
     # explicit per-class loss weights (overrides the dataset-estimated
     # inverse-frequency weights). The default estimator's smoothing (0.1,
@@ -119,9 +121,9 @@ class TrainingConfig:
     # when training 3-class models with rare features (round 4).
     class_weights: Optional[Tuple[float, ...]] = None
     seed: int = 0
-    # dropout-key PRNG implementation: "auto" uses the TPU-native rbg
-    # generator on TPU (threefry mask generation measured 3.5 ms/step on
-    # the 65k sparse train step — ~9% of the step) and threefry elsewhere
+    # the JAX package's dropout-key PRNG choice. The port reads it so that
+    # config.yaml files still load, and ignores it: its dropout draws are
+    # Philox in the kernels or masks streamed from a torch.Generator.
     rng_impl: str = "auto"  # auto | threefry | rbg
 
 
@@ -191,7 +193,8 @@ class InferenceConfig:
 
 @dataclass
 class MeshConfig:
-    """Device-mesh layout for multi-chip runs (TPU addition)."""
+    """Device-mesh layout for multi-device runs (no reference
+    equivalent)."""
 
     data_axis: int = -1  # -1: all devices on the data axis
     graph_axis: int = 1  # spatial/graph partition axis size

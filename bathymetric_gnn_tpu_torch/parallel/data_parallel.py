@@ -4,20 +4,28 @@
 Each rank owns its own tiles of the batch, merges them into one graph (no
 edge crosses ranks), computes its loss and gradients on its device, and
 the ranks average the gradients, the metrics and the BatchNorm running
-statistics over the ``data`` process group, so every rank applies the
-same update.
+statistics over the ``data`` process group in one all-reduce, so every
+rank applies the same update.
 
-Every step is JAX's ``exact=True`` step, the only one the port has: it
-equals the single-device step on the concatenated batch. The loss terms'
-numerators and denominators and the accuracy's are all-reduced before the
-divide (``training/trainer.make_loss_fn``'s ``terms_group``), and the
-BatchNorm moments are synced over ``data`` (``MaskedBatchNorm``'s
-``group``). The
-collectives are ``parallel/collectives.all_reduce_sum``, whose backward is
-again an all-reduce sum (psum's transpose): each rank's backward then
-carries a factor of the group's size, and the average of the gradients
-is the exact total gradient. JAX's ``exact=False`` (each rank's own BN
-statistics and loss normalization, the torch-DDP default) is not ported.
+The train steps take JAX's ``exact`` flag:
+
+- ``exact=True`` (the default) equals the single-device step on the
+  concatenated batch. The loss terms' numerators and denominators and the
+  accuracy's are all-reduced before the divide
+  (``training/trainer.make_loss_fn``'s ``terms_group``), and the
+  BatchNorm moments are synced over ``data`` (``MaskedBatchNorm``'s
+  ``group``). The collectives are ``parallel/collectives.all_reduce_sum``,
+  whose backward is again an all-reduce sum (psum's transpose): each
+  rank's backward then carries a factor of the group's size, and the
+  average of the gradients is the exact total gradient.
+- ``exact=False`` is torch-DDP-style local BatchNorm: each rank's
+  ``MaskedBatchNorm`` takes its moments over its own live nodes, and its
+  loss terms and accuracy are normalized by its own counts. The forward
+  runs no collective, so the average of the gradients is the classic DDP
+  average of the ranks' own gradients, as JAX's ``pmean`` of them.
+
+At world 1 the two are the same computation. ``make_dp_eval_step`` has no
+``exact``: its loss terms are always reduced exactly, as JAX's.
 
 The optimizer is the trainer's: ``clip_by_global_norm_`` with
 ``training_cfg.grad_clip_norm``, then ``optimizer.step(grads, lr)``.
@@ -98,9 +106,11 @@ def make_dp_train_step(
     class_weights,
     huber_delta,
     mesh: DeviceMesh,
+    exact: bool = True,
 ) -> Callable:
     """A data-parallel train step of the COO model (``models/gnn``): on the
-    card every segment sum and gather backward is kernel F (a).
+    card every segment sum and gather backward is kernel F (a). ``exact``
+    as in the module docstring.
 
     ``step(state, graph, targets, rng, lr)`` -> (state, losses, accuracy):
     ``graph`` this rank's stacked [B_local, ...] ``PaddedGraph`` and
@@ -110,9 +120,10 @@ def make_dp_train_step(
     rank), ``lr`` the learning rate. ``state`` is ``TrainState(model,
     optimizer)``; the step updates it in place on every rank alike."""
     group = mesh.get_group(DATA_AXIS)
+    sync = group if exact else None
     index = mesh.get_local_rank(DATA_AXIS)
     loss_fn = make_loss_fn(training_cfg, class_weights, huber_delta, True,
-                           terms_group=group)
+                           terms_group=sync)
 
     def step(state: TrainState, graph, targets, rng: torch.Generator,
              lr: float):
@@ -122,7 +133,7 @@ def make_dp_train_step(
         t = _to_device_targets(targets, dev)
         for p in model.parameters():
             p.grad = None
-        with bn_group(model, group):
+        with bn_group(model, sync):
             losses, acc = loss_fn(model, g, t, fold_in(rng, index, dev))
             losses["total"].backward()
         losses, acc = _apply_update(state, model, optimizer, training_cfg,
@@ -181,6 +192,7 @@ def make_dp_sparse_train_step(
     class_weights,
     huber_delta,
     mesh: DeviceMesh,
+    exact: bool = True,
 ) -> Callable:
     """Data-parallel train step of the ``"banded_pallas"`` ELL model (the
     k-NN path). On the card its default route C runs kernel C's dropout
@@ -193,9 +205,10 @@ def make_dp_sparse_train_step(
     ``targets`` its stacked [B_local, n_pad] targets; the rest as in
     ``make_dp_train_step``."""
     group = mesh.get_group(DATA_AXIS)
+    sync = group if exact else None
     index = mesh.get_local_rank(DATA_AXIS)
     loss_fn = make_loss_fn(training_cfg, class_weights, huber_delta, True,
-                           terms_group=group)
+                           terms_group=sync)
 
     def step(state: TrainState, g, banded, targets, rng: torch.Generator,
              lr: float):
@@ -206,7 +219,7 @@ def make_dp_sparse_train_step(
         t = _to_device_targets(targets, dev)
         for p in ell_model.parameters():
             p.grad = None
-        with bn_group(ell_model, group):
+        with bn_group(ell_model, sync):
             losses, acc = loss_fn(ell_model, g, t,
                                   fold_in(rng, index, dev), banded)
             losses["total"].backward()

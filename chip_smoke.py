@@ -202,7 +202,12 @@ Run from the root of a checkout. Phases, each printing its own lines:
    batch and the k-NN one (route C) on 3d's merged batch against
    ``Trainer.train_step`` (SGD at learning rate 1, dropout 0: losses and
    each leaf's change, launches of F, of C / C' / F (b), no plain version),
-   the COO step once more at dropout 0.1; the 1-D (overlapped and serial)
+   both with ``exact=False`` (local BatchNorm) too, bit for bit the
+   ``exact=True`` step at world 1 with the same launches and no plain
+   version; the ``exact=False`` step of 2 ranks computed in this process
+   (each half batch's own loss and gradient, averaged, then the clip and
+   SGD) and the k-NN step's exact gradient in f64, 3m's references; the
+   COO step once more at dropout 0.1; the 1-D (overlapped and serial)
    and 2-D sharded forwards on a 2048^2 survey with holes against
    ``GridBathymetricGNN`` on the whole grid (classes >= 99.99 %,
    confidence and correction within 1e-3; A launched 1 + 3 x 3 or 4
@@ -214,8 +219,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
    (NCCL refuses two ranks on one device), each rank's compute on the
    card through kernels A, B and F: the 1-D forwards (2 row shards, a
    hole across their seam), the 2-D forwards on 1 x 2 and 2 x 1 meshes,
-   the 1-D halo train step and the COO data-parallel step (2 tiles a
-   rank) against 3l's world-1 results; each rank's times, its exchange
+   the 1-D halo train step, the COO data-parallel step (kernel F) and the
+   k-NN one (route C: kernels C, C' and F (b)), 2 tiles a rank, each with
+   ``exact`` True and False, against 3l's world-1 results (``exact=False``
+   against 3l's 2-rank reference; the k-NN ``exact=True`` step also
+   against the exact gradient in f64, no further from it than 3l's step
+   plus 1e-3); the launches of F and of C / C' / F (b) as in 3l; each
+   rank's times, its exchange
    of one layer's boundary rows and a BatchNorm all-reduce (through the
    host on gloo); each rank's failures printed, the phase failing on
    any.
@@ -5569,9 +5579,18 @@ SHARD_WORLD = 2         # phase 3m's processes (gloo) on the one card
 # ranks: 1e-3. Its f32 gradients miss the f64 step by up to 1.05e-2 of a
 # leaf's largest entry (phase 3j), and the 2-rank step read 1.12e-4 on
 # the H100, so two f32 steps that sum in other orders can differ by more
-# than 1e-4 of the largest change.
+# than 1e-4 of the largest change. The k-NN step over 2 ranks: 1e-3 as
+# well (it read 2.29e-4 on the H100, at the first GAT layer's lin_src,
+# whose gradient two f32 steps give ~1e-3 of its largest entry apart,
+# phase 3d); and each leaf's update no further from the exact objective's
+# gradient in f64 than 3l's world-1 step's, plus 1e-3 of that gradient's
+# largest entry (3d's measure). Its exact=False step runs each rank's own
+# operations, as 3l's one-process reference does: 10 x the 3.64e-6 of the
+# largest change that the world-2 step reads against JAX's on the CPU
+# (python tests/torch_dp_local_bn_readings.py, route D).
 SHARD_STEP_TOL = {"trainer": 1e-6, "halo": 1e-5, "halo_ranks": 1e-4,
-                  "coo_ranks": 1e-3}
+                  "coo_ranks": 1e-3, "knn_ranks": 1e-3,
+                  "knn_local_ranks": 3.64e-5, "knn_f64": 1e-3}
 # the forward against the single-card model: classes on >= 99.99 % of the
 # valid cells, confidence and correction within 1e-3
 SHARD_CLASS_AGREE = 0.9999
@@ -5672,6 +5691,89 @@ def grid_per_tile_reference(torch, np, trainer, model, sd0, batch, lr):
                    for k in losses[0]}, float(np.mean(accs)), launches)
 
 
+def batch_part(tree, i):
+    """Rank i's part of a stacked [B, ...] batch on SHARD_WORLD ranks, as
+    ``shard_batch_pytree`` slices it."""
+    from bathymetric_gnn_tpu_torch.parallel.mesh import _map, _rank_slice
+
+    return _map(tree, lambda x: _rank_slice(x, i, SHARD_WORLD))
+
+
+def local_bn_reference(torch, np, model, sd0, tc, loss_fn, parts):
+    """The ``exact=False`` step of SHARD_WORLD ranks in one process: each
+    rank's part (``parts``: (graph, targets, banded) on the card) through
+    ``loss_fn`` without a group (its own BatchNorm moments and loss
+    counts) from ``sd0``; the parts' gradients, losses and BatchNorm
+    running statistics averaged, then the step's clip and SGD. Returns
+    (state, losses)."""
+    from bathymetric_gnn_tpu_torch.training.optim import (
+        SGD, clip_by_global_norm_)
+
+    params = list(model.parameters())
+    grads, stats, losses = [], [], []
+    for g, t, banded in parts:
+        model.load_state_dict(sd0)
+        for p in params:
+            p.grad = None
+        lo, _ = loss_fn(model, g, t,
+                        torch.Generator(device="cuda").manual_seed(SEED),
+                        banded)
+        lo["total"].backward()
+        grads.append([torch.zeros_like(p) if p.grad is None
+                      else p.grad.clone() for p in params])
+        stats.append({n: b.clone() for n, b in model.named_buffers()
+                      if n.endswith((".mean", ".var"))})
+        losses.append({k: float(v.detach()) for k, v in lo.items()})
+    model.load_state_dict(sd0)
+    mean = [torch.stack(gs).mean(0) for gs in zip(*grads)]
+    bufs = dict(model.named_buffers())
+    with torch.no_grad():
+        for n in stats[0]:
+            bufs[n].copy_(torch.stack([s[n] for s in stats]).mean(0))
+    clip_by_global_norm_(mean, tc.grad_clip_norm)
+    SGD(params).step(mean, SHARD_LR)
+    return np_state(model), {k: float(np.mean([lo[k] for lo in losses]))
+                             for k in losses[0]}
+
+
+def f64_update_err(np, state, init, grads_f64):
+    """Each parameter's SGD update (init - state) / SHARD_LR against its
+    exact gradient in f64 (clipped as the step clips), as a share of that
+    gradient's largest |entry|; of a GAT layer's bias, whose exact
+    gradient is 0 (BatchNorm follows), of the largest |entry| of any
+    gradient (phase 3d's scales)."""
+    big = max(float(np.abs(g).max()) for g in grads_f64.values())
+    out = {}
+    for n, g in grads_f64.items():
+        scale = (big if "GATConv" in n and n.endswith(".bias")
+                 else float(np.abs(g).max()) + 1e-30)
+        upd = (init[n].astype(np.float64)
+               - state[n].astype(np.float64)) / SHARD_LR
+        out[n] = float(np.abs(upd - g).max()) / scale
+    return out
+
+
+def local_bn_world1(torch, np, tag, run, want, want_losses, counts,
+                    want_counts, plain):
+    """3l's ``exact=False`` step at world 1 (``run()`` -> (state, losses,
+    accuracy)): bit for bit the ``exact=True`` step's ``want``, with its
+    launches and no plain version."""
+    got, lo, acc = run()
+    torch.cuda.synchronize()
+    c = counts()
+    diff = [k for k in want if not np.array_equal(got[k], want[k])]
+    same_losses = all(float(lo[k]) == want_losses[k] for k in want_losses)
+    log(f"[3l] {tag} with exact=False (world 1) vs exact=True: "
+        f"{len(diff)} leaves differ, losses equal {same_losses}; launches "
+        f"{c} (exact=True {want_counts}), plain calls {len(plain)}")
+    check(not diff and same_losses,
+          f"[3l] {tag}: exact=False differs from exact=True at world 1 "
+          f"({diff[:4]})")
+    check(c == want_counts and not plain,
+          f"[3l] {tag} exact=False: launches / plain calls")
+    return c
+
+
 def phase_sharded_world1(torch, np, work, tr_data, csamples, ksamples,
                          model):
     """Phase 3l: the sharded paths at world 1 over NCCL (module docstring),
@@ -5713,10 +5815,12 @@ def sharded_coo_step(torch, np, work, csamples, mesh):
     """The COO data-parallel step against ``Trainer.train_step`` (SGD,
     dropout 0, the 3j batch), then once at dropout 0.1."""
     from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.ops.graph import CooGraph, merge_stacked
     from bathymetric_gnn_tpu_torch.parallel import data_parallel as DP
     from bathymetric_gnn_tpu_torch.training.datasets import collate_samples
     from bathymetric_gnn_tpu_torch.training.optim import SGD
-    from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+    from bathymetric_gnn_tpu_torch.training.trainer import (
+        TrainState, _to_device_targets, make_loss_fn)
 
     trainer, state, g, targets = coo_step_setup(torch, np, work, csamples,
                                                 0.0)
@@ -5756,6 +5860,38 @@ def sharded_coo_step(torch, np, work, csamples, mesh):
           <= 1e-6 and err <= SHARD_STEP_TOL["trainer"],
           "[3l] COO DP step differs from the trainer's")
     after = np_state(m)
+    losses = {k: float(v) for k, v in ld.items()}
+    # exact=False: at world 1 the same computation, bit for bit
+    m.load_state_dict(sd0)
+    st_l = TrainState(m, SGD(m.parameters()))
+    step_l = DP.make_dp_train_step(m, st_l.optimizer, tc,
+                                   trainer.class_weights,
+                                   trainer.huber_delta, mesh, exact=False)
+
+    def run_local():
+        with mock.patch.object(sr, "segment_reduce_reference",
+                               counted_calls(sr.segment_reduce_reference,
+                                             plain)):
+            sr.launches = 0
+            _, lo, acc = step_l(st_l, graph_np, targets_np, gen, SHARD_LR)
+            torch.cuda.synchronize()
+        return np_state(m), lo, acc
+
+    local_bn_world1(torch, np, "COO DP step", run_local, after, losses,
+                    lambda: sr.launches, f_dp, plain)
+    # the exact=False step of 2 ranks in this process: 3m's reference
+    loss_fn = make_loss_fn(tc, trainer.class_weights, trainer.huber_delta,
+                           True)
+    parts = [(CooGraph.from_padded(merge_stacked(batch_part(graph_np, i))
+                                   ).to("cuda"),
+              _to_device_targets(batch_part(targets_np, i), "cuda"), None)
+             for i in range(SHARD_WORLD)]
+    local_state, local_losses = local_bn_reference(torch, np, m, sd0, tc,
+                                                   loss_fn, parts)
+    del parts
+    m.load_state_dict(sd0)
+    ms_l = cuda_ms(torch, lambda: step_l(st_l, graph_np, targets_np, gen,
+                                         SHARD_LR), 3)
     # dropout 0.1: the step runs, finite, and moves every parameter leaf
     tr_d, st_d, _, _ = coo_step_setup(torch, np, work, csamples, 0.1)
     st_d.model.load_state_dict(sd0)
@@ -5778,12 +5914,14 @@ def sharded_coo_step(torch, np, work, csamples, mesh):
     ms_ref = cuda_ms(torch, lambda: trainer.train_step(ref, g, targets,
                                                        SHARD_LR), 3)
     log(f"[3l] COO step: data-parallel {ms:.3f} ms (its CooGraph built "
-        f"from the stacked batch on the host each call), Trainer.train_step "
-        f"{ms_ref:.3f} ms (graph prebuilt)")
+        f"from the stacked batch on the host each call), exact=False "
+        f"{ms_l:.3f} ms, Trainer.train_step {ms_ref:.3f} ms (graph "
+        f"prebuilt)")
     return dict(launches=f_dp, trainer_launches=f_ref, loss_err=lerr,
-                leaf_err=err, ms=ms, trainer_ms=ms_ref, state=after,
-                init=init, losses={k: float(v) for k, v in ld.items()},
-                acc=float(ad), sd0=sd0, graph=graph_np, targets=targets_np,
+                leaf_err=err, ms=ms, local_bn_ms=ms_l, trainer_ms=ms_ref,
+                state=after, init=init, losses=losses, acc=float(ad),
+                local_state=local_state, local_losses=local_losses,
+                sd0=sd0, graph=graph_np, targets=targets_np,
                 cw=trainer.class_weights.cpu(), hd=trainer.huber_delta,
                 tc=tc)
 
@@ -5793,17 +5931,21 @@ def sharded_knn_step(torch, np, work, ksamples, mesh):
     3d's merged batch (N = 262,144), SGD, dropout 0."""
     from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
     from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
+    from bathymetric_gnn_tpu_torch.ops.ell import coo_to_ell
+    from bathymetric_gnn_tpu_torch.ops.graph import merge_stacked
     from bathymetric_gnn_tpu_torch.parallel import data_parallel as DP
     from bathymetric_gnn_tpu_torch.training.datasets import collate_samples
     from bathymetric_gnn_tpu_torch.training.optim import SGD
-    from bathymetric_gnn_tpu_torch.training.trainer import TrainState
+    from bathymetric_gnn_tpu_torch.training.trainer import (
+        TrainState, _to_device_targets, make_loss_fn)
 
     trainer, state, g, targets = knn_step_setup(torch, np, work, ksamples,
                                                 0.0)
     m = state.model
     sd0 = {k: v.clone() for k, v in m.state_dict().items()}
     init = np_state(m)
-    targets_np = collate_samples(ksamples.samples)[1]
+    graph_np, targets_np = collate_samples(ksamples.samples)
+    tc = trainer.config.training
 
     def counts():
         return (ef.train_launches, ef.bwd_launches, sr.launches)
@@ -5817,8 +5959,8 @@ def sharded_knn_step(torch, np, work, ksamples, mesh):
     m.load_state_dict(sd0)
     st = TrainState(m, SGD(m.parameters()))
     step = DP.make_dp_sparse_train_step(
-        m, st.optimizer, trainer.config.training, trainer.class_weights,
-        trainer.huber_delta, mesh)
+        m, st.optimizer, tc, trainer.class_weights, trainer.huber_delta,
+        mesh)
     gl, banded = DP.stack_banded_batches([(g, None)], mesh)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     plain = []
@@ -5838,14 +5980,65 @@ def sharded_knn_step(torch, np, work, ksamples, mesh):
     check(lerr <= SHARD_STEP_TOL["trainer"]
           and err <= SHARD_STEP_TOL["trainer"],
           "[3l] k-NN DP step differs from the trainer's")
+    after = np_state(m)
+    losses = {k: float(v) for k, v in ld.items()}
+    # the exact objective's gradients in f64: 3m's step is held to be no
+    # further from them than this one (SHARD_STEP_TOL)
+    _, g64, _ = knn_step_f64(torch, trainer, m, sd0, g, targets)
+    g64 = {n: v.detach().cpu().numpy() for n, v in g64.items()}
+    torch.cuda.empty_cache()
+    f64_err = f64_update_err(np, after, init, g64)
+    worst = max(f64_err, key=f64_err.get)
+    log(f"[3l] k-NN data-parallel step against the exact gradient in f64: "
+        f"worst {worst} {f64_err[worst]:.3e} of its largest entry")
+    # exact=False: at world 1 the same computation, bit for bit
+    m.load_state_dict(sd0)
+    st_l = TrainState(m, SGD(m.parameters()))
+    step_l = DP.make_dp_sparse_train_step(
+        m, st_l.optimizer, tc, trainer.class_weights, trainer.huber_delta,
+        mesh, exact=False)
+
+    def run_local():
+        with mock.patch.object(ef, "ell_gat_reference", counted_calls(
+                ef.ell_gat_reference, plain)):
+            ef.train_launches = ef.bwd_launches = sr.launches = 0
+            _, lo, acc = step_l(st_l, gl, banded, targets_np, gen, SHARD_LR)
+            torch.cuda.synchronize()
+        return np_state(m), lo, acc
+
+    c_l = local_bn_world1(torch, np, "k-NN DP step", run_local, after,
+                          losses, counts, c_dp, plain)
+    # the exact=False step of 2 ranks in this process: 3m's reference, on
+    # the ranks' own merged halves of the batch
+    halves = [coo_to_ell(merge_stacked(batch_part(graph_np, i)), KNN_K
+                         ).with_src_sorted_slots()
+              for i in range(SHARD_WORLD)]
+    loss_fn = make_loss_fn(tc, trainer.class_weights, trainer.huber_delta,
+                           True)
+    parts = [(h.to("cuda"), _to_device_targets(batch_part(targets_np, i),
+                                               "cuda"), None)
+             for i, h in enumerate(halves)]
+    local_state, local_losses = local_bn_reference(torch, np, m, sd0, tc,
+                                                   loss_fn, parts)
+    del parts
+    m.load_state_dict(sd0)
     ms = cuda_ms(torch, lambda: step(st, gl, banded, targets_np, gen,
                                      SHARD_LR), 3)
+    ms_l = cuda_ms(torch, lambda: step_l(st_l, gl, banded, targets_np, gen,
+                                         SHARD_LR), 3)
     ms_ref = cuda_ms(torch, lambda: trainer.train_step(ref, g, targets,
                                                        SHARD_LR), 3)
-    log(f"[3l] k-NN step: data-parallel {ms:.3f} ms, Trainer.train_step "
-        f"{ms_ref:.3f} ms")
-    return dict(launches=c_dp, loss_err=lerr, leaf_err=err, ms=ms,
-                trainer_ms=ms_ref)
+    log(f"[3l] k-NN step: data-parallel {ms:.3f} ms, exact=False "
+        f"{ms_l:.3f} ms, Trainer.train_step {ms_ref:.3f} ms")
+    return dict(launches=c_dp, local_bn_launches=c_l, loss_err=lerr,
+                leaf_err=err, ms=ms, local_bn_ms=ms_l, trainer_ms=ms_ref,
+                state=after, init=init, losses=losses, grads_f64=g64,
+                f64_err=f64_err, local_state=local_state,
+                local_losses=local_losses, sd0=sd0, halves=halves,
+                targets=targets_np,
+                cw=trainer.class_weights.cpu(), hd=trainer.huber_delta,
+                tc=tc, dims=(int(graph_np.x.shape[-1]),
+                             int(graph_np.edge_attr.shape[-1])))
 
 
 def sharded_grid(torch, np, work, tr_data, model, mesh, mesh3):
@@ -5983,6 +6176,8 @@ def _sharded_worker(rank, world, init_method, inputs, out_dir):
     out = Path(out_dir)
     try:
         from bathymetric_gnn_tpu_torch.models.gnn import make_model
+        from bathymetric_gnn_tpu_torch.models.gnn_ell import make_ell_model
+        from bathymetric_gnn_tpu_torch.ops.cuda import ell_gat_fused as ef
         from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
         from bathymetric_gnn_tpu_torch.ops.cuda import segment_reduce as sr
         from bathymetric_gnn_tpu_torch.parallel import collectives as C
@@ -6001,10 +6196,11 @@ def _sharded_worker(rank, world, init_method, inputs, out_dir):
         initialize_distributed(init_method, world, rank, backend="gloo")
         inp = torch.load(inputs, weights_only=False)
         res, lines = {"fwd": {}}, []
-        # the plain versions of A / B and of F, counted for the rank's
-        # whole run: none may run on the card's path
+        # the plain versions of A / B, of C / C' and of F, counted for the
+        # rank's whole run: none may run on the card's path
         plain = []
         for mod, name in ((gf, "grid_gat_reference"),
+                          (ef, "ell_gat_reference"),
                           (sr, "segment_reduce_reference")):
             setattr(mod, name, counted_calls(getattr(mod, name), plain))
         depth, valid = inp["depth"], inp["valid"]
@@ -6082,6 +6278,43 @@ def _sharded_worker(rank, world, init_method, inputs, out_dir):
             state=np_state(cm), losses={k: float(v) for k, v in lo.items()},
             acc=float(acc), launches=sr.launches,
             ms=cuda_ms(torch, lambda: step(st, gl, tl, gen, SHARD_LR), 2))
+        # the COO step with exact=False (local BatchNorm), then the k-NN
+        # step (route C: C / C' / F (b)) in both modes, 2 tiles a rank
+        cm.load_state_dict(inp["coo_sd0"])
+        st = TrainState(cm, SGD(cm.parameters()))
+        step = DP.make_dp_train_step(cm, st.optimizer, inp["coo_tc"],
+                                     inp["coo_cw"].cuda(), inp["coo_hd"],
+                                     mesh, exact=False)
+        sr.launches = 0
+        _, lo, acc = step(st, gl, tl, gen, SHARD_LR)
+        torch.cuda.synchronize()
+        res["coo_local_bn_step"] = dict(
+            state=np_state(cm), losses={k: float(v) for k, v in lo.items()},
+            acc=float(acc), launches=sr.launches,
+            ms=cuda_ms(torch, lambda: step(st, gl, tl, gen, SHARD_LR), 2))
+        del cm, st, step
+        km = make_ell_model(cfg.model, inp["knn_dims"][0],
+                            edge_dim=inp["knn_dims"][1],
+                            sparse_kernel="banded_pallas").cuda()
+        kg, kb = DP.stack_banded_batches(
+            [(h, None) for h in inp["knn_halves"]], mesh)
+        kg = kg.to("cuda")
+        kt = shard_batch_pytree(inp["knn_targets"], mesh)
+        for key, exact in (("knn_step", True), ("knn_local_bn_step", False)):
+            km.load_state_dict(inp["knn_sd0"])
+            st = TrainState(km, SGD(km.parameters()))
+            step = DP.make_dp_sparse_train_step(
+                km, st.optimizer, inp["knn_tc"], inp["knn_cw"].cuda(),
+                inp["knn_hd"], mesh, exact=exact)
+            ef.train_launches = ef.bwd_launches = sr.launches = 0
+            _, lo, acc = step(st, kg, kb, kt, gen, SHARD_LR)
+            torch.cuda.synchronize()
+            res[key] = dict(
+                state=np_state(km),
+                losses={k: float(v) for k, v in lo.items()}, acc=float(acc),
+                launches=(ef.train_launches, ef.bwd_launches, sr.launches),
+                ms=cuda_ms(torch, lambda: step(st, kg, kb, kt, gen,
+                                               SHARD_LR), 2))
         res["lines"] = lines
         res["plain_calls"] = list(plain)
         torch.save(res, out / f"rank{rank}.pt")
@@ -6097,8 +6330,8 @@ def _sharded_worker(rank, world, init_method, inputs, out_dir):
 def sharded_summary(w1, w2):
     """Phases 3l and 3m's numbers for the kernels' JSON line."""
     g = w1["grid"]
-    keep = ("launches", "loss_err", "leaf_err", "ms", "trainer_ms",
-            "trainer_launches")
+    keep = ("launches", "local_bn_launches", "loss_err", "leaf_err", "ms",
+            "local_bn_ms", "trainer_ms", "trainer_launches")
     return {
         "world_1_nccl": {
             "forward": g["forward"], "single_card_forward_ms": g["single_ms"],
@@ -6122,14 +6355,16 @@ def phase_sharded_two_ranks(torch, np, work, w1):
         for p in out.iterdir():
             p.unlink()
     out.mkdir(parents=True, exist_ok=True)
-    g, c = w1["grid"], w1["coo"]
+    g, c, k = w1["grid"], w1["coo"], w1["sparse"]
     inputs = out / "inputs.pt"
     torch.save(dict(
         depth=g["depth"], valid=g["valid"], grid_sd=g["grid_sd"],
         grid_sd0=g["grid_sd0"], grid_tc=g["grid_tc"], grid_cw=g["grid_cw"],
         grid_hd=g["grid_hd"], batch=g["batch"], coo_sd0=c["sd0"],
         coo_tc=c["tc"], coo_cw=c["cw"], coo_hd=c["hd"], coo_graph=c["graph"],
-        coo_targets=c["targets"]), inputs)
+        coo_targets=c["targets"], knn_sd0=k["sd0"], knn_tc=k["tc"],
+        knn_cw=k["cw"], knn_hd=k["hd"], knn_halves=k["halves"],
+        knn_targets=k["targets"], knn_dims=k["dims"]), inputs)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ctx = mp.spawn(_sharded_worker, args=(SHARD_WORLD,
@@ -6181,8 +6416,19 @@ def phase_sharded_two_ranks(torch, np, work, w1):
                                              g["halo_losses"]),
                  SHARD_STEP_TOL["halo_ranks"]),
                 ("COO data-parallel step", res["coo_step"],
-                 (c["state"], c["losses"]), SHARD_STEP_TOL["coo_ranks"])):
-            init = g["grid_init"] if "halo" in tag else c["init"]
+                 (c["state"], c["losses"]), SHARD_STEP_TOL["coo_ranks"]),
+                ("COO data-parallel step, exact=False",
+                 res["coo_local_bn_step"],
+                 (c["local_state"], c["local_losses"]),
+                 SHARD_STEP_TOL["coo_ranks"]),
+                ("k-NN data-parallel step", res["knn_step"],
+                 (k["state"], k["losses"]), SHARD_STEP_TOL["knn_ranks"]),
+                ("k-NN data-parallel step, exact=False",
+                 res["knn_local_bn_step"],
+                 (k["local_state"], k["local_losses"]),
+                 SHARD_STEP_TOL["knn_local_ranks"])):
+            init = (g["grid_init"] if "halo" in tag
+                    else k["init"] if "k-NN" in tag else c["init"])
             err, leaf = step_err(np, got["state"], want[0], init, True)
             lerr = loss_err(want[1], got["losses"])
             log(f"[3m] rank {r}: {tag} (2 ranks) vs 3l's world 1: losses "
@@ -6191,9 +6437,26 @@ def phase_sharded_two_ranks(torch, np, work, w1):
                 f"launches {got['launches']}")
             if max(err, lerr) > tol:
                 fails.append(f"rank {r} {tag}: {err:.3e} / {lerr:.3e}")
-        if res["coo_step"]["launches"] != c["launches"]:
-            fails.append(f"rank {r}: {res['coo_step']['launches']} F "
-                         f"launches in the COO step, 3l's {c['launches']}")
+        for key in ("coo_step", "coo_local_bn_step"):
+            if res[key]["launches"] != c["launches"]:
+                fails.append(f"rank {r}: {res[key]['launches']} F "
+                             f"launches in {key}, 3l's {c['launches']}")
+        e64 = f64_update_err(np, res["knn_step"]["state"], k["init"],
+                             k["grads_f64"])
+        over = {n: (e64[n], k["f64_err"][n]) for n in e64
+                if e64[n] > k["f64_err"][n] + SHARD_STEP_TOL["knn_f64"]}
+        worst = max(e64, key=lambda n: e64[n] - k["f64_err"][n])
+        log(f"[3m] rank {r}: k-NN data-parallel step (2 ranks) against the "
+            f"exact gradient in f64: worst {worst} {e64[worst]:.3e} of its "
+            f"largest entry (3l's world-1 step {k['f64_err'][worst]:.3e}; "
+            f"tol 3l's + {SHARD_STEP_TOL['knn_f64']:g})")
+        if over:
+            fails.append(f"rank {r} k-NN step against f64: {over}")
+        for key in ("knn_step", "knn_local_bn_step"):
+            if res[key]["launches"] != k["launches"]:
+                fails.append(f"rank {r}: C / C' / F launches "
+                             f"{res[key]['launches']} in {key}, 3l's "
+                             f"{k['launches']}")
         log(f"[3m] rank {r}: plain calls {len(res['plain_calls'])}")
         if res["plain_calls"]:
             fails.append(f"rank {r}: plain versions ran: "
@@ -6217,9 +6480,13 @@ def phase_sharded_two_ranks(torch, np, work, w1):
                                     | {"fwd_ms": {n: f["ms"] for n, f in
                                                   res["fwd"].items()},
                                        "halo_step_ms":
-                                           res["halo_step"]["ms"],
-                                       "coo_step_ms":
-                                           res["coo_step"]["ms"]}
+                                           res["halo_step"]["ms"]}
+                                    | {key: {"ms": res[key]["ms"],
+                                             "launches": res[key]["launches"]}
+                                       for key in ("coo_step",
+                                                   "coo_local_bn_step",
+                                                   "knn_step",
+                                                   "knn_local_bn_step")}
                                     for res in ranks])
 
 

@@ -223,11 +223,11 @@ class _Stats:
 
 
 def dp_steps(rank, world, config, cw, hd, graph, targets, state_dict, lr,
-             sparse, out_dir):
+             sparse, out_dir, exact=True):
     """The COO data-parallel train and eval steps on this rank's shard of
     the global batch (with world 1 also ``Trainer.train_step`` on the
     whole batch), or, given ``sparse`` ((pairs, targets)), the k-NN step
-    on routes C and D.
+    on routes C and D; the train steps with ``exact``.
     ``config`` is the port's Config (its grad_clip_norm out of reach)."""
     from bathymetric_gnn_tpu_torch.models.gnn import make_model
     from bathymetric_gnn_tpu_torch.models.gnn_ell import make_ell_model
@@ -258,7 +258,7 @@ def dp_steps(rank, world, config, cw, hd, graph, targets, state_dict, lr,
                 getattr(st.model.GNNBackbone_0,
                         f"GATConv_{i}").wide_kernel = wide
             sstep = DP.make_dp_sparse_train_step(st.model, st.optimizer, tc,
-                                                 cw, hd, mesh)
+                                                 cw, hd, mesh, exact=exact)
             _, sl, sa = sstep(st, g, None if wide else banded,
                               shard_batch_pytree(sp_targets, mesh),
                               torch.Generator().manual_seed(0), lr)
@@ -268,7 +268,8 @@ def dp_steps(rank, world, config, cw, hd, graph, targets, state_dict, lr,
     g_local = shard_batch_pytree(graph, mesh)
     t_local = shard_batch_pytree(targets, mesh)
     st = fresh()
-    step = DP.make_dp_train_step(st.model, st.optimizer, tc, cw, hd, mesh)
+    step = DP.make_dp_train_step(st.model, st.optimizer, tc, cw, hd, mesh,
+                                 exact=exact)
     _, losses, acc = step(st, g_local, t_local,
                           torch.Generator().manual_seed(0), lr)
     res["coo"] = (_scalars(losses, acc), _numpy_state(st.model))
@@ -283,6 +284,13 @@ def dp_steps(rank, world, config, cw, hd, graph, targets, state_dict, lr,
                                _to_device_targets(targets, "cpu"), lr)
         res["trainer"] = (_scalars(l1, a1), _numpy_state(st.model))
     return res
+
+
+def dp_modes(rank, world, jobs):
+    """``dp_steps`` on each of ``jobs`` (its arguments from ``config`` to
+    ``out_dir``) with ``exact`` True and False: [{exact: result}]."""
+    return [{exact: dp_steps(rank, world, *job, exact)
+             for exact in (True, False)} for job in jobs]
 
 
 # -- the 1-D and 2-D halo models -------------------------------------------------
