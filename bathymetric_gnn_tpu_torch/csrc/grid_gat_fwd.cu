@@ -108,8 +108,8 @@ struct Cfg {
   static constexpr int NWARPS = HEADS == 8 ? 16 : 8;
   static constexpr int NTHREADS = 32 * NWARPS;
   static constexpr int HW = TW + 2;                 // halo width
-  static constexpr int NHALO = (TH + 2) * HW;       // 512 (256)
-  static constexpr int NCELL = TH * TW;             // 420 (196)
+  static constexpr int NHALO = (TH + 2) * HW;       // 256
+  static constexpr int NCELL = TH * TW;             // 196
   static constexpr int MT = NHALO / 16 / NWARPS;    // m16 tiles a warp
   static constexpr int ND = 2 * HEADS <= 8 ? 8 : 16;  // dot columns
   static constexpr int NT = NC / 8;

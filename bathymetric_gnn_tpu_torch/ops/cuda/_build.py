@@ -5,7 +5,10 @@ source (all started together by ``build_all``), into a shared library with
 a plain C interface under ``build/torch_kernels/`` at the root of the
 checkout. The file name carries a hash of the source and of the shared
 headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
-library is never loaded. Nothing is built from
+library is never loaded. ``lineinfo=True`` builds the same source with
+``-lineinfo`` into a file of its own (``<name>-lineinfo-<hash>.so``), for
+tools that name source lines in their reports (compute-sanitizer); no
+model path loads it. Nothing is built from
 outside the checkout; nvcc is taken from ``$CUDA_HOME``, ``PATH`` or
 ``/usr/local/cuda``.
 """
@@ -90,7 +93,7 @@ KERNELS: Dict[str, tuple] = {
     }),
 }
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -103,25 +106,27 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, lineinfo: bool = False) -> Path:
     h = hashlib.sha1((CSRC / KERNELS[name][0]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    tag = "-lineinfo" if lineinfo else ""
+    return BUILD_DIR / f"{name}{tag}-{digest}.so"
 
 
-def _start(name: str):
+def _start(name: str, lineinfo: bool = False):
     """Start nvcc for one kernel; returns (proc, tmp path, final path, log)
     or None when the library is already built."""
-    out = library_path(name)
+    out = library_path(name, lineinfo)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           *(["-lineinfo"] if lineinfo else []), "-o", tmp,
            str(CSRC / KERNELS[name][0])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -162,16 +167,23 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
+def build(name: str, lineinfo: bool = False) -> Path:
+    """The library file of kernel ``name``, built first if needed."""
+    job = _start(name, lineinfo)
+    if job is not None:
+        _finish(name, job)
+    return library_path(name, lineinfo)
+
+
+def library(name: str, lineinfo: bool = False) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (its ``-lineinfo`` build with
+    ``lineinfo``), built first if needed."""
+    key = (name, lineinfo)
+    lib = _loaded.get(key)
     if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(build(name, lineinfo)))
         for fn, (restype, argtypes) in KERNELS[name][1].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib

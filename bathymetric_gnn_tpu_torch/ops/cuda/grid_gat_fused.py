@@ -349,18 +349,28 @@ class _FusedGridGAT(torch.autograd.Function):
             x=xk, w=wk, wa=wa, el=el, el_self=el_self, valid=valid,
             g=g.to(xk.dtype).contiguous(), eattr=ea, mattr=mattr,
             dmask=dmask, seed=seed, **ctx.kw)
-        hc = wk.shape[1]
-        heads = ctx.kw["heads"]
-        dw = dw_part[..., :hc].sum(0)
-        dwa = dw_part[..., hc:].sum(0)                      # [F, 2h]
-        a_cat = torch.cat([a_src_mat, a_dst_mat], dim=1).to(torch.float32)
-        dw_lin = dw + dwa @ a_cat.T
-        d_a = w_lin.to(torch.float32).T @ dwa               # [HC, 2h]
-        return (dx.to(x_dt), dw_lin.to(w_dt),
-                d_a[:, :heads].to(a_src_mat.dtype),
-                d_a[:, heads:].to(a_dst_mat.dtype),
-                dme_part.sum(0).to(me_dt), db_part.sum(0).to(b_dt),
+        dx, dw_lin, d_src, d_dst, dme, db = bwd_gradients(
+            dx, dw_part, dme_part, db_part, w_lin, a_src_mat, a_dst_mat)
+        return (dx.to(x_dt), dw_lin.to(w_dt), d_src.to(a_src_mat.dtype),
+                d_dst.to(a_dst_mat.dtype), dme.to(me_dt), db.to(b_dt),
                 None, None, None, None, None, None)
+
+
+def bwd_gradients(dx, dw_part, dme_part, db_part, w_lin, a_src_mat,
+                  a_dst_mat):
+    """Kernel B's outputs (``call_bwd_kernel``) -> the layer's gradients
+    (dx, dW_lin, d a_src, d a_dst, dM_edge, dbias): the per-block partials
+    summed, dW_lin = dW + d(W@a) a_cat^T and d a_cat = W^T d(W@a) (JAX
+    ``_fused_backward``), in f32 (dx in kernel B's dtype)."""
+    hc = w_lin.shape[1]
+    heads = a_src_mat.shape[1]
+    dw = dw_part[..., :hc].sum(0)
+    dwa = dw_part[..., hc:].sum(0)                          # [F, 2h]
+    a_cat = torch.cat([a_src_mat, a_dst_mat], dim=1).to(torch.float32)
+    dw_lin = dw + dwa @ a_cat.T
+    d_a = w_lin.to(torch.float32).T @ dwa                   # [HC, 2h]
+    return (dx, dw_lin, d_a[:, :heads], d_a[:, heads:], dme_part.sum(0),
+            db_part.sum(0))
 
 
 def drop_threshold(keep_prob: float):
@@ -456,17 +466,18 @@ def _ptr(t: Optional[torch.Tensor]):
 def call_kernel(*, x, w, wa, el, el_self, valid, bias, bn_scale, bn_shift,
                 heads, connectivity, negative_slope, fuse_bn, fuse_relu,
                 drop_mode=0, dmask=None, seed=None, thresh=0, keep_inv=1.0,
-                train=False):
+                train=False, empty=torch.empty):
     """Launch kernel A on prepared inputs (``kernel_args``) on the current
-    stream; returns the output [B, H, W, HC]. The only place that counts
-    ``launches`` (inference form) and ``train_launches`` (training
-    form)."""
+    stream; returns the output [B, H, W, HC], allocated by ``empty``
+    (``torch.empty``; the guard checks pass a ``guard.GuardPool``'s). The
+    only place that counts ``launches`` (inference form) and
+    ``train_launches`` (training form)."""
     global launches, train_launches
     from ._build import library
 
     b, h, wd, f_in = x.shape
     hc = w.shape[1]
-    out = torch.empty(b, h, wd, hc, device=x.device, dtype=x.dtype)
+    out = empty(b, h, wd, hc, device=x.device, dtype=x.dtype)
     lib = library("grid_gat_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -501,13 +512,15 @@ def _splits(ncell: int):
 
 def call_bwd_kernel(*, x, w, wa, el, el_self, valid, g, eattr, mattr, heads,
                     connectivity, negative_slope, drop_mode=0, dmask=None,
-                    seed=None, thresh=0, keep_inv=1.0):
+                    seed=None, thresh=0, keep_inv=1.0, empty=torch.empty):
     """Launch kernel B (its attention and products kernels) on the inputs
     kernel A was given (``kernel_args``), the cotangent ``g`` [B, H, W, HC]
     and the edge attribute terms (``edge_attr_terms``). Returns (dx
     [B, H, W, F], dW|d(W@a) partials [nsplit, F, HC + 2h], dM_edge
     partials [nblk, ed, heads], dbias partials [nblk, HC]), the partials
-    f32. The only place that counts ``bwd_launches``."""
+    f32; they and the scratch between the two kernels (dxh, d_ad) are
+    allocated by ``empty``, as in ``call_kernel``. The only place that
+    counts ``bwd_launches``."""
     global bwd_launches
     from ._build import library
 
@@ -523,13 +536,13 @@ def call_bwd_kernel(*, x, w, wa, el, el_self, valid, g, eattr, mattr, heads,
     lib = library("grid_gat_bwd")
     nblk = lib.grid_gat_bwd_blocks(heads, b, h, wd)
     nsplit, cps = _splits(b * h * wd)
-    dxh = torch.empty(b, h, wd, hc, device=dev, dtype=dt)
-    dad = torch.empty(b, h, wd, 2 * heads, device=dev, dtype=dt)
-    dme_part = torch.empty(nblk, ed, heads, device=dev, dtype=torch.float32)
-    db_part = torch.empty(nblk, hc, device=dev, dtype=torch.float32)
-    dx = torch.empty(b, h, wd, f_in, device=dev, dtype=dt)
-    dw_part = torch.empty(nsplit, f_in, hc + 2 * heads, device=dev,
-                          dtype=torch.float32)
+    dxh = empty(b, h, wd, hc, device=dev, dtype=dt)
+    dad = empty(b, h, wd, 2 * heads, device=dev, dtype=dt)
+    dme_part = empty(nblk, ed, heads, device=dev, dtype=torch.float32)
+    db_part = empty(nblk, hc, device=dev, dtype=torch.float32)
+    dx = empty(b, h, wd, f_in, device=dev, dtype=dt)
+    dw_part = empty(nsplit, f_in, hc + 2 * heads, device=dev,
+                    dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grid_gat_bwd(

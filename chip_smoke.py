@@ -17,6 +17,19 @@ Run from the root of a checkout. Phases, each printing its own lines:
    64 x 4 heads, 1024^2 tiles) and at the default VR route's slab shape
    ([128, 56, 56] of refinement grids, the three layer widths, f32 and
    bf16);
+2a. kernels A and B with every input and output flush against unmapped
+   address space (``ops/cuda/guard.py``), once at the end of the mapping
+   and once at the start, so that an access just past either end of a
+   buffer faults every time (first checked: a kernel's read just outside
+   a guard-placed tensor faults, in two child processes, one a layout):
+   kernel A at every phase-2 case and at odd
+   shapes (F 7 and 13, HC not a multiple of 4, H and W below one 14 x 14
+   block, heads 1, 2 and 8), kernel A's training form and kernel B at
+   phase 2b's f32 cases and the odd shapes, with a streamed mask and with
+   the Philox draw; each call synchronized, bit for bit the ordinary call
+   and within 2's / 2b's tolerances of the plain version; then 50 more
+   launches of each phase-2 case, each synchronized and bit for bit the
+   first;
 2b. kernel A (training form, streamed dropout mask) and kernel B against
    the plain forward and autograd of it, at the training model's three
    layer shapes on [4, 256, 256], f32 and bf16, plus a ragged shape and
@@ -427,30 +440,33 @@ def random_bn_stats(torch, np, model, seed):
 
 # -- phase 2 ---------------------------------------------------------------------
 
-def layer_cases(torch, np, model, dev):
-    """(label, args, kwargs, dims) for the main path's layer shapes."""
+def layer_cases(torch, np, model, dev, n=None, tile=TILE, ragged=RAGGED):
+    """(label, args, kwargs, dims) for the main path's layer shapes (the
+    first ``n`` of them; at a ``tile`` x ``tile`` tile and a ``tile`` x
+    ``ragged`` edge tile)."""
     from bathymetric_gnn_tpu_torch.data.graph_build import build_grid_inputs
     from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
 
-    depth, _ = synthetic_survey(np, TILE, TILE, SEED + 1)
+    cases = []
+    layers = [(0, "layer0 64->256 h4 BN+ReLU", True),
+              (1, "mid 256->256 h4 BN+ReLU", True),
+              (MODEL_LAYERS - 1, "last 256->64 h1 BN", False)]
+    for (hgt, wid) in ((tile, tile), (tile, ragged)):
+        for li, label, relu in layers:
+            for dtype in ("float32", "bfloat16"):
+                cases.append((li, label, relu, dtype, hgt, wid, 8))
+    cases.append((1, "mid 256->256 h4 BN+ReLU", True, "float32", tile, tile,
+                  4))
+    cases = cases[:n]
+    depth, _ = synthetic_survey(np, tile, tile, SEED + 1)
     inputs = {}   # each tile shape is featurized on its own, as a tile is
-    for conn, wid in ((8, TILE), (8, RAGGED), (4, TILE)):
+    for conn, wid in dict.fromkeys((c[6], c[5]) for c in cases):
         d = depth[:, :wid]
         inputs[conn, wid] = build_grid_inputs(
             torch.from_numpy(np.nan_to_num(d))[None].to(dev),
             torch.from_numpy(np.isfinite(d))[None].to(dev),
             connectivity=conn)
     g = torch.Generator().manual_seed(SEED + 2)
-    cases = []
-    layers = [(0, "layer0 64->256 h4 BN+ReLU", True),
-              (1, "mid 256->256 h4 BN+ReLU", True),
-              (MODEL_LAYERS - 1, "last 256->64 h1 BN", False)]
-    for (hgt, wid) in ((TILE, TILE), (TILE, RAGGED)):
-        for li, label, relu in layers:
-            for dtype in ("float32", "bfloat16"):
-                cases.append((li, label, relu, dtype, hgt, wid, 8))
-    cases.append((1, "mid 256->256 h4 BN+ReLU", True, "float32", TILE, TILE,
-                  4))
     out = []
     for li, label, relu, dtype, hgt, wid, conn in cases:
         conv = getattr(model, f"GridGATConv_{li}")
@@ -531,15 +547,31 @@ def slab_layer_cases(torch, np, model, dev):
 
 
 def phase_kernel_vs_plain(torch, cases):
+    """Kernel A (``fused_grid_gat_infer``'s two steps: ``kernel_args``, the
+    setup, then ``call_kernel``) against its plain version, each step
+    synchronized, so that a CUDA error names the step it surfaced in."""
     from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
 
     worst = {}
     with torch.no_grad():
         for label, args, kw, dims in cases:
-            out = gf.fused_grid_gat_infer(*args, **kw)
-            torch.cuda.synchronize()
-            ref = gf.grid_gat_reference(*args, **kw)
-            torch.cuda.synchronize()
+            step = "inputs"
+            try:
+                torch.cuda.synchronize()
+                step = "setup (kernel_args)"
+                kargs = gf.kernel_args(*args, **kw)
+                torch.cuda.synchronize()
+                step = "kernel A"
+                out = gf.call_kernel(**kargs)
+                torch.cuda.synchronize()
+                step = "plain version"
+                ref = gf.grid_gat_reference(*args, **kw)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                log(f"[2] {label}: failed in the {step}: "
+                    f"{str(e).splitlines()[0]}")
+                raise
+            del kargs
             d = (out.float() - ref.float()).abs()
             rel = (d / (1 + ref.float().abs())).max().item()
             ok = (rel <= TOL[dims["dtype"]]
@@ -551,6 +583,239 @@ def phase_kernel_vs_plain(torch, cases):
             worst[label] = d.max().item()
             del out, ref
     return worst
+
+
+# -- phase 2a --------------------------------------------------------------------
+
+GUARD_REPEATS = 50     # phase 2a: launches of each phase-2 case, bit for bit
+# Shapes phases 2 and 2b miss, (B, H, W, F, heads, C, connectivity): F not
+# a multiple of the 16-byte vector (7, 13), HC not a multiple of 4 (6, 5,
+# 1), C not a multiple of 4 (3, 5, 2, 6), H and W below one 14 x 14 block,
+# heads 1, 2 and 8.
+GUARD_SHAPES = [
+    (2, 37, 53, 7, 2, 3, 8),
+    (1, 29, 31, 13, 1, 5, 4),
+    (3, 5, 9, 13, 8, 2, 8),
+    (1, 13, 11, 7, 2, 6, 4),
+    (2, 17, 15, 40, 8, 8, 8),
+    (1, 1, 1, 7, 1, 1, 8),
+]
+
+
+def guard_cases(torch, np, dev):
+    """Kernel A's inference cases at GUARD_SHAPES (BatchNorm + ReLU
+    epilogue), and the training cases (label, args, dims) of the same
+    shapes, from seeded random layers and surveys."""
+    from bathymetric_gnn_tpu_torch.data.graph_build import build_grid_inputs
+    from bathymetric_gnn_tpu_torch.models.grid_gat import GridGATConv
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    infer, train = [], []
+    for b, h, w, f_in, heads, c, conn in GUARD_SHAPES:
+        depth = 30 + torch.randn(b, h, w, generator=g).cumsum(1) * 0.05
+        valid = torch.rand(b, h, w, generator=g) > 0.05
+        _, v, nbr, ea, _ = build_grid_inputs(depth.to(dev), valid.to(dev),
+                                             connectivity=conn)
+        conv = GridGATConv(f_in, c, heads=heads, concat=heads > 1,
+                           connectivity=conn, generator=g)
+        params = {n: p.detach() for n, p in conv.named_parameters()}
+        w_lin, a_s, a_d, m_e, bias = (
+            t.to(dev) for t in gf.gat_param_matrices(params, heads, c, 3))
+        x = torch.randn(b, h, w, f_in, generator=g).to(dev) * v[..., None]
+        sc = (torch.rand(heads * c, generator=g) + 0.5).to(dev)
+        sh = (torch.randn(heads * c, generator=g) * 0.1).to(dev)
+        args = (x, w_lin, a_s, a_d, m_e, ea, nbr.float(), v.float(), bias,
+                conn, 0.2, True)
+        dims = dict(b=b, h=h, w=w, f=f_in, hc=heads * c, heads=heads, k=conn,
+                    ed=3)
+        shape = f"{b}x{h}x{w} F{f_in} h{heads} HC{heads * c} conn{conn}"
+        for dtype in ("float32", "bfloat16"):
+            infer.append((f"odd {shape} {dtype}", args,
+                          dict(bn_scale=sc, bn_bias=sh, fuse_relu=True,
+                               compute_dtype=getattr(torch, dtype)),
+                          dict(dims, dtype=dtype)))
+            train.append((f"odd {shape} {dtype}", args,
+                          dict(dims, dtype=dtype)))
+    return infer, train
+
+
+def same_bits(torch, a, b):
+    """a and b hold the same bits (torch.equal takes -0 == 0 and NaN !=
+    NaN)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    it = ints[a.element_size()]
+    return torch.equal(a.contiguous().view(it), b.contiguous().view(it))
+
+
+def rel_err(torch, out, ref):
+    d = (out.float() - ref.float()).abs()
+    return (d / (1 + ref.float().abs())).max().item()
+
+
+def guard_infer(torch, label, args, kw, dims, tag):
+    """Kernel A's inference form on guard-page copies of its inputs, its
+    output guard-placed too, at the end and at the start of the mapping:
+    no CUDA error, bit for bit the ordinary call, within TOL of the plain
+    version. Returns the number of guarded launches."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.ops.cuda import guard
+
+    dt = dims["dtype"]
+    with torch.no_grad():
+        kargs = gf.kernel_args(*args, **kw)
+        base = gf.call_kernel(**kargs)
+        ref = gf.grid_gat_reference(*args, **kw)
+        torch.cuda.synchronize()
+        for at in guard.LAYOUTS:
+            log(f"[{tag}] start A {label} flush {at}")
+            out = guard.guarded_call(gf.call_kernel, kargs, at)
+            rel = rel_err(torch, out, ref)
+            ok = (same_bits(torch, out, base) and rel <= TOL[dt]
+                  and bool(torch.isfinite(out.float()).all()))
+            log(f"[{tag}] A {label} flush {at}: bit for bit the ordinary "
+                f"call {same_bits(torch, out, base)}, max_rel(1+|ref|) "
+                f"{rel:.3e} tol {TOL[dt]:.1e} {'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel A under guard pages ({at}): {label}")
+    return len(guard.LAYOUTS)
+
+
+def guard_train(torch, label, args, dims, tag, drop, with_b=True):
+    """Kernel A's training form and kernel B on guard-page copies of their
+    inputs, their outputs (and B's dxh / d_ad scratch) guard-placed, at
+    the end and at the start: no CUDA error, bit for bit the ordinary
+    calls, within TOL / GRAD_TOL of the plain forward and autograd of it.
+    ``drop``: "mask" (a streamed dropout mask) or "philox" (the in-kernel
+    draw). Returns the number of guarded launches."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+    from bathymetric_gnn_tpu_torch.ops.cuda import guard
+
+    dt = dims["dtype"]
+    cdt = getattr(torch, dt)
+    x, w_lin, a_s, a_d, m_e, ea, nbr, v, bias, conn, slope, use_edge = args
+    seed = torch.tensor([0x5EED0000C0FFEE], dtype=torch.int64,
+                        device=x.device)
+    if drop == "philox":
+        mask = gf.drop_mask(seed, KEEP, dims["b"], dims["k"], dims["heads"],
+                            dims["h"], dims["w"])
+        dkw = dict(drop_seed=seed, keep_prob=KEEP)
+    else:
+        mask = case_dmask(torch, args, dims, SEED + 20)
+        dkw = dict(dmask=mask)
+    ref, rgrads, g = train_run(torch, gf.grid_gat_reference, args, dt,
+                               dmask=mask)
+    with torch.no_grad():
+        kargs = gf.kernel_args(*args, bn_scale=None, bn_bias=None,
+                               fuse_relu=False, compute_dtype=cdt, train=True,
+                               **dkw)
+        eattr, mattr = gf.edge_attr_terms(ea, nbr, use_edge, cdt)
+        bkw = {k: kargs[k] for k in (
+            "x", "w", "wa", "el", "el_self", "valid", "heads",
+            "connectivity", "negative_slope", "drop_mode", "dmask", "seed",
+            "thresh", "keep_inv")}
+        bkw.update(g=g.to(cdt).contiguous(), eattr=eattr, mattr=mattr)
+        base = gf.call_kernel(**kargs)
+        base_b = gf.call_bwd_kernel(**bkw) if with_b else ()
+        torch.cuda.synchronize()
+        for at in guard.LAYOUTS:
+            log(f"[{tag}] start A (train, {drop}) {label} flush {at}")
+            out = guard.guarded_call(gf.call_kernel, kargs, at)
+            rel = rel_err(torch, out, ref)
+            ok = (same_bits(torch, out, base) and rel <= TOL[dt]
+                  and bool(torch.isfinite(out.float()).all()))
+            msg = (f"A bit for bit {same_bits(torch, out, base)}, "
+                   f"max_rel(1+|ref|) {rel:.3e}")
+            if with_b:
+                log(f"[{tag}] start B ({drop}) {label} flush {at}")
+                parts = guard.guarded_call(gf.call_bwd_kernel, bkw, at)
+                bits = all(same_bits(torch, p, q)
+                           for p, q in zip(parts, base_b))
+                grads = gf.bwd_gradients(*parts, w_lin, a_s, a_d)
+                worst = 0.0
+                for a, r in zip(grads, rgrads):
+                    scale = r.float().abs().max().item() + 1e-12
+                    e = (a.float() - r.float()).abs().max().item() / scale
+                    worst = max(worst, e)
+                    ok = ok and bool(torch.isfinite(a.float()).all())
+                ok = ok and bits and worst <= GRAD_TOL[dt]
+                msg += (f"; B bit for bit {bits}, worst err/scale "
+                        f"{worst:.2e} (tol {GRAD_TOL[dt]:.1e})")
+            log(f"[{tag}] A{'+B' if with_b else ''} (train, {drop}) {label} "
+                f"flush {at}: {msg} {'ok' if ok else 'FAIL'}")
+            check(ok, f"training kernels under guard pages ({at}, {drop}): "
+                      f"{label}")
+    return len(guard.LAYOUTS) * (2 if with_b else 1)
+
+
+def repeat_bits(torch, cases, n, tag):
+    """Each case's kernel A launched n more times on the same prepared
+    inputs, each launch synchronized (a CUDA error raises there) and
+    bit for bit the first launch (the kernel is deterministic: a race on
+    shared memory shows here as differing bits even when it does not
+    fault). Returns the number of launches."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import grid_gat_fused as gf
+
+    with torch.no_grad():
+        for label, args, kw, dims in cases:
+            kargs = gf.kernel_args(*args, **kw)
+            first = gf.call_kernel(**kargs)
+            torch.cuda.synchronize()
+            for i in range(n):
+                out = gf.call_kernel(**kargs)
+                torch.cuda.synchronize()
+                check(same_bits(torch, out, first),
+                      f"kernel A launch {i + 2} differs from the first: "
+                      f"{label}")
+                del out
+            log(f"[{tag}] {label}: {n} more launches, each bit for bit the "
+                f"first")
+            del kargs, first
+    return len(cases) * (n + 1)
+
+
+def phase_guard_and_repeat(torch, np, cases, tcases, dev, repeats=GUARD_REPEATS,
+                           train_dtypes=("float32",), tag="2a"):
+    """Phase 2a: the guard's self-check (a kernel's read just outside a
+    guard-placed tensor faults, in a child process a layout); kernel A at
+    every phase-2 case and at GUARD_SHAPES under guard pages (inference
+    form; the training form with kernel B at phase 2b's cases of
+    ``train_dtypes`` and at GUARD_SHAPES, streamed mask and Philox), flush
+    at the end and at the start; then ``repeats`` launches of each phase-2
+    case, bit for bit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bathymetric_gnn_tpu_torch.ops.cuda import guard
+
+    t0 = time.perf_counter()
+    # the guard itself: a kernel's 8-byte read just outside a guard-placed
+    # tensor faults, each in a process of its own (a fault ends the CUDA
+    # context)
+    with ThreadPoolExecutor(len(guard.LAYOUTS)) as ex:
+        probes = dict(zip(guard.LAYOUTS, ex.map(guard.faults,
+                                                 guard.LAYOUTS)))
+    for at, (hit, line) in probes.items():
+        log(f"[{tag}] guard self-check, a read just outside a tensor flush "
+            f"at the {at}: {'faulted' if hit else 'DID NOT FAULT'}: {line}")
+        check(hit, f"a read just outside a guard-placed tensor ({at}) did "
+                   f"not fault: {line}")
+    oinfer, otrain = guard_cases(torch, np, dev)
+    n_guard = 0
+    for label, args, kw, dims in cases + oinfer:
+        n_guard += guard_infer(torch, label, args, kw, dims, tag)
+    for label, args, dims in tcases + otrain:
+        if dims["dtype"] not in train_dtypes and not label.startswith("odd"):
+            continue
+        for drop in ("mask", "philox"):
+            n_guard += guard_train(torch, label, args, dims, tag, drop)
+    t_guard = time.perf_counter() - t0
+    n_rep = repeat_bits(torch, cases, repeats, tag) if repeats else 0
+    secs = time.perf_counter() - t0
+    log(f"[{tag}] {n_guard} guarded launches in {t_guard:.3f} s, {n_rep} "
+        f"repeated launches; phase 2a took {secs:.3f} s")
+    return dict(guarded_launches=n_guard, repeats_per_case=repeats,
+                repeated_launches=n_rep, seconds=secs)
 
 
 # -- phase 2b --------------------------------------------------------------------
@@ -6532,8 +6797,11 @@ def main() -> int:
         cases = layer_cases(torch, np, model, dev)
         scases = slab_layer_cases(torch, np, model, dev)
         errs = phase_kernel_vs_plain(torch, cases + scases)
-        phase = "2b training kernels vs plain"
+        phase = "2a kernels A and B under guard pages, repeated bit for bit"
         tcases = train_cases(torch, np, dev)
+        guard_2a = phase_guard_and_repeat(torch, np, cases + scases, tcases,
+                                          dev)
+        phase = "2b training kernels vs plain"
         terrs = phase_train_kernels_vs_plain(torch, tcases)
         phase = "2c kernel C vs plain"
         kmodel = ell_model(torch, dev)
@@ -6669,6 +6937,7 @@ def main() -> int:
         },
         "streaming": {k: v for k, v in stream.items() if k != "bags"},
         "sharded": sharded_summary(shard1, shard2),
+        "guard_and_repeat_checks": guard_2a,
     }]
     trow = next(r for r in trows if r["shape"].startswith("mid")
                 and "float32" in r["shape"])

@@ -11,7 +11,10 @@ widths 1, 3, 4 and 256 against its plain version, the COO model's forward
 and train step of each type bit for bit over two runs, and the GCN / SAGE
 / GIN ELL layers on the card against the CPU; and F's mode (a) in every
 row form (``-k segment_narrow``: widths 1 to 260, f32 and bf16 rows, 16-byte
-chunks and scalar columns) bit for bit against the in-order sum.
+chunks and scalar columns) bit for bit against the in-order sum; and (``-k
+"guard or repeats"``) kernels A and B with every input and output flush
+against unmapped address space (``ops/cuda/guard.py``), and kernel A's
+launches repeated bit for bit.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (the CPU test runs). On a machine with an H100 and nvcc:
@@ -237,6 +240,128 @@ def test_philox_rate_and_fwd_bwd_agree(dev):
         assert torch.equal(a, m), name
     other = gf.drop_mask(seed + 1, 0.9, 2, 8, 4, 64, 96)
     assert not torch.equal(other, mask)
+
+
+# Guard pages (ops/cuda/guard.py): every input and output of kernels A and
+# B flush against unmapped address space, at the end and then at the start
+# of its mapping, so that a read or write just outside a buffer faults
+# every time. Shapes: F not a multiple of the 16-byte vector (7, 13), HC
+# not a multiple of 4 (6, 5, 1), C not a multiple of 4, H and W below one
+# 14 x 14 block, heads 1, 2 and 8, and the model's widths.
+GUARD_SHAPES = [
+    (2, 37, 53, 7, 2, 3, 8),
+    (1, 29, 31, 13, 1, 5, 4),
+    (3, 5, 9, 13, 8, 2, 8),
+    (1, 13, 11, 7, 2, 6, 4),
+    (2, 17, 15, 40, 8, 8, 8),
+    (1, 1, 1, 7, 1, 1, 8),
+    (1, 64, 96, 64, 4, 64, 8),
+]
+
+
+def _same_bits(a, b):
+    ints = {2: torch.int16, 4: torch.int32}
+    it = ints[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+
+
+@pytest.mark.parametrize("at", ["end", "start"])
+def test_guard_pages_fault_just_outside_a_tensor(dev, at):
+    """The guard works: a kernel's 8-byte read just past the end (or
+    before the start) of a guard-placed tensor ends its process with a
+    fault (``guard.overrun``)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import guard
+
+    hit, line = guard.faults(at)
+    assert hit, line
+
+
+@pytest.mark.parametrize("at", ["end", "start"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GUARD_SHAPES)
+def test_kernel_under_guard_pages_matches_plain(dev, at, dtype, shape):
+    """Kernel A (inference form, BatchNorm + ReLU epilogue) on guard-page
+    copies of its inputs, its output guard-placed: no fault, bit for bit
+    the ordinary call, within TOL of the plain version."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import guard
+
+    args, sc, sh = _layer_inputs(dev, *shape)
+    kw = dict(bn_scale=sc, bn_bias=sh, fuse_relu=True, compute_dtype=dtype)
+    with torch.no_grad():
+        kargs = gf.kernel_args(*args, **kw)
+        base = gf.call_kernel(**kargs)
+        out = guard.guarded_call(gf.call_kernel, kargs, at)
+        ref = gf.grid_gat_reference(*args, **kw)
+    assert _same_bits(out, base)
+    err = (out.float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert err.max().item() <= TOL[dtype], err.max().item()
+
+
+@pytest.mark.parametrize("at", ["end", "start"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GUARD_SHAPES)
+@pytest.mark.parametrize("drop", ["mask", "philox"])
+def test_train_kernels_under_guard_pages_match_plain(dev, at, dtype, shape,
+                                                     drop):
+    """Kernel A's training form and kernel B on guard-page copies of their
+    inputs, their outputs and B's scratch guard-placed: no fault, bit for
+    bit the ordinary calls, within TOL / GRAD_TOL of the plain forward and
+    autograd of it (streamed mask, or the Philox draw given to the plain
+    version as its mask)."""
+    from bathymetric_gnn_tpu_torch.ops.cuda import guard
+
+    b, h, w, f_in, heads, c, conn = shape
+    args, _, _ = _layer_inputs(dev, *shape)
+    seed = torch.tensor([20241017], dtype=torch.int64, device=dev)
+    if drop == "philox":
+        mask = gf.drop_mask(seed, 0.9, b, conn, heads, h, w)
+        dkw = dict(drop_seed=seed, keep_prob=0.9)
+    else:
+        mask = _dmask(args, heads)
+        dkw = dict(dmask=mask)
+    ref, rgrads, g = _train_run(gf.grid_gat_reference, args, mask, dtype)
+    x, wl, a_s, a_d, me, ea, nbr, v, bias = args[:9]
+    with torch.no_grad():
+        kargs = gf.kernel_args(*args, bn_scale=None, bn_bias=None,
+                               fuse_relu=False, compute_dtype=dtype,
+                               train=True, **dkw)
+        eattr, mattr = gf.edge_attr_terms(ea, nbr, True, dtype)
+        bkw = {k: kargs[k] for k in (
+            "x", "w", "wa", "el", "el_self", "valid", "heads",
+            "connectivity", "negative_slope", "drop_mode", "dmask", "seed",
+            "thresh", "keep_inv")}
+        bkw.update(g=g.to(dtype).contiguous(), eattr=eattr, mattr=mattr)
+        base = gf.call_kernel(**kargs)
+        base_b = gf.call_bwd_kernel(**bkw)
+        out = guard.guarded_call(gf.call_kernel, kargs, at)
+        parts = guard.guarded_call(gf.call_bwd_kernel, bkw, at)
+    assert _same_bits(out, base)
+    assert all(_same_bits(p, q) for p, q in zip(parts, base_b))
+    err = (out.float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert err.max().item() <= TOL[dtype], err.max().item()
+    grads = gf.bwd_gradients(*parts, wl, a_s, a_d)
+    for name, a, r in zip(LEAVES, grads, rgrads):
+        scale = r.float().abs().max().item() + 1e-6
+        d = (a.float() - r.float()).abs().max().item()
+        assert d <= GRAD_TOL[dtype] * scale, (name, d, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [GUARD_SHAPES[0], GUARD_SHAPES[2],
+                                   (2, 64, 96, 64, 4, 64, 8)])
+def test_kernel_repeats_bit_for_bit(dev, dtype, shape):
+    """Kernel A is deterministic: 50 launches on the same prepared inputs,
+    each synchronized, give the first launch's bits."""
+    args, sc, sh = _layer_inputs(dev, *shape)
+    kw = dict(bn_scale=sc, bn_bias=sh, fuse_relu=True, compute_dtype=dtype)
+    with torch.no_grad():
+        kargs = gf.kernel_args(*args, **kw)
+        first = gf.call_kernel(**kargs)
+        torch.cuda.synchronize()
+        for _ in range(50):
+            out = gf.call_kernel(**kargs)
+            torch.cuda.synchronize()
+            assert _same_bits(out, first)
 
 
 # The halo model's strip shape: the row-sharded grid model finishes each
