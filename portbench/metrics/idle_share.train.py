@@ -1,0 +1,7 @@
+"""Share of the traced training window with nothing running on the card."""
+
+from portbench.roofline import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx)
