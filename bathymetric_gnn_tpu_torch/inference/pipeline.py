@@ -27,6 +27,7 @@ from ..data.graph_build import build_grid_inputs
 from ..data.tiling import TileManager, TileMerger
 from ..io.loaders import BathymetricGrid, BathymetricLoader, BathymetricWriter
 from ..models.grid_gat import GridBathymetricGNN
+from ..utils import prof
 from ..utils.weights import load_state_dict, state_dict_from_flax
 
 logger = logging.getLogger(__name__)
@@ -193,22 +194,35 @@ class BathymetricPipeline:
                       uncertainty: Optional[np.ndarray],
                       resolution) -> torch.Tensor:
         """[B, H, W] tiles -> packed f16 [3, B, H, W] on the device
-        (featurization, model, correction denormalization)."""
+        (featurization, model, correction denormalization). Spans
+        (``utils/prof``): ``pipeline.forward_tiles`` around
+        ``pipeline.upload``, ``pipeline.featurize``, ``model.layers`` and
+        ``pipeline.heads``."""
         dev = self.device
-        d = torch.from_numpy(np.ascontiguousarray(depth, np.float32)).to(dev)
-        v = torch.from_numpy(np.ascontiguousarray(valid)).to(dev)
-        u = (torch.from_numpy(np.ascontiguousarray(uncertainty, np.float32)
-                              ).to(dev) if uncertainty is not None else None)
-        feats, v, nbr, eattr, local_std = build_grid_inputs(
-            d, v, u, resolution=resolution,
-            connectivity=self.config.graph.connectivity,
-            stats_window=self.config.graph.local_stats_window,
-            with_uncertainty=u is not None)
-        out = self.model(feats, v, nbr, eattr)
-        corr = out.get("correction")
-        if corr is not None:
-            corr = corr * local_std.clamp_min(CORRECTION_NORM_FLOOR)
-        return _pack_channels(out, corr)
+        b = int(depth.shape[0])
+        with prof.TRACER.root("pipeline.forward_tiles", {"tiles": b}) as sp:
+            if sp is not None:
+                sp.work["cells"] = int(np.count_nonzero(valid))
+            with prof.TRACER.span("pipeline.upload", {"tiles": b}):
+                d = torch.from_numpy(np.ascontiguousarray(depth, np.float32)
+                                     ).to(dev)
+                v = torch.from_numpy(np.ascontiguousarray(valid)).to(dev)
+                u = (torch.from_numpy(np.ascontiguousarray(
+                    uncertainty, np.float32)).to(dev)
+                    if uncertainty is not None else None)
+            with prof.TRACER.span("pipeline.featurize", {"tiles": b}, dev):
+                feats, v, nbr, eattr, local_std = build_grid_inputs(
+                    d, v, u, resolution=resolution,
+                    connectivity=self.config.graph.connectivity,
+                    stats_window=self.config.graph.local_stats_window,
+                    with_uncertainty=u is not None)
+            x = self.model.trunk(feats, v, nbr, eattr)
+            with prof.TRACER.span("pipeline.heads", {"tiles": b}, dev):
+                out = self.model.heads(x)
+                corr = out.get("correction")
+                if corr is not None:
+                    corr = corr * local_std.clamp_min(CORRECTION_NORM_FLOOR)
+                return _pack_channels(out, corr)
 
     # -- processing --------------------------------------------------------
 
@@ -239,20 +253,25 @@ class BathymetricPipeline:
             nonlocal n_tiles
             while inflight and (force or len(inflight) > MAX_INFLIGHT):
                 tiles, res = inflight.pop(0)
-                arr = res.cpu().numpy()  # ONE copy: [3, B, H, W]
-                for bi, t in enumerate(tiles):
-                    merger.add_tile(t.spec, _unpack_channels(arr[:, bi]),
-                                    tile_valid=t.valid_mask)
-                    n_tiles += 1
+                work = {"tiles": len(tiles)}
+                with prof.TRACER.span("pipeline.to_host", work):
+                    arr = res.cpu().numpy()  # ONE copy: [3, B, H, W]
+                with prof.TRACER.span("pipeline.merge", work):
+                    for bi, t in enumerate(tiles):
+                        merger.add_tile(t.spec, _unpack_channels(arr[:, bi]),
+                                        tile_valid=t.valid_mask)
+                        n_tiles += 1
                 if n_tiles and n_tiles % 50 < len(tiles):
                     logger.info("processed %d tiles", n_tiles)
 
         def dispatch(tiles):
-            res = self.forward_tiles(
-                np.stack([np.nan_to_num(t.data) for t in tiles]),
-                np.stack([t.valid_mask for t in tiles]),
-                np.stack([np.nan_to_num(t.uncertainty) for t in tiles])
-                if use_unc else None, resolution)
+            with prof.TRACER.span("pipeline.stack", {"tiles": len(tiles)}):
+                stacked = (
+                    np.stack([np.nan_to_num(t.data) for t in tiles]),
+                    np.stack([t.valid_mask for t in tiles]),
+                    np.stack([np.nan_to_num(t.uncertainty) for t in tiles])
+                    if use_unc else None)
+            res = self.forward_tiles(*stacked, resolution)
             inflight.append((tiles, res))
             merge_ready()
 

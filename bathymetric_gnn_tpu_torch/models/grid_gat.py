@@ -25,6 +25,7 @@ from torch import nn
 
 from ..ops.cuda import grid_gat_fused
 from ..ops.features import atan_deg
+from ..utils import prof
 from .layers import (ClassificationHead, ConfidenceHead, CorrectionHead,
                      MLPFeatureExtractor, MaskedBatchNorm, keep_mask)
 
@@ -260,33 +261,54 @@ class GridBathymetricGNN(nn.Module):
         [B, K, H, W], edge_attr [B, K, H, W, 3] -> per-cell outputs.
         ``dropout_rng``: the generator dropout draws from in training
         mode (needed when ``dropout`` > 0)."""
+        return self.heads(self.trunk(features, valid, nbr_mask, edge_attr,
+                                     dropout_rng), dropout_rng)
+
+    def trunk(self, features: torch.Tensor, valid: torch.Tensor,
+              nbr_mask: torch.Tensor, edge_attr: torch.Tensor,
+              dropout_rng: Optional[torch.Generator] = None
+              ) -> torch.Tensor:
+        """The MLP extractor and the GAT layers (each with its BatchNorm):
+        [B, H, W, hidden] in f32, under the span ``model.layers``
+        (``utils/prof``)."""
         drop = self.training and self.dropout > 0
         fold = not self.training and not (
             torch.is_grad_enabled()
             and any(p.requires_grad for p in self.parameters()))
-        x = self.MLPFeatureExtractor_0(features.to(torch.float32),
-                                       dropout_rng)
-        flat_valid = valid.reshape(-1)
-        for i in range(self.num_layers):
-            last = i == self.num_layers - 1
-            conv = getattr(self, f"GridGATConv_{i}")
-            norm = getattr(self, f"MaskedBatchNorm_{i}")
-            if fold:
-                sc2, bi2 = norm.affine()
-                x = conv(x, valid, nbr_mask, edge_attr, bn_scale=sc2,
-                         bn_bias=bi2, fuse_relu=not last)
-                continue
-            x = conv(x, valid, nbr_mask, edge_attr, dropout_rng=dropout_rng)
-            shape = x.shape
-            flat = x.reshape(-1, shape[-1])
-            keep, keep_prob = None, 1.0
-            if drop and not last:
-                # ReLU + feature dropout fold into the norm's pass
-                keep_prob = 1.0 - self.dropout
-                keep = keep_mask(flat.shape, keep_prob, dropout_rng, x.device)
-            x = norm(flat, flat_valid, fuse_relu=not last, keep=keep,
-                     keep_prob=keep_prob).reshape(shape)
-        x = x.to(torch.float32)
+        with prof.TRACER.span("model.layers",
+                              {"tiles": int(features.shape[0])},
+                              features.device):
+            x = self.MLPFeatureExtractor_0(features.to(torch.float32),
+                                           dropout_rng)
+            flat_valid = valid.reshape(-1)
+            for i in range(self.num_layers):
+                last = i == self.num_layers - 1
+                conv = getattr(self, f"GridGATConv_{i}")
+                norm = getattr(self, f"MaskedBatchNorm_{i}")
+                if fold:
+                    sc2, bi2 = norm.affine()
+                    x = conv(x, valid, nbr_mask, edge_attr, bn_scale=sc2,
+                             bn_bias=bi2, fuse_relu=not last)
+                    continue
+                x = conv(x, valid, nbr_mask, edge_attr,
+                         dropout_rng=dropout_rng)
+                shape = x.shape
+                flat = x.reshape(-1, shape[-1])
+                keep, keep_prob = None, 1.0
+                if drop and not last:
+                    # ReLU + feature dropout fold into the norm's pass
+                    keep_prob = 1.0 - self.dropout
+                    keep = keep_mask(flat.shape, keep_prob, dropout_rng,
+                                     x.device)
+                x = norm(flat, flat_valid, fuse_relu=not last, keep=keep,
+                         keep_prob=keep_prob).reshape(shape)
+            return x.to(torch.float32)
+
+    def heads(self, x: torch.Tensor,
+              dropout_rng: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+        """The classification, confidence and correction heads on the
+        trunk's output."""
         logits = self.ClassificationHead_0(x, dropout_rng)
         out = {
             "class_logits": logits,

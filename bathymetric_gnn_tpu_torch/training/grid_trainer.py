@@ -31,6 +31,7 @@ from ..data.synthetic_noise import NoiseAugmentor, SyntheticNoiseGenerator
 from ..data.tiling import TileManager
 from ..inference.pipeline import resolve_device
 from ..models.grid_batched import BatchedGridGNN
+from ..utils import prof
 from ..utils.prefetch import prefetch_iterator
 from ..utils.weights import load_state_dict, save_checkpoint
 from . import losses as L
@@ -249,19 +250,27 @@ class GridTrainer:
 
     def train_step(self, state: TrainState, batch, lr: float):
         """One step: forward, backward (kernel B on the card), clip, AdamW.
-        Returns (losses, accuracy) as device tensors."""
-        model = state.model
-        params = list(model.parameters())
-        for p in params:
-            p.grad = None
-        losses, acc = self.loss_fn(model, batch, train=True)
-        losses["total"].backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        clip_by_global_norm_(grads, self.config.training.grad_clip_norm)
-        state.optimizer.step(grads, lr)
-        state.step += 1
-        return {k: t.detach() for k, t in losses.items()}, acc.detach()
+        Returns (losses, accuracy) as device tensors. Spans
+        (``utils/prof``): ``train.step`` around ``train.forward``,
+        ``train.backward`` and ``train.optimizer``."""
+        with prof.TRACER.root("train.step",
+                            {"tiles": int(batch["noisy"].shape[0])}):
+            model = state.model
+            params = list(model.parameters())
+            for p in params:
+                p.grad = None
+            with prof.TRACER.span("train.forward"):
+                losses, acc = self.loss_fn(model, batch, train=True)
+            with prof.TRACER.span("train.backward"):
+                losses["total"].backward()
+            with prof.TRACER.span("train.optimizer"):
+                grads = [p.grad if p.grad is not None
+                         else torch.zeros_like(p) for p in params]
+                clip_by_global_norm_(grads,
+                                     self.config.training.grad_clip_norm)
+                state.optimizer.step(grads, lr)
+            state.step += 1
+            return {k: t.detach() for k, t in losses.items()}, acc.detach()
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
@@ -290,12 +299,16 @@ class GridTrainer:
     # -- loop --------------------------------------------------------------
 
     def _batches(self, dataset, batch_size, shuffle=True):
+        """The epoch's batches, each read and stacked under the span
+        ``train.collate`` (``utils/prof``)."""
         order = np.arange(len(dataset))
         if shuffle:
             self.rng.shuffle(order)
         for s in range(0, len(order) - batch_size + 1, batch_size):
-            yield collate_grids([dataset[int(i)]
-                                 for i in order[s:s + batch_size]])
+            with prof.TRACER.span("train.collate", {"tiles": batch_size}):
+                batch = collate_grids([dataset[int(i)]
+                                       for i in order[s:s + batch_size]])
+            yield batch
 
     def train(self, resume: bool = False) -> TrainState:
         tc = self.config.training

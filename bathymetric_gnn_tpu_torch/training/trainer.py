@@ -275,13 +275,21 @@ class Trainer:
         """Stacked [B, ...] batch -> its merged graph on the host (NumPy):
         on the k-NN path the ELL graph with the source-sorted slot tables,
         on the COO path a ``CooGraph`` with its destination table and, for
-        a train step (``train``), its source table."""
+        a train step (``train``), its source table. Spans (``utils/prof``):
+        ``train.merge``, and ``train.from_padded`` on the COO path."""
         from ..ops.ell import coo_to_ell
         from ..ops.graph import CooGraph, merge_stacked
+        from ..utils import prof
 
-        merged = merge_stacked(stacked_graph)
+        tiles = int(np.asarray(stacked_graph.node_mask).shape[0])
+        with prof.TRACER.span("train.merge", {"tiles": tiles}):
+            merged = merge_stacked(stacked_graph)
         if not self.use_banded_training:
-            return CooGraph.from_padded(merged, src_table=train)
+            with prof.TRACER.span("train.from_padded", {"tiles": tiles}) as sp:
+                g = CooGraph.from_padded(merged, src_table=train)
+            if sp is not None:
+                sp.work["edges"] = int(g.dst_row_ptr[-1])
+            return g
         return coo_to_ell(merged, max_degree=self.knn_k
                           ).with_src_sorted_slots()
 
@@ -391,22 +399,31 @@ class Trainer:
         kernel F's sums on the COO path, on the card), backward (kernels
         C' and F; F), clip, AdamW. ``g``/``targets`` (and
         ``banded`` on the ``"banded"`` route) on the device. Returns
-        (losses, accuracy) as device tensors."""
+        (losses, accuracy) as device tensors. Spans (``utils/prof``):
+        ``train.step`` around ``train.forward``, ``train.backward`` and
+        ``train.optimizer``."""
+        from ..utils import prof
         from .optim import clip_by_global_norm_
 
-        model = state.model
-        params = list(model.parameters())
-        for p in params:
-            p.grad = None
-        losses, acc = self.loss_fn(model, g, targets, train=True,
-                                   banded=banded)
-        losses["total"].backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        clip_by_global_norm_(grads, self.config.training.grad_clip_norm)
-        state.optimizer.step(grads, lr)
-        state.step += 1
-        return {k: t.detach() for k, t in losses.items()}, acc.detach()
+        with prof.TRACER.root("train.step",
+                            {"slots": int(g.node_mask.shape[0])}):
+            model = state.model
+            params = list(model.parameters())
+            for p in params:
+                p.grad = None
+            with prof.TRACER.span("train.forward"):
+                losses, acc = self.loss_fn(model, g, targets, train=True,
+                                           banded=banded)
+            with prof.TRACER.span("train.backward"):
+                losses["total"].backward()
+            with prof.TRACER.span("train.optimizer"):
+                grads = [p.grad if p.grad is not None
+                         else torch.zeros_like(p) for p in params]
+                clip_by_global_norm_(grads,
+                                     self.config.training.grad_clip_norm)
+                state.optimizer.step(grads, lr)
+            state.step += 1
+            return {k: t.detach() for k, t in losses.items()}, acc.detach()
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, g, targets, banded=None):

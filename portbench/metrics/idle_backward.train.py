@@ -1,0 +1,11 @@
+"""Share of the traced training window, in %, with nothing running on the
+card while the host was in the program's span ``train.backward``:
+``backward()``. Each idle gap goes to the deepest program span on the
+step's thread covering most of it (``program_spans.gap_paths``); this
+sums the gaps that went to ``train.backward`` or to a span inside it."""
+
+from portbench import program_spans as ps
+
+
+def read(ctx):
+    return ps.idle_share(ctx, "train.backward")
