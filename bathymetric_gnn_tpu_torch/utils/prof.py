@@ -46,7 +46,11 @@ too, while the session still runs. A span on the root's thread also
 opens a ``record_function`` of its name, so it sits on the profiler's
 timeline. No span synchronizes the card or reads a tensor. The store
 keeps at most ``cap`` spans a session and counts the rest
-(``counters["spans_dropped"]``).
+(``counters["spans_dropped"]``). The program adds its own counts to
+``counters`` (``count``) while spans are recorded:
+``optim.multi_tensor_leaves`` and ``optim.per_leaf_leaves``, the leaves
+each AdamW step updated by multi-tensor launches and alone
+(``training/optim``).
 """
 
 from __future__ import annotations
@@ -224,6 +228,13 @@ class Stopwatch:
         else:
             stream = None
         return _Open(self, s, stream)
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to ``counters[name]`` while spans are recorded (the
+        last root span saw a profiler session)."""
+        if self.on:
+            with self._lock:
+                self.counters[name] = self.counters.get(name, 0) + n
 
     def _stack(self) -> List[Span]:
         st = getattr(self._local, "stack", None)
